@@ -1,0 +1,22 @@
+"""Command-line entry points of the port (argparse, the JAX CLIs' flag names).
+
+    python -m tf_face_toolbox_tpu_torch.cli.extract   # feature extraction
+    python -m tf_face_toolbox_tpu_torch.cli.eval_lfw  # pair verification
+"""
+
+
+def json_sanitize(value):
+    """Replace non-finite floats with None (JSON null), recursively —
+    json.dumps would otherwise emit bare NaN/Infinity tokens that
+    strict RFC-8259 parsers (jq, JSON.parse) reject. Used by eval_lfw,
+    whose report can contain NaN (TAR at a FAR finer than the pair set
+    resolves)."""
+    import math
+
+    if isinstance(value, dict):
+        return {k: json_sanitize(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [json_sanitize(v) for v in value]
+    if isinstance(value, float) and not math.isfinite(value):
+        return None
+    return value

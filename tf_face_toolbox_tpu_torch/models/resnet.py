@@ -1,0 +1,130 @@
+"""ResNet backbones (fp eval): bottleneck blocks, face and imagenet stems.
+
+Counterpart of ``tf_face_toolbox_tpu/models/resnet.py`` for groups=1,
+no squeeze-excite, no quantization and no remat. Anything else raises
+NotImplementedError naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from tf_face_toolbox_tpu_torch.models.layers import (
+    ConvBN,
+    EmbeddingHead,
+    max_pool_same_nhwc,
+)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck with residual add (NHWC)."""
+
+    def __init__(self, in_features: int, features: int, strides: int,
+                 expansion: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_features = features * expansion
+        self.strides = strides
+        self.ConvBN_0 = ConvBN(in_features, features, 1, dtype=dtype)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides, dtype=dtype)
+        self.ConvBN_2 = ConvBN(features, out_features, 1, relu=False,
+                               dtype=dtype)
+        if in_features != out_features or strides != 1:
+            self.ConvBN_3 = ConvBN(in_features, out_features, 1, strides,
+                                   relu=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x)))
+        residual = self.ConvBN_3(x) if hasattr(self, "ConvBN_3") else x
+        return torch.relu(residual + y)
+
+
+def _unsupported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
+                              f"item {item})")
+
+
+def block_strides(stage_idx: int, block_idx: int, stem: str) -> int:
+    """The face stem keeps stage 0 at stride 2 (112 -> 56); the imagenet
+    stem already downsampled, so its stage 0 runs at stride 1."""
+    first = block_idx == 0
+    return 2 if first and (stage_idx > 0 or stem == "face") else 1
+
+
+class ResNet(nn.Module):
+    """ResNet producing a face embedding: (N, H, W, 3) -> (N, D) f32.
+
+    ``input_size`` sizes the flatten head's Dense (flax infers it at
+    init); the gap head does not use it.
+    """
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 width_per_group: int = 64,
+                 stage_widths: Sequence[int] | None = None,
+                 groups: int = 1, se_reduction: int = 0,
+                 expansion: int = 4, embedding_dim: int = 512,
+                 stem: str = "face", head_variant: str = "gap",
+                 dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 quantized: bool | str = False, remat: bool | str = False,
+                 input_size: int = 112):
+        super().__init__()
+        if groups != 1:
+            _unsupported("grouped convs (ResNeXt)", "4")
+        if se_reduction:
+            _unsupported("squeeze-excite (SE-ResNet)", "4")
+        if quantized:
+            _unsupported("int8 serving", "18")
+        if remat:
+            _unsupported("remat (training)", "10")
+        if stem in ("space2depth", "dct"):
+            _unsupported(f"the {stem} stem", "4" if stem == "space2depth"
+                         else "17")
+        if stem not in ("face", "imagenet"):
+            raise ValueError(f"unknown stem: {stem}")
+        self.stage_sizes = tuple(stage_sizes)
+        self.stem = stem
+        self.head_variant = head_variant
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate   # train-time only; eval ignores it
+
+        size = input_size
+        if stem == "face":
+            self.ConvBN_0 = ConvBN(3, 64, 3, 1, dtype=dtype)
+        else:
+            self.ConvBN_0 = ConvBN(3, 64, 7, 2, dtype=dtype)
+            size = -(-size // 2)
+            size = -(-size // 2)          # max pool 3x3/s2
+        channels = 64
+        counter = 0
+        for stage_idx, num_blocks in enumerate(self.stage_sizes):
+            features = (stage_widths[stage_idx] if stage_widths is not None
+                        else width_per_group * groups * 2 ** stage_idx)
+            for block_idx in range(num_blocks):
+                strides = block_strides(stage_idx, block_idx, stem)
+                size = -(-size // strides)
+                self.add_module(
+                    f"BottleneckBlock_{counter}",
+                    BottleneckBlock(channels, features, strides, expansion,
+                                    dtype=dtype))
+                channels = features * expansion
+                counter += 1
+        self.num_blocks = counter
+        self.EmbeddingHead_0 = EmbeddingHead(
+            channels, embedding_dim, head_variant, spatial=(size, size),
+            dtype=dtype)
+
+    def blocks(self) -> list[BottleneckBlock]:
+        return [getattr(self, f"BottleneckBlock_{i}")
+                for i in range(self.num_blocks)]
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images: (N, H, W, 3) standardized pixels -> (N, D) f32."""
+        x = self.ConvBN_0(images.to(self.dtype))
+        if self.stem == "imagenet":
+            x = max_pool_same_nhwc(x, 3, 2)
+        for block in self.blocks():
+            x = block(x)
+        return self.EmbeddingHead_0(x)
