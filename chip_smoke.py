@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (tf_face_toolbox_tpu_torch) once at the
-full width of resnet_v1_50 (imagenet stem, gap head, 512-d, bf16,
+Drives the port's paths (tf_face_toolbox_tpu_torch) once each at full
+width. Extraction: resnet_v1_50 (imagenet stem, gap head, 512-d, bf16,
 seeded random weights): raw uint8 faces -> fused preprocess kernel ->
 flip-averaged fused-block engine -> L2-normalized embeddings, then the
-extract and eval_lfw CLIs. Phases:
+extract and eval_lfw CLIs. 1:N search: those embeddings among 10^6
+seeded distractors in DeviceGallery (f32, bf16, int8 stores) through
+the two top-k kernels, then the cluster, search and
+eval_identification CLIs. Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
-2. build: both CUDA kernels from tf_face_toolbox_tpu_torch/csrc
+2. build: every CUDA kernel from tf_face_toolbox_tpu_torch/csrc
 3. kernel vs plain PyTorch version at the main path's shapes
 4. slice: the e2e chain, its launch counts, and its embeddings held
    against the f32 module path (no kernels) on the same card
 5. CLIs: extract (--engine fused) and eval_lfw as subprocesses
 6. times: kernels vs plain versions, and the port bench (informational)
+7. top-k kernels vs plain versions: 2^20-row stores, 10^6 valid, 1%
+   tombstoned, B 1/64/300, k 5/20/100
+8. gallery slice: enroll, search, remove, search; launch counts
+9. gallery CLIs: cluster (bf16, int8), search, eval_identification
+10. gallery times: kernels vs plain at 2^20 rows and 10^7 rows
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -29,6 +37,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -107,6 +116,334 @@ def stage_operands(network: str, stem: str, seed: int):
         cin = (entry["w1"] if entry is not None else tail["w1s"][0]).shape[1]
         out.append(((size, size, cin), _to(entry, "cuda"), _to(tail, "cuda")))
     return out
+
+
+GALLERY_DTYPES = ("float32", "bfloat16", "int8")
+TOPK_TOL = 1e-5     # f32 sums in another order: scores, near-tie width
+
+
+def unit_rows(g, n: int, d: int, dtype=torch.float32,
+              chunk: int = 1 << 20) -> torch.Tensor:
+    """(n, d) seeded random unit rows on the card, made in chunks."""
+    out = torch.empty((n, d), dtype=dtype, device="cuda")
+    for i in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - i), d), generator=g, device="cuda")
+        out[i:i + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(dtype)
+    return out
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 on the card (serving/gallery._quantize_rows'
+    math: scale = max|x|/127 floored at 1e-12, round half to even)."""
+    scale = (x.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
+    q = torch.round(x / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def near_ties(ref: np.ndarray, k: int, tol: float = TOPK_TOL) -> np.ndarray:
+    """(B, k) mask of positions whose score in ``ref`` (the plain top
+    k+1) is within ``tol`` of a neighbour's: where f32 sums in another
+    order may swap two rows."""
+    gap = np.diff(-ref, axis=1) <= tol
+    near = np.zeros((ref.shape[0], k), bool)
+    near[:, 1:] |= gap[:, :k - 1]
+    near[:, :gap.shape[1]] |= gap[:, :k]
+    return near
+
+
+def check_topk_case(label, dtype, store, scale, probes, pscale, n_valid, k,
+                    bias, dead) -> float:
+    """One kernel call vs its plain version; → max |score error|."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+
+    if dtype == "int8":
+        got = ttk.cosine_topk_q(store, scale, probes, pscale, n_valid, k,
+                                bias=bias)
+        torch.cuda.synchronize()
+        want = ttk.cosine_topk_q_reference(store, scale, probes, pscale,
+                                           n_valid, k, bias=bias)
+        expect(torch.equal(got[1], want[1]), f"{label}: indices differ")
+        expect(torch.equal(got[0], want[0]), f"{label}: scores not bit-equal")
+    else:
+        got = ttk.cosine_topk(store, probes, n_valid, k, bias=bias)
+        torch.cuda.synchronize()
+        want = ttk.cosine_topk_reference(store, probes, n_valid, k + 1,
+                                         bias=bias)
+        ws = want[0].cpu().numpy()
+        near = near_ties(ws, k)
+        gi, wi = got[1].cpu().numpy(), want[1].cpu().numpy()[:, :k]
+        expect((gi == wi)[~near].all(),
+               f"{label}: indices differ away from near-ties")
+        err = (got[0] - want[0][:, :k]).abs().max().item()
+        expect(err <= TOPK_TOL, f"{label}: score error {err} > {TOPK_TOL}")
+    s, i = got[0].cpu().numpy(), got[1].cpu().numpy()
+    expect(bool((np.diff(s, axis=1) <= 0).all()), f"{label}: not descending")
+    expect(bool((i < n_valid).all()) and not np.isin(i, dead).any(),
+           f"{label}: a masked or tombstoned row surfaced")
+    return (got[0] - want[0][:, :k]).abs().max().item()
+
+
+def phase_topk_kernels(g) -> dict:
+    """Phase 7: both top-k kernels vs their plain versions."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+
+    cap, n_valid, d = 1 << 20, 1_000_000, 512
+    base = unit_rows(g, cap, d)
+    base[n_valid - 1] = base[5]             # exact duplicate, another CTA
+    dead = torch.randperm(n_valid, generator=g, device="cuda")[:n_valid // 100]
+    dead = dead[(dead != 5) & (dead != n_valid - 1)]
+    bias = torch.zeros(cap, device="cuda")
+    bias[dead] = -2e9
+    dead_np = dead.cpu().numpy()
+    # probes: a duplicated row, three tombstoned rows, a masked row, and
+    # fresh unit vectors
+    probes = torch.cat([base[5:6], base[dead[:3]], base[n_valid + 10:n_valid + 11],
+                        unit_rows(g, 295, d)])
+    err = {"topk": 0.0, "topk_q": 0.0}
+    t0 = time.time()
+    for dtype in GALLERY_DTYPES:
+        if dtype == "int8":
+            store, scale = quantize_rows(base)
+            pq, ps = quantize_rows(probes)
+        else:
+            store, scale = base.to(getattr(torch, dtype)), None
+            pq, ps = probes, None
+        for b in (1, 64, 300):
+            for k in (5, 20, 100):
+                e = check_topk_case(f"{dtype} B={b} k={k}", dtype, store, scale,
+                                    pq[:b], None if ps is None else ps[:b],
+                                    n_valid, k, bias, dead_np)
+                name = "topk_q" if dtype == "int8" else "topk"
+                err[name] = max(err[name], e)
+        if dtype != "int8":
+            _, i = ttk.cosine_topk(store, probes[:1], n_valid, 3, bias=bias)
+            i = i.cpu().numpy()
+            expect(i[0, 0] == 5 and i[0, 1] == n_valid - 1,
+                   f"{dtype}: duplicate rows not in index order: {i[0]}")
+        del store, scale
+    say(f"[7 top-k kernels] cap 2^20 x 512, n_valid 10^6, "
+        f"{len(dead_np)} tombstones, f32/bf16/int8 x B 1/64/300 x k "
+        f"5/20/100: int8 index- and bit-equal; f32/bf16 max score error "
+        f"{err['topk']:.3g}, index-equal away from near-ties "
+        f"(<= {TOPK_TOL}); no masked/tombstoned row surfaced; "
+        f"{time.time() - t0:.1f} s")
+    return err
+
+
+def phase_gallery_slice(g, faces: np.ndarray) -> dict:
+    """Phase 8: the 1:N slice on the card through DeviceGallery."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    n_dist = 1_000_000
+    distract = unit_rows(g, n_dist, faces.shape[1]).cpu().numpy()
+    labels = np.arange(len(faces))
+    # probes: every face, and 64 distractors (well separated from all)
+    probes = np.concatenate([faces, distract[:64]])
+    removed = [0, 7, 130, 300]
+    t0 = time.time()
+    galleries, results = {}, {}
+    ttk.cosine_topk.launches = 0
+    ttk.cosine_topk_q.launches = 0
+    for dtype in GALLERY_DTYPES:
+        gal = DeviceGallery(faces.shape[1], dtype=dtype, device="cuda")
+        gal.enroll(distract, 10_000 + np.arange(n_dist))
+        gal.enroll(faces[:128], labels[:128])
+        gal.enroll(faces[128:], labels[128:])
+        before = gal.search(probes, k=5)
+        for lab in removed:
+            expect(gal.remove(lab) == 1, f"{dtype}: remove({lab})")
+        after = gal.search(probes, k=5)
+        galleries[dtype] = gal
+        results[dtype] = (before, after)
+    torch.cuda.synchronize()
+    launches = {"topk": ttk.cosine_topk.launches,
+                "topk_q": ttk.cosine_topk_q.launches}
+    expect(launches == {"topk": 4, "topk_q": 2},
+           f"gallery launch counts {launches}, want topk 4 (f32 and bf16, "
+           "2 searches each), topk_q 2")
+    slice_s = time.time() - t0
+
+    # the same searches through the plain programs (no launches); f32
+    # and bf16 with one more column, for the near-tie test at rank 5
+    plain = {}
+    for dtype, gal in galleries.items():
+        gal.use_kernels = False
+        plain[dtype] = gal.search(probes, k=5 if dtype == "int8" else 6)
+        if dtype == "float32":
+            wide = gal.search(probes, k=21)[1]
+        gal.use_kernels = True
+    sims = faces @ faces.T
+    np.fill_diagonal(sims, -1)
+    for dtype in GALLERY_DTYPES:
+        (l1, s1), (l2, s2) = results[dtype]
+        expect(l1.shape == (len(probes), 5) and np.isfinite(s1).all(),
+               f"{dtype}: search shape/finite")
+        expect(not np.isin(l2, removed).any(), f"{dtype}: a removed label "
+                                                "surfaced")
+        pl, ps = plain[dtype]
+        if dtype == "int8":
+            expect(np.array_equal(l2, pl) and np.array_equal(s2, ps),
+                   "int8: kernel and plain two-stage searches differ")
+            continue
+        near = near_ties(ps, 5)
+        expect((l2 == pl[:, :5])[~near].all(),
+               f"{dtype}: labels differ from the plain program away "
+               "from near-ties")
+        expect(np.abs(s2 - ps[:, :5]).max() <= TOPK_TOL,
+               f"{dtype}: scores differ from the plain program")
+    # int8 two-stage labels equal the f32 store's, away from near-ties,
+    # for every probe whose coarse top-20 must hold its true top 5: the
+    # f32 rank-5 and rank-21 scores 0.01 apart, several times the int8
+    # store's coarse cosine error on unit vectors
+    l8, s8 = results["int8"][1]
+    l32, s32 = results["float32"][1]
+    posed = wide[:, 4] - wide[:, 20] > 0.01
+    expect(posed.sum() >= 32, f"only {posed.sum()} probes with a clear "
+                              "rank-5 margin")
+    near = near_ties(plain["float32"][1], 5)
+    expect((l8 == l32)[posed[:, None] & ~near].all(),
+           "int8 labels differ from the f32 store's")
+    expect(np.abs(s8 - s32)[posed].max(initial=0) <= TOPK_TOL,
+           "int8 rescored scores differ from the f32 store's")
+    say(f"[8 gallery slice] {len(faces)} embeddings (128 phase-4 + 400 "
+        f"CLI) among {n_dist} distractors, {len(probes)} probes (max cosine between two faces "
+        f"{sims.max():.6f}), f32/bf16/int8 stores: enroll, search, remove "
+        f"{removed}, search; removed labels never surface; labels equal "
+        f"the plain programs' away from near-ties; int8 labels equal the "
+        f"f32 store's on the {int(posed.sum())} probes where that is "
+        f"well posed (all labels agree on {float((l8 == l32).mean()):.4f}); "
+        f"launches {launches}; {slice_s:.1f} s")
+    return launches
+
+
+def phase_gallery_clis(work: str, out_npy: str) -> None:
+    """Phase 9: the gallery CLIs as subprocesses on the CLI embeddings."""
+    from tf_face_toolbox_tpu_torch.ops.clustering import cluster_embeddings
+    from tf_face_toolbox_tpu_torch.ops.verification import (
+        identification_stats, cmc_curve)
+
+    emb = np.load(out_npy)
+    t0 = time.time()
+    for dtype in ("bfloat16", "int8"):
+        out = os.path.join(work, f"clusters_{dtype}.npy")
+        proc = subprocess.run(
+            [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.cluster",
+             "--embeddings", out_npy, "--output", out, "--store_dtype", dtype,
+             "--k", "10", "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        expect(proc.returncode == 0, f"cli.cluster {dtype} failed:\n"
+                                     f"{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        labels = np.load(out)
+        want, n = cluster_embeddings(emb, threshold=0.6, k=10,
+                                     store_dtype=dtype, device="cpu")
+        expect(labels.shape == (400,) and report["rows"] == 400 and
+               report["clusters"] == n and np.array_equal(labels, want),
+               f"cli.cluster {dtype}: {report} vs plain {n} clusters")
+    gal, probe = emb[:200], emb[100:300]
+    paths = {}
+    for name, arr in (("gal", gal), ("probe", probe)):
+        paths[name] = os.path.join(work, f"{name}.npy")
+        np.save(paths[name], arr)
+    glab = np.arange(200)
+    plab = np.r_[100:200, 1000:1100]         # 100 mated, 100 non-mated
+    for name, lab in (("gal_list", glab), ("probe_list", plab)):
+        paths[name] = os.path.join(work, f"{name}.txt")
+        with open(paths[name], "w") as f:
+            f.writelines(f"face_{i}.jpg {v}\n" for i, v in enumerate(lab))
+    matches = os.path.join(work, "matches.npz")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.search",
+         "--gallery", paths["gal"], "--probe", paths["probe"],
+         "--gallery_list", paths["gal_list"], "--k", "5", "--output", matches,
+         "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    expect(proc.returncode == 0, f"cli.search failed:\n{proc.stderr[-3000:]}")
+    m = np.load(matches)
+    expect(m["indices"].shape == (200, 5) and m["labels"].shape == (200, 5)
+           and np.isfinite(m["scores"]).all(), "cli.search output shapes")
+    ref = probe @ gal.T
+    order = np.argsort(-ref, axis=1, kind="stable")[:, :6]
+    ref_s = np.take_along_axis(ref, order, axis=1)
+    near = near_ties(ref_s, 5)
+    expect((m["indices"] == order[:, :5])[~near].all() and np.abs(
+        m["scores"] - ref_s[:, :5]).max() <= TOPK_TOL,
+        "cli.search differs from a numpy search")
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "tf_face_toolbox_tpu_torch.cli.eval_identification",
+         "--gallery", paths["gal"], "--probe", paths["probe"],
+         "--gallery_list", paths["gal_list"], "--probe_list",
+         paths["probe_list"], "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    expect(proc.returncode == 0,
+           f"cli.eval_identification failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    want = cmc_curve(None, None, None, None, ranks=(1, 5, 10),
+                     stats=identification_stats(gal, glab, probe, plab,
+                                                 device="cpu"))
+    expect(report["probes"] == 100 and report["skipped"] == 100 and
+           "open_set" in report and
+           {int(k): v for k, v in report["cmc"].items()} == want["cmc"],
+           f"cli.eval_identification report {report} vs {want}")
+    say(f"[9 gallery CLIs] cluster (bf16, int8) labels equal the plain "
+        f"run's ({n} clusters; random weights), search top-5 of 200 "
+        f"probes, eval_identification CMC {report['cmc']} (random "
+        f"weights: means nothing); {time.time() - t0:.1f} s")
+
+
+def phase_gallery_times(g) -> list:
+    """Phase 10: kernel vs plain times (CUDA events) at 2^20 rows for
+    every store, and at 10^7 bf16 and int8 rows."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+
+    rows = []
+    d = 512
+    for cap in (1 << 20, 10_000_000):
+        base = unit_rows(g, cap, d, dtype=torch.bfloat16)
+        probes = unit_rows(g, 64, d)
+        dtypes = GALLERY_DTYPES if cap == 1 << 20 else ("bfloat16", "int8")
+        for dtype in dtypes:
+            if dtype == "int8":
+                store = torch.empty((cap, d), dtype=torch.int8, device="cuda")
+                scale = torch.empty(cap, device="cuda")
+                for i in range(0, cap, 1 << 20):
+                    store[i:i + (1 << 20)], scale[i:i + (1 << 20)] = \
+                        quantize_rows(base[i:i + (1 << 20)].float())
+                pq, ps = quantize_rows(probes)
+            elif dtype == "float32":
+                store = base.float()
+            else:
+                store = base
+            for b in (1, 64):
+                if dtype == "int8":
+                    k = 20                          # the coarse 4 x k of k=5
+                    args = (store, scale, pq[:b], ps[:b], cap, k)
+                    kern, plain = ttk.cosine_topk_q, ttk.cosine_topk_q_reference
+                else:
+                    k = 5
+                    args = (store, probes[:b], cap, k)
+                    kern, plain = ttk.cosine_topk, ttk.cosine_topk_reference
+                iters = 10 if cap == 1 << 20 else 3
+                p_ms = bench.time_ms(lambda: plain(*args), iters=iters, warmup=1)
+                k_ms = bench.time_ms(lambda: kern(*args), iters=iters, warmup=1)
+                k_ms2 = bench.time_ms(lambda: kern(*args), iters=iters, warmup=1)
+                p_ms2 = bench.time_ms(lambda: plain(*args), iters=iters, warmup=1)
+                gb = store.numel() * store.element_size() / 1e9
+                km = (k_ms + k_ms2) / 2
+                rows.append({"dtype": dtype, "rows": cap, "batch": b, "k": k,
+                             "ms": km, "plain_ms": (p_ms + p_ms2) / 2,
+                             "gb_per_s": gb / km * 1e3})
+                say(f"  top-k {dtype} {cap} rows B={b} k={k}: kernel "
+                    f"{k_ms:.3f}/{k_ms2:.3f} ms ({gb / km * 1e3:.0f} GB/s of "
+                    f"store), plain {p_ms:.3f}/{p_ms2:.3f} ms")
+            if store is not base:
+                del store
+        del base
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -248,7 +585,6 @@ def main() -> None:
          "--batch", "128", "--device", "cuda"],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     expect(proc.returncode == 0, f"cli.extract failed:\n{proc.stderr[-3000:]}")
-    import numpy as np
     emb_cli = np.load(out_npy)
     expect(emb_cli.shape == (400, 512) and np.isfinite(emb_cli).all(),
            f"cli.extract wrote {emb_cli.shape}")
@@ -290,6 +626,18 @@ def main() -> None:
                     f"{r['value']:.1f} faces/s (min {r['min']:.1f}, max "
                     f"{r['max']:.1f}), {r['ms_per_batch']:.2f} ms/batch")
 
+    # ---- 7-10. 1:N search: top-k kernels, gallery slice, CLIs, times
+    topk_err = phase_topk_kernels(g)
+    topk_launches = phase_gallery_slice(g, np.concatenate(
+        [emb.cpu().numpy(), emb_cli]))
+    phase_gallery_clis(work, out_npy)
+    say(f"[10 gallery times] {gpu}")
+    topk_times = phase_gallery_times(g)
+    t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
+                  and r["rows"] == 10_000_000 and r["batch"] == 64)
+    t_topk_q = next(r for r in topk_times if r["dtype"] == "int8"
+                    and r["rows"] == 10_000_000 and r["batch"] == 64)
+
     kernels = [
         {"name": "preprocess", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/preprocess.cu",
@@ -303,6 +651,17 @@ def main() -> None:
          "max_abs_err": max(s["max_abs_err"] for s in block_stats),
          "ms": sum(s["ms"] for s in block_stats),
          "plain_ms": sum(s["plain_ms"] for s in block_stats)},
+        {"name": "topk", "route": "cuda",
+         "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
+         "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:118",
+         "launches": topk_launches["topk"], "max_abs_err": topk_err["topk"],
+         "ms": t_topk["ms"], "plain_ms": t_topk["plain_ms"]},
+        {"name": "topk_q", "route": "cuda",
+         "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
+         "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:194",
+         "launches": topk_launches["topk_q"],
+         "max_abs_err": topk_err["topk_q"],
+         "ms": t_topk_q["ms"], "plain_ms": t_topk_q["plain_ms"]},
     ]
     say(json.dumps({"kernels": kernels}))
     say(gpu)

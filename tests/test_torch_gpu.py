@@ -11,7 +11,10 @@ device every test skips.
 import pytest
 import torch
 
+import numpy as np
+
 from tf_face_toolbox_tpu_torch.ops import fused_preprocess as tpp
+from tf_face_toolbox_tpu_torch.ops import topk as ttk
 from tf_face_toolbox_tpu_torch.serving import fused_block as tfb
 
 pytestmark = pytest.mark.gpu
@@ -115,3 +118,155 @@ def test_fused_engine_matches_folded(cuda):
     cos = torch.nn.functional.cosine_similarity(fused.double(),
                                                 folded.double())
     assert cos.min().item() >= 0.999
+
+
+def _unit_rows(g, n, d):
+    x = torch.randn(n, d, generator=g, device="cuda")
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _quantize(x):
+    """Per-row symmetric int8, as serving/gallery._quantize_rows."""
+    scale = (x.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
+    q = torch.round(x / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def assert_topk_matches(got, want, want_next=None, *, tol=1e-5):
+    """Kernel 3's bar: scores within ``tol`` of the plain version's,
+    indices equal except where the plain scores around a position are
+    within ``tol`` of each other (f32 sums in another order may swap
+    them). ``want_next``: the plain version's top k+1 scores."""
+    gs, gi = (t.cpu().numpy() for t in got)
+    ws, wi = (t.cpu().numpy() for t in want)
+    np.testing.assert_allclose(gs, ws, atol=tol, rtol=0)
+    ref = ws if want_next is None else want_next.cpu().numpy()
+    gap = np.diff(-ref, axis=1) <= tol             # near-tie with next
+    k = ws.shape[1]
+    near = np.zeros_like(wi, bool)
+    near[:, 1:] |= gap[:, :k - 1]
+    near[:, :gap.shape[1]] |= gap[:, :k]
+    assert (gi == wi)[~near].all()
+
+
+# (cap, n_valid, batch, k): ragged fill and capacity, a batch that is
+# not a multiple of the 32-probe tile, k at the kernels' limit
+_TOPK_CASES = [(3000, 2500, 1, 5), (4133, 4100, 33, 20), (2048, 1100, 7, 1024),
+               (700, 700, 64, 100)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", _TOPK_CASES, ids=str)
+def test_topk_kernel_vs_plain(cuda, dtype, case):
+    cap, n, b, k = case
+    d = 512
+    store = _unit_rows(cuda, cap, d)
+    store[cap - 1] = store[7]                       # duplicate in another CTA
+    probes = torch.cat([store[7:8], _unit_rows(cuda, b - 1, d)])
+    bias = torch.zeros(cap, device="cuda")
+    dead = torch.randperm(n, generator=cuda, device="cuda")[:max(1, n // 100)]
+    dead = dead[(dead != 7) & (dead != cap - 1)]
+    bias[dead] = -2e9
+    if dtype == "int8":
+        gq, gs = _quantize(store)
+        pq, ps = _quantize(probes)
+        before = ttk.cosine_topk_q.launches
+        got = ttk.cosine_topk_q(gq, gs, pq, ps, n, k, bias=bias)
+        torch.cuda.synchronize()
+        assert ttk.cosine_topk_q.launches == before + 1
+        want = ttk.cosine_topk_q_reference(gq, gs, pq, ps, n, k, bias=bias)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])             # bit-equal scores
+    else:
+        st = store.to(getattr(torch, dtype))
+        before = ttk.cosine_topk.launches
+        got = ttk.cosine_topk(st, probes, n, k, bias=bias)
+        torch.cuda.synchronize()
+        assert ttk.cosine_topk.launches == before + 1
+        want = ttk.cosine_topk_reference(st, probes, n, k, bias=bias)
+        nxt = ttk.cosine_topk_reference(st, probes, n, min(k + 1, cap),
+                                        bias=bias)[0]
+        assert_topk_matches(got, want, nxt)
+    s, i = (t.cpu().numpy() for t in got)
+    live = int(n - len(dead))
+    assert (np.diff(s, axis=1) <= 0).all()
+    if k <= live:                       # masked / dead rows never surface
+        assert (i < n).all() and not np.isin(i, dead.cpu().numpy()).any()
+    # the duplicated row: the smaller index first, when both make the cut
+    if dtype != "int8" and cap - 1 < n:
+        assert i[0, 0] == 7 and i[0, 1] == cap - 1
+
+
+@pytest.mark.parametrize("order", ["ascending", "descending", "clustered"])
+def test_topk_kernel_adversarial_orderings(cuda, order):
+    """Scores that rise with the row (every row enters every list),
+    fall (none enters after the first tile), or sit in one tile (the
+    whole top-k in one CTA): index- and score-equal to the plain
+    version, k past one 32-entry chunk of the lists."""
+    cap, d, k = 8192, 128, 100
+    base = _unit_rows(cuda, 1, d)[0]
+    if order == "ascending":
+        s = torch.linspace(-0.9, 0.9, cap, device="cuda")
+    elif order == "descending":
+        s = torch.linspace(0.9, -0.9, cap, device="cuda")
+    else:
+        s = torch.linspace(-0.5, 0.0, cap, device="cuda")
+        s[5000:5000 + k] = torch.linspace(0.9, 0.99, k, device="cuda")
+    other = _unit_rows(cuda, cap, d)
+    other = other - (other @ base)[:, None] * base
+    other = other / other.norm(dim=1, keepdim=True)
+    store = s[:, None] * base + (1 - s * s).sqrt()[:, None] * other
+    probes = base[None].repeat(3, 1)
+    got = ttk.cosine_topk(store, probes, cap, k)
+    torch.cuda.synchronize()
+    want = ttk.cosine_topk_reference(store, probes, cap, k)
+    nxt = ttk.cosine_topk_reference(store, probes, cap, k + 1)[0]
+    assert_topk_matches(got, want, nxt)
+    assert len(set(got[1][0].tolist())) == k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_topk_kernel_refuses_k_above_limit(cuda, dtype):
+    store = _unit_rows(cuda, 2048, 64)
+    with pytest.raises(ValueError, match="K_MAX"):
+        if dtype == "int8":
+            gq, gs = _quantize(store)
+            ttk.cosine_topk_q(gq, gs, gq[:2], gs[:2], 2048, ttk.K_MAX + 1)
+        else:
+            ttk.cosine_topk(store, store[:2], 2048, ttk.K_MAX + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_gallery_runs_the_kernels(cuda, dtype):
+    """Resident and streamed searches of a CUDA store launch kernel 3
+    (f32/bf16) or 4 (int8) on every call, and agree with the plain
+    programs (use_kernels=False)."""
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    rng = np.random.default_rng(0)
+    e = rng.normal(size=(300, 64)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    counter = ttk.cosine_topk_q if dtype == "int8" else ttk.cosine_topk
+    res = DeviceGallery(64, block=8, dtype=dtype, device="cuda")
+    plain = DeviceGallery(64, block=8, dtype=dtype, device="cuda")
+    plain.use_kernels = False
+    limit = 64 * 64 * res.itemsize / 1e9
+    stream = DeviceGallery(64, block=8, dtype=dtype, hbm_limit_gb=limit,
+                           overflow="stream", device="cuda")
+    stream.stream_slab_bytes = 64 * 64 * res.itemsize    # 64-row slabs
+    for g in (res, plain, stream):
+        g.enroll(e[:250], np.arange(250))
+        g.enroll(e[250:], np.arange(250, 300))
+        g.remove(3)
+    assert stream.streaming
+    before = counter.launches
+    lr, sr = res.search(e[:9], k=5)
+    assert counter.launches == before + 1
+    ls, ss = stream.search(e[:9], k=5)
+    assert counter.launches == before + 1 + 5           # one per slab
+    lp, sp = plain.search(e[:9], k=5)
+    assert counter.launches == before + 6
+    np.testing.assert_array_equal(lr, lp)
+    np.testing.assert_array_equal(ls, lp)
+    np.testing.assert_allclose(sr, sp, atol=1e-5)
+    assert 3 not in lr

@@ -1,0 +1,267 @@
+"""Port top-k (plain versions of kernels 3 and 4) vs the JAX package.
+
+The same numpy stores and probes go through tf_face_toolbox_tpu's
+Pallas kernels (interpret mode on the CPU, as tests/test_pallas_topk.py
+runs them) and tf_face_toolbox_tpu_torch's wrappers, which on a CPU
+tensor run the plain PyTorch versions.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_face_toolbox_tpu.ops.pallas_topk import (
+    cosine_topk_impl,
+    cosine_topk_q_impl,
+)
+from tf_face_toolbox_tpu.serving.gallery import _quantize_rows, _search_fn
+from tf_face_toolbox_tpu_torch.ops import topk as ttk
+
+torch.set_num_threads(1)
+
+DIM = 512
+
+
+def _unit(rng, n, dim=DIM):
+    e = rng.normal(size=(n, dim)).astype(np.float32)
+    return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def assert_topk_close(got, want_s, want_i, ref_next=None, tol=1e-5):
+    """Scores within ``tol``; indices equal except at positions whose
+    reference score is within ``tol`` of a neighbour's (the k-th and
+    (k+1)-th included, via ``ref_next``: the top k+1 scores)."""
+    gs, gi = (np.asarray(t) for t in got)
+    want_s, want_i = np.asarray(want_s), np.asarray(want_i)
+    np.testing.assert_allclose(gs, want_s, atol=tol, rtol=0)
+    ref = want_s if ref_next is None else np.asarray(ref_next)
+    gap = np.diff(-ref, axis=1) <= tol
+    k = want_s.shape[1]
+    near = np.zeros(want_i.shape, bool)
+    near[:, 1:] |= gap[:, :k - 1]
+    near[:, :gap.shape[1]] |= gap[:, :k]
+    np.testing.assert_array_equal(gi[~near], want_i[~near])
+
+
+@pytest.mark.parametrize("batch", [1, 7, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cosine_topk_matches_jax_kernel(batch, dtype):
+    rng = np.random.default_rng(3)
+    cap, n, k = 3072, 2500, 5
+    g = np.zeros((cap, DIM), np.float32)
+    g[:n] = _unit(rng, n)
+    p = g[:n][rng.integers(0, n, batch)]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    js, ji = cosine_topk_impl(jnp.asarray(g, jdt), jnp.asarray(p), n, k + 1,
+                              interpret=True)
+    got = ttk.cosine_topk(_t(g).to(tdt), _t(p), n, k)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert tuple(got[0].shape) == (batch, k)
+    assert_topk_close(got, np.asarray(js)[:, :k], np.asarray(ji)[:, :k],
+                      ref_next=js)
+    assert np.all(np.diff(got[0].numpy(), axis=1) <= 0)
+
+
+def test_cosine_topk_masks_partial_fill_and_ties():
+    rng = np.random.default_rng(4)
+    cap, n = 2048, 1100                  # tail block half-masked
+    g = np.zeros((cap, DIM), np.float32)
+    g[:n] = _unit(rng, n)
+    g[7] = g[1040]                       # exact tie across blocks
+    p = g[7:8]
+    s, i = ttk.cosine_topk(_t(g), _t(p), n, 3)
+    js, ji = cosine_topk_impl(jnp.asarray(g), jnp.asarray(p), n, 3,
+                              interpret=True)
+    # the tie resolves to the smallest index, like lax.top_k
+    assert i[0, 0] == 7 and i[0, 1] == 1040
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5)
+    # masked rows (>= n) never surface
+    _, i = ttk.cosine_topk(_t(g), _t(p), n, 5)
+    assert i.max() < n
+
+
+def _gallery_with_scores(base, others, scores, cap):
+    """Rows whose cosine against ``base`` is ``scores`` (base mixed with
+    an orthogonalized partner), as tests/test_pallas_topk.py builds."""
+    g = np.empty((cap, DIM), np.float32)
+    for j, s in enumerate(scores):
+        v = others[j] - (others[j] @ base) * base
+        v /= np.linalg.norm(v)
+        g[j] = s * base + np.sqrt(1.0 - s * s) * v
+    return g
+
+
+@pytest.mark.parametrize("order", ["ascending", "descending", "clustered",
+                                   "duplicate"])
+def test_adversarial_orderings_match_jax(order):
+    """Orderings that stress a streaming merge: every block's best
+    enters (ascending), none after the first (descending), the whole
+    top-k in one interior block (clustered), and an exact cross-block
+    duplicate inside the top-k."""
+    rng = np.random.default_rng(9)
+    cap = n = 4096
+    k = 6
+    base = _unit(rng, 1)[0]
+    others = _unit(rng, n)
+    p = base[None, :].astype(np.float32)
+    if order == "ascending":
+        scores = np.linspace(-0.9, 0.9, n)
+    elif order == "descending":
+        scores = np.linspace(0.9, -0.9, n)
+    elif order == "clustered":
+        scores = np.concatenate([np.linspace(-0.5, 0.0, 2048),
+                                 np.linspace(0.90, 0.99, 6),
+                                 np.linspace(-0.5, 0.0, n - 2054)])
+    else:
+        scores = np.linspace(-0.9, 0.9, n)
+    g = _gallery_with_scores(base, others, scores, cap)
+    if order == "duplicate":
+        g[1030] = g[4095]
+    s, i = ttk.cosine_topk(_t(g), _t(p), n, k)
+    js, ji = cosine_topk_impl(jnp.asarray(g), jnp.asarray(p), n, k,
+                              interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5)
+    ref = (p @ g[:n].T)[0]
+    np.testing.assert_array_equal(i.numpy()[0],
+                                  np.argsort(-ref, kind="stable")[:k])
+    assert len(set(i.numpy()[0].tolist())) == k
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_cosine_topk_q_matches_jax_kernel(batch):
+    """int8: index-exact, scores within 1e-6 (the same quantized math)."""
+    rng = np.random.default_rng(6)
+    cap, n, k = 2048, 1900, 7
+    g = np.zeros((cap, DIM), np.float32)
+    g[:n] = _unit(rng, n)
+    gq, gs = _quantize_rows(g)
+    p = g[:n][rng.integers(0, n, batch)]
+    pq, ps = _quantize_rows(p)
+    js, ji = cosine_topk_q_impl(jnp.asarray(gq), jnp.asarray(gs),
+                                jnp.asarray(pq), jnp.asarray(ps), n, k,
+                                interpret=True)
+    s, i = ttk.cosine_topk_q(_t(gq), _t(gs), _t(pq), _t(ps), n, k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_bias_masks_tombstones_like_jax(dtype):
+    """A -2e9 row bias (tombstones) masks rows in both packages; with k
+    above the live count the dead rows come last, by index."""
+    rng = np.random.default_rng(7)
+    cap, n, k = 1024, 40, 12
+    g = np.zeros((cap, DIM), np.float32)
+    g[:n] = _unit(rng, n)
+    bias = np.zeros(cap, np.float32)
+    dead = np.array([0, 3, 19, 33])
+    bias[dead] = -2e9
+    p = g[[0, 5, 19]]
+    if dtype == "int8":
+        gq, gs = _quantize_rows(g)
+        pq, ps = _quantize_rows(p)
+        js, ji = cosine_topk_q_impl(jnp.asarray(gq), jnp.asarray(gs),
+                                    jnp.asarray(pq), jnp.asarray(ps), n, k,
+                                    interpret=True, bias=jnp.asarray(bias))
+        s, i = ttk.cosine_topk_q(_t(gq), _t(gs), _t(pq), _t(ps), n, k,
+                                 bias=_t(bias))
+    else:
+        js, ji = cosine_topk_impl(jnp.asarray(g), jnp.asarray(p), n, k,
+                                  interpret=True, bias=jnp.asarray(bias))
+        s, i = ttk.cosine_topk(_t(g), _t(p), n, k, bias=_t(bias))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5)
+    assert not np.isin(i.numpy(), dead).any()
+    # k = the fill: every live row first, then the dead ones by index
+    if dtype == "float32":
+        s, i = ttk.cosine_topk(_t(g), _t(p), n, n, bias=_t(bias))
+        s, i = s.numpy(), i.numpy()
+        np.testing.assert_array_equal(i[:, -len(dead):],
+                                      np.tile(dead, (3, 1)))
+        assert (s[:, -len(dead):] == -2e9).all()
+
+
+def test_large_k_matches_xla_program():
+    """k above the kernels' limit: the wrapper raises (no switch to
+    the plain version); the plain version itself takes it and agrees
+    with the JAX XLA program."""
+    rng = np.random.default_rng(8)
+    cap, n, k = 2048, 1900, 1100
+    g = np.zeros((cap, 64), np.float32)
+    g[:n] = _unit(rng, n, 64)
+    p = g[:3]
+    with pytest.raises(ValueError, match="K_MAX"):
+        ttk.cosine_topk(_t(g), _t(p), n, ttk.K_MAX + 1)
+    with pytest.raises(ValueError, match="K_MAX"):
+        gq, gs = _quantize_rows(g)
+        ttk.cosine_topk_q(_t(gq), _t(gs), _t(gq[:2]), _t(gs[:2]), n,
+                          ttk.K_MAX + 1)
+    js, ji = _search_fn(k + 1)(jnp.asarray(g), jnp.zeros(cap), jnp.asarray(p),
+                               jnp.int32(n))
+    got = ttk.cosine_topk_reference(_t(g), _t(p), n, k)
+    assert_topk_close(got, np.asarray(js)[:, :k], np.asarray(ji)[:, :k],
+                      ref_next=js)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 100, 1000, 4096])
+def test_chunked_reference_is_exact(chunk_rows):
+    """Any chunking gives the same bits: the merge carries the global
+    row index, so ties keep their order across chunk borders."""
+    rng = np.random.default_rng(10)
+    cap, n, k = 3000, 2900, 40
+    g = np.zeros((cap, 64), np.float32)
+    g[:n] = _unit(rng, n, 64)
+    g[2500:2600] = g[:100]                  # ties across chunks
+    p = g[[0, 50, 99]]
+    want = ttk.cosine_topk_reference(_t(g), _t(p), n, k, chunk_rows=cap)
+    got = ttk.cosine_topk_reference(_t(g), _t(p), n, k, chunk_rows=chunk_rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    i = want[1].numpy()
+    assert i[0, 0] == 0 and i[0, 1] == 2500
+
+
+def test_stable_topk_matches_lax_top_k_with_ties():
+    import jax
+
+    rng = np.random.default_rng(11)
+    x = rng.integers(-3, 4, size=(5, 300)).astype(np.float32) / 4
+    x[0, :] = 0.0
+    x[1, ::2] = -0.0                        # -0 ties with +0
+    x[2, 7] = -2e9
+    js, ji = jax.lax.top_k(jnp.asarray(x), 50)
+    s, i = ttk.stable_topk(_t(x), 50)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("batch,cap,k", [(1, 10_000_000, 5), (64, 1 << 20, 20),
+                                         (300, 1 << 20, 100),
+                                         (2048, 10**6, 1024), (7, 100, 64)])
+def test_launch_plan_covers_the_store(batch, cap, k):
+    plan = ttk.launch_plan(batch, cap, k, n_sms=132)
+    assert 1 <= plan["per_cta"] <= 32
+    assert plan["mt"] == (1 if plan["per_cta"] <= 16 else 2)
+    assert plan["per_cta"] * k * 8 <= 64 << 10 or plan["per_cta"] == 1
+    assert plan["slice_rows"] % ttk.TILE_ROWS == 0
+    assert plan["slices"] * plan["slice_rows"] >= cap
+    assert (plan["slices"] - 1) * plan["slice_rows"] < cap
+
+
+def test_wrappers_reject_bad_inputs():
+    g = torch.zeros((16, 64))
+    with pytest.raises(ValueError, match="dim"):
+        ttk.cosine_topk(g, torch.zeros((1, 32)), 16, 1)
+    with pytest.raises(ValueError, match="store dtype"):
+        ttk.cosine_topk(g.to(torch.float16), torch.zeros((1, 64)), 16, 1)
+    with pytest.raises(ValueError, match="exceeds the store"):
+        ttk.cosine_topk(g, torch.zeros((1, 64)), 16, 17)
+    with pytest.raises(ValueError, match="bias"):
+        ttk.cosine_topk(g, torch.zeros((1, 64)), 16, 1, bias=torch.zeros(3))

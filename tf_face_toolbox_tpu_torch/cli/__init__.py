@@ -2,6 +2,9 @@
 
     python -m tf_face_toolbox_tpu_torch.cli.extract   # feature extraction
     python -m tf_face_toolbox_tpu_torch.cli.eval_lfw  # pair verification
+    python -m tf_face_toolbox_tpu_torch.cli.search    # 1:N top-k matches
+    python -m tf_face_toolbox_tpu_torch.cli.eval_identification  # CMC, DIR@FAR
+    python -m tf_face_toolbox_tpu_torch.cli.cluster   # kNN-graph clustering
 """
 
 

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 At first use, ``load_library()`` compiles every ``csrc/*.cu`` of this
-package into one shared library with a plain C interface, for Hopper
-(``sm_90a``), under ``build/torch_kernels/`` at the repository root.
+package for Hopper (``sm_90a``), one nvcc process per source, all
+started together, and links the objects into one shared library with a
+plain C interface under ``build/torch_kernels/`` at the repository root.
 The file name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded. A failed build
 raises with nvcc's stderr; there is no fallback.
@@ -25,7 +26,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,16 @@ SIGNATURES = {
     # device, stream
     "tfft_bottleneck_block": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # store, probes, bias, n_valid, cap, d, b, k, per_cta, mt,
+    # slice_rows, slices, store_bf16, part_s, part_i, out_s, out_i,
+    # device, stream
+    "tfft_topk": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _I, _P]),
+    # store, row_scale, probes, probe_scale, bias, n_valid, cap, d, b, k,
+    # per_cta, mt, slice_rows, slices, part_s, part_i, out_s, out_i,
+    # device, stream
+    "tfft_topk_q": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _P, _P, _I, _P]),
     "tfft_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -74,19 +85,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtfft_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str], proc: subprocess.Popen) -> None:
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+
+
 def build() -> str:
     """Compile the sources unless the library for them exists."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
+    tag = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, jobs = [], []
+    for src in _sources():
+        obj = f"{tag}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+        objs.append(obj)
+    try:
+        for cmd, proc in jobs:
+            _run(cmd, proc)
+        tmp = f"{tag}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _run(cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                   stderr=subprocess.PIPE, text=True))
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     # atomic: a concurrent process never loads a half-written library
     os.replace(tmp, out)
     return out

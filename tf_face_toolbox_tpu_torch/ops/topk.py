@@ -1,0 +1,287 @@
+"""Cosine scores + exact top-k for 1:N search: kernels 3 and 4.
+
+Counterpart of ``tf_face_toolbox_tpu/ops/pallas_topk.py`` and of the
+XLA search programs of ``serving/gallery.py`` (``_search_fn``,
+``_search_q_fn``, ``_search_scan_fn``). A CUDA store goes through the
+hand-written kernels in ``csrc/topk.cu``; a CPU store goes through the
+plain PyTorch versions, ``cosine_topk_reference`` and
+``cosine_topk_q_reference``, which the tests hold against the JAX
+package and the kernels against on the card.
+
+The contract, shared by all four:
+
+- probes are cast to the store's dtype; products accumulate in f32
+  (bf16 operands are exact in f32), or exactly in int32 for int8;
+- int8 scores are ``float(acc) * pscale[:, None] * gscale[None, :]``,
+  each product rounded, in that order;
+- then ``+ bias`` (per row; -2e9 marks a tombstone), then rows at or
+  past ``n_valid`` score -2e9;
+- the result is the top ``k`` per probe, scores descending, ties to
+  the smallest row index (``lax.top_k``'s order), as (B, k) f32
+  scores and (B, k) int32 row indices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASKED = -2e9        # masked / tombstoned row score (the JAX programs')
+K_MAX = 1024         # largest k the kernels take
+TILE_ROWS = 64       # store rows a kernel CTA scores per step
+_SEL_BYTES = 64 << 10  # shared memory for a CTA's running lists
+_MAX_PROBES_PER_CTA = 32
+_LOW32 = 0xFFFFFFFF
+
+
+def _keys(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One int64 per (score, index) that orders as (score desc, index
+    asc) does: the f32 bits made order-preserving in the high word,
+    the complement of the index in the low word. Keys are unique, so
+    ``torch.topk`` over them has no ties to leave unordered."""
+    bits = (scores.float() + 0.0).view(torch.int32).to(torch.int64)  # -0 -> +0
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (bits << 32) | (_LOW32 - idx.to(torch.int64))
+
+
+def _decode(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = (_LOW32 - (keys & _LOW32)).to(torch.int32)
+    bits = keys >> 32
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return bits.to(torch.int32).view(torch.float32), idx
+
+
+def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``k`` along the last dim of a (B, N) f32 matrix, descending,
+    ties to the smallest index (``lax.top_k``'s order; ``torch.topk``
+    leaves tie order unspecified). Returns (scores, int32 indices)."""
+    n = scores.shape[-1]
+    idx = torch.arange(n, device=scores.device)
+    keys = torch.topk(_keys(scores, idx), k, dim=-1).values
+    return _decode(keys)
+
+
+def _check_k(k: int, cap: int, kernel: bool = True) -> int:
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if kernel and k > K_MAX:
+        raise ValueError(f"k={k} exceeds the top-k kernels' limit "
+                         f"K_MAX={K_MAX}")
+    if k > cap:
+        raise ValueError(f"k={k} exceeds the store's {cap} rows")
+    return k
+
+
+def _check_store(store: torch.Tensor, probes: torch.Tensor, bias,
+                 dtypes: tuple) -> None:
+    if store.ndim != 2 or probes.ndim != 2:
+        raise ValueError(f"store (cap, D) and probes (B, D) must be 2-D, got "
+                         f"{tuple(store.shape)} and {tuple(probes.shape)}")
+    if store.dtype not in dtypes:
+        raise ValueError(f"store dtype must be one of {dtypes}, "
+                         f"got {store.dtype}")
+    if probes.shape[1] != store.shape[1]:
+        raise ValueError(f"probe dim {probes.shape[1]} != store dim "
+                         f"{store.shape[1]}")
+    if bias is not None and tuple(bias.shape) != (store.shape[0],):
+        raise ValueError(f"bias must be ({store.shape[0]},), got "
+                         f"{tuple(bias.shape)}")
+
+
+def _check_tf32(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain top-k needs exact f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _default_chunk(batch: int, d: int) -> int:
+    """Rows per chunk of the plain version: keeps the (B, chunk) scores
+    and keys and the f32 copy of the chunk to a few hundred MB."""
+    return max(1024, min((1 << 26) // max(batch, 1), (1 << 29) // (4 * d)))
+
+
+def _chunked_topk(score_fn, cap: int, batch: int, n_valid: int, k: int,
+                  bias, chunk_rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the store in row chunks: each chunk's keys go
+    through ``torch.topk`` and merge with the running best. Keys carry
+    the global row index, so the merge keeps the tie order exact."""
+    best = None
+    for start in range(0, cap, chunk_rows):
+        stop = min(start + chunk_rows, cap)
+        s = score_fn(start, stop)                       # (B, rows) f32
+        if bias is not None:
+            s = s + bias[start:stop].to(device=device, dtype=torch.float32)
+        row = torch.arange(start, stop, device=device)
+        s = torch.where(row[None, :] < n_valid, s, MASKED)
+        keys = torch.topk(_keys(s, row), min(k, stop - start), dim=1).values
+        if best is not None:
+            keys = torch.topk(torch.cat([best, keys], dim=1), min(
+                k, best.shape[1] + keys.shape[1]), dim=1).values
+        best = keys
+    return _decode(best)
+
+
+def cosine_topk_reference(gallery: torch.Tensor, probes: torch.Tensor,
+                          n_valid: int, k: int, bias=None,
+                          chunk_rows: int | None = None):
+    """Plain PyTorch version of kernel 3 (f32 or bf16 store): the
+    twin of ``_search_fn`` and, with ``chunk_rows``, of the chunked
+    ``_search_scan_fn``. Any device; on a CUDA device TF32 must be off."""
+    _check_store(gallery, probes, bias, (torch.float32, torch.bfloat16))
+    cap, d = gallery.shape
+    k = _check_k(k, cap, kernel=False)
+    _check_tf32(gallery)
+    dev = gallery.device
+    # cast to the store dtype (as the kernel does), then exact in f32
+    p = probes.to(device=dev, dtype=gallery.dtype).to(torch.float32)
+
+    def score(start, stop):
+        return p @ gallery[start:stop].to(torch.float32).T
+
+    return _chunked_topk(score, cap, p.shape[0], min(int(n_valid), cap), k,
+                         bias, chunk_rows or _default_chunk(p.shape[0], d), dev)
+
+
+def cosine_topk_q_reference(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
+                            probes_q: torch.Tensor, probe_scale: torch.Tensor,
+                            n_valid: int, k: int, bias=None,
+                            chunk_rows: int | None = None):
+    """Plain PyTorch version of kernel 4 (int8 store, per-row scales):
+    the twin of ``_search_q_fn``. The int8 dot runs as an f32 matrix
+    product, which is exact here: every partial sum is an integer of at
+    most D * 127^2 < 2^24 for D <= 1040 (``int8 @ int8`` in torch would
+    return int8 and wrap)."""
+    _check_store(gallery_q, probes_q, bias, (torch.int8,))
+    cap, d = gallery_q.shape
+    if d > 1040:
+        raise ValueError(f"int8 dim {d} > 1040: the f32 dot is no longer exact")
+    k = _check_k(k, cap, kernel=False)
+    _check_tf32(gallery_q)
+    dev = gallery_q.device
+    pq = probes_q.to(device=dev, dtype=torch.int8).to(torch.float32)
+    ps = probe_scale.to(device=dev, dtype=torch.float32)[:, None]
+    gs = gallery_scale.to(device=dev, dtype=torch.float32)
+
+    def score(start, stop):
+        acc = pq @ gallery_q[start:stop].to(torch.float32).T
+        return acc * ps * gs[None, start:stop]
+
+    return _chunked_topk(score, cap, pq.shape[0], min(int(n_valid), cap), k,
+                         bias, chunk_rows or _default_chunk(pq.shape[0], d), dev)
+
+
+def launch_plan(batch: int, cap: int, k: int, n_sms: int) -> dict:
+    """How the kernels cut a search: probes per CTA (its running lists
+    fit ``_SEL_BYTES`` of shared memory), m16 tiles per CTA, and row
+    slices (about four CTAs per SM in all, at least four 64-row tiles
+    per slice)."""
+    per_cta = max(1, min(_MAX_PROBES_PER_CTA, batch, _SEL_BYTES // (8 * k)))
+    mt = 1 if per_cta <= 16 else 2
+    n_ptiles = -(-batch // per_cta)
+    tiles = -(-cap // TILE_ROWS)
+    slices = max(1, min(-(-4 * n_sms // n_ptiles), tiles // 4))
+    slice_rows = -(-tiles // slices) * TILE_ROWS
+    return {"per_cta": per_cta, "mt": mt, "slices": -(-cap // slice_rows),
+            "slice_rows": slice_rows}
+
+
+def _device_args(t: torch.Tensor, dtype, what: str) -> torch.Tensor:
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor, got "
+                         f"{t.dtype}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned")
+    return t
+
+
+def _launch(name: str, store: torch.Tensor, pointers: list, n_valid: int,
+            k: int, bias, batch: int, itemsize: int, tail: list):
+    """Allocate outputs and workspace, call one C entry point."""
+    from tf_face_toolbox_tpu_torch.kernels.build import check, load_library
+
+    cap, d = store.shape
+    if (d * itemsize) % 16:
+        raise ValueError(f"the top-k kernels take rows of a multiple of 16 "
+                         f"bytes, got D={d} x {itemsize} B")
+    dev = store.device
+    if bias is not None:
+        bias = _device_args(bias, torch.float32, "bias")
+        if bias.device != dev:
+            raise ValueError(f"bias on {bias.device}, store on {dev}")
+    plan = launch_plan(batch, cap, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    part_s = torch.empty((plan["slices"], batch, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((plan["slices"], batch, k), dtype=torch.int32,
+                         device=dev)
+    out_s = torch.empty((batch, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = getattr(lib, name)(
+        *pointers, None if bias is None else bias.data_ptr(),
+        min(int(n_valid), cap), cap, d, batch, k, plan["per_cta"], plan["mt"],
+        plan["slice_rows"], plan["slices"], *tail, part_s.data_ptr(),
+        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        dev.index or 0, stream)
+    check(lib, status, name)
+    return out_s, out_i
+
+
+def cosine_topk(gallery: torch.Tensor, probes: torch.Tensor, n_valid: int,
+                k: int, bias=None):
+    """Top-``k`` cosine matches of ``probes`` (B, D) against ``gallery``
+    (cap, D) f32/bf16, rows >= ``n_valid`` masked, ``bias`` (cap,) f32
+    or None added per row. Returns (scores (B, k) f32, idx (B, k)
+    int32). Any capacity, batch and fill; ``k`` <= ``K_MAX``. A CPU
+    store runs the plain version; a CUDA store runs kernel 3."""
+    _check_store(gallery, probes, bias, (torch.float32, torch.bfloat16))
+    k = _check_k(k, gallery.shape[0])
+    if gallery.device.type == "cpu":
+        return cosine_topk_reference(gallery, probes, n_valid, k, bias=bias)
+    if gallery.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gallery.device}")
+    store = _device_args(gallery, gallery.dtype, "gallery")
+    p = probes.to(device=store.device, dtype=store.dtype).contiguous()
+    out = _launch("tfft_topk", store, [store.data_ptr(), p.data_ptr()],
+                  n_valid, k, bias, p.shape[0], store.element_size(),
+                  [int(store.dtype == torch.bfloat16)])
+    cosine_topk.launches += 1
+    return out
+
+
+cosine_topk.launches = 0
+
+
+def cosine_topk_q(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
+                  probes_q: torch.Tensor, probe_scale: torch.Tensor,
+                  n_valid: int, k: int, bias=None):
+    """int8-store twin of :func:`cosine_topk`, the coarse stage of the
+    gallery's two-stage int8 search: ``gallery_q`` (cap, D) int8 with
+    ``gallery_scale`` (cap,) f32, ``probes_q`` (B, D) int8 with
+    ``probe_scale`` (B,) f32. A CUDA store runs kernel 4."""
+    _check_store(gallery_q, probes_q, bias, (torch.int8,))
+    k = _check_k(k, gallery_q.shape[0])
+    if gallery_q.device.type == "cpu":
+        return cosine_topk_q_reference(gallery_q, gallery_scale, probes_q,
+                                       probe_scale, n_valid, k, bias=bias)
+    if gallery_q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gallery_q.device}")
+    dev = gallery_q.device
+    store = _device_args(gallery_q, torch.int8, "gallery_q")
+    gs = _device_args(gallery_scale, torch.float32, "gallery_scale")
+    if tuple(gs.shape) != (store.shape[0],) or gs.device != dev:
+        raise ValueError(f"gallery_scale must be ({store.shape[0]},) on {dev}")
+    pq = probes_q.to(device=dev, dtype=torch.int8).contiguous()
+    ps = probe_scale.to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(ps.shape) != (pq.shape[0],):
+        raise ValueError(f"probe_scale must be ({pq.shape[0]},)")
+    out = _launch("tfft_topk_q", store,
+                  [store.data_ptr(), gs.data_ptr(), pq.data_ptr(),
+                   ps.data_ptr()], n_valid, k, bias, pq.shape[0], 1, [])
+    cosine_topk_q.launches += 1
+    return out
+
+
+cosine_topk_q.launches = 0
+

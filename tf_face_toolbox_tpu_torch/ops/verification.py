@@ -1,8 +1,13 @@
-"""LFW-style 1:1 verification: cosine similarity + the 10-fold protocol.
+"""Verification (1:1) and identification (1:N) protocols.
 
-Counterpart of the 1:1 part of ``tf_face_toolbox_tpu/ops/verification.py``.
-The similarities are torch (f32 on any device); the protocol itself
-(folds, thresholds, TAR@FAR, ROC) is host numpy, copied unchanged.
+Counterpart of ``tf_face_toolbox_tpu/ops/verification.py`` (all but
+``sharded_top_k_matches``, which waits for the multi-GPU gallery). The
+similarities are torch f32 matrix products on the given device; the
+protocols themselves (folds, thresholds, TAR@FAR, ROC, CMC, DIR@FAR)
+are host numpy, copied unchanged. The 1:N functions run outside any
+kernel, as in the JAX package; their top-k uses
+``ops/topk.stable_topk`` so ties go to the smallest index, as with
+``lax.top_k``.
 """
 
 from __future__ import annotations
@@ -181,3 +186,231 @@ def verify_pairs(emb1: np.ndarray, emb2: np.ndarray, labels: np.ndarray,
     except ValueError:  # single-class pair set: no ROC, like tar@far's NaNs
         report["auc"] = report["eer"] = float("nan")
     return report
+
+
+def cohort_stats(embeddings: np.ndarray, cohort: np.ndarray, *,
+                 top: int = 0, batch: int = 4096, device="cuda"
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-embedding (mean, std) of its cosines against an impostor
+    cohort — the z-/t-norm statistics of score normalization.
+
+    ``top`` > 0: the adaptive variant — statistics over only each
+    embedding's ``top`` highest cohort scores. Returns ``(mu (N,),
+    sigma (N,))``; sigma is floored at 1e-6 so division is safe.
+    """
+    cohort = np.asarray(cohort, np.float32)
+    if top < 0 or top > cohort.shape[0]:
+        raise ValueError(f"top={top} outside [0, cohort="
+                         f"{cohort.shape[0]}]")
+    c = torch.as_tensor(cohort, device=device)
+    mus, sds = [], []
+    embeddings = np.asarray(embeddings)
+    for i in range(0, embeddings.shape[0], batch):
+        e = torch.as_tensor(embeddings[i:i + batch], dtype=torch.float32,
+                            device=device)
+        sims = similarity_matrix(c, e).T              # (B, C)
+        if top:
+            sims = torch.topk(sims, top, dim=-1).values
+        mus.append(sims.mean(dim=-1).cpu().numpy())
+        sds.append(sims.std(dim=-1, correction=0).cpu().numpy())
+    if not mus:
+        raise ValueError("empty embedding set")
+    return np.concatenate(mus), np.maximum(np.concatenate(sds), 1e-6)
+
+
+def _snorm(sims, probe_stats, gallery_stats):
+    """S-norm: ½(z-norm + t-norm) of a (B, G) score block."""
+    mu_p, sd_p = probe_stats
+    mu_g, sd_g = gallery_stats
+    return 0.5 * ((sims - mu_p[:, None]) / sd_p[:, None]
+                  + (sims - mu_g[None, :]) / sd_g[None, :])
+
+
+def top_k_matches(gallery: np.ndarray, probe: np.ndarray, *,
+                  k: int = 5, batch: int = 4096,
+                  probe_stats=None, gallery_stats=None, device="cuda",
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Open-set 1:N search: the top-``k`` gallery rows per probe by
+    cosine. Returns ``(indices (P, k) int32, scores (P, k) f32)``,
+    scores descending per row, ties to the smallest gallery row.
+
+    ``probe_stats``/``gallery_stats``: optional ``(mu, sigma)`` pairs
+    from :func:`cohort_stats`; scores become adaptive s-norm before
+    ranking. Pass both or neither.
+    """
+    from tf_face_toolbox_tpu_torch.ops.topk import stable_topk
+
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if (probe_stats is None) != (gallery_stats is None):
+        raise ValueError("s-norm needs BOTH probe_stats and "
+                         "gallery_stats (or neither)")
+    gallery = np.asarray(gallery)
+    if k > gallery.shape[0]:
+        raise ValueError(f"k={k} exceeds gallery size {gallery.shape[0]}")
+    g = torch.as_tensor(gallery, dtype=torch.float32, device=device)
+    use_norm = probe_stats is not None
+    if use_norm:
+        g_stats = tuple(torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                        device=device) for v in gallery_stats)
+    scores, indices = [], []
+    probe = np.asarray(probe)
+    for i in range(0, probe.shape[0], batch):
+        p = torch.as_tensor(probe[i:i + batch], dtype=torch.float32,
+                            device=device)
+        sims = similarity_matrix(g, p).T            # (B, G)
+        if use_norm:
+            pst = tuple(torch.as_tensor(np.asarray(v[i:i + batch]),
+                                        dtype=torch.float32, device=device)
+                        for v in probe_stats)
+            sims = _snorm(sims, pst, g_stats)
+        s, ix = stable_topk(sims, k)
+        scores.append(s.cpu().numpy())
+        indices.append(ix.cpu().numpy())
+    if not scores:
+        raise ValueError("empty probe set")
+    return np.concatenate(indices), np.concatenate(scores)
+
+
+def identification_rank_k(gallery: np.ndarray, gallery_labels: np.ndarray,
+                          probe: np.ndarray, probe_labels: np.ndarray,
+                          *, k: int = 1, device="cuda") -> float:
+    """Closed-set identification: rank-k hit rate (one f32 matrix
+    product on the device, the ranking on the host)."""
+    sims = similarity_matrix(
+        torch.as_tensor(np.asarray(probe), device=device),
+        torch.as_tensor(np.asarray(gallery), device=device)).cpu().numpy()
+    order = np.argsort(-sims, axis=1)[:, :k]
+    hits = (np.asarray(gallery_labels)[order] ==
+            np.asarray(probe_labels)[:, None]).any(axis=1)
+    return float(hits.mean())
+
+
+def identification_stats(gallery: np.ndarray, gallery_labels: np.ndarray,
+                         probe: np.ndarray, probe_labels: np.ndarray,
+                         *, batch: int = 4096, device="cuda") -> dict:
+    """One streamed device pass shared by the 1:N protocols.
+
+    Per MATED probe (identity present in the gallery): the best
+    correct-match score and its rank (1 + wrong-identity entries scoring
+    above it). Per NON-MATED probe: the top gallery score. ``cmc_curve``
+    and ``dir_at_far`` post-process this dict (``stats=``).
+    """
+    gallery_labels = np.asarray(gallery_labels)
+    probe_labels = np.asarray(probe_labels)
+    probe = np.asarray(probe)
+    g = torch.as_tensor(np.asarray(gallery), dtype=torch.float32,
+                        device=device)
+    gl = torch.as_tensor(gallery_labels, device=device)
+    mated_mask = np.isin(probe_labels, gallery_labels)
+
+    mp, mpl = probe[mated_mask], probe_labels[mated_mask]
+    scores, ranks_ = [], []
+    for i in range(0, len(mp), batch):
+        p = torch.as_tensor(mp[i:i + batch], dtype=torch.float32,
+                            device=device)
+        pl = torch.as_tensor(mpl[i:i + batch], device=device)
+        sims = similarity_matrix(g, p).T            # (B, G)
+        same = gl[None, :] == pl[:, None]
+        best = torch.where(same, sims, -torch.inf).max(dim=1).values
+        above = ((sims > best[:, None]) & ~same).sum(dim=1)
+        scores.append(best.cpu().numpy())
+        ranks_.append((1 + above).to(torch.int32).cpu().numpy())
+
+    nm = probe[~mated_mask]
+    # empty fallbacks keep the non-empty dtypes (f32 scores, int32 ranks)
+    nm_top = np.concatenate([
+        similarity_matrix(g, torch.as_tensor(
+            nm[i:i + batch], dtype=torch.float32, device=device)
+        ).T.max(dim=1).values.cpu().numpy()
+        for i in range(0, len(nm), batch)]) if len(nm) else \
+        np.empty((0,), np.float32)
+
+    return {
+        "mated_mask": mated_mask,
+        "s_correct": (np.concatenate(scores) if scores
+                      else np.empty((0,), np.float32)),
+        "ranks": (np.concatenate(ranks_) if ranks_
+                  else np.empty((0,), np.int32)),
+        "nm_top": nm_top,
+        "gallery_size": int(len(gallery_labels)),
+    }
+
+
+def cmc_curve(gallery: np.ndarray, gallery_labels: np.ndarray,
+              probe: np.ndarray, probe_labels: np.ndarray,
+              *, ranks=(1, 5, 10), batch: int = 4096,
+              stats: dict | None = None, device="cuda") -> dict:
+    """Closed-set CMC: hit rate at each rank, megaface-style.
+
+    Rank of a probe = 1 + number of WRONG-identity gallery entries
+    scoring above its best correct match (``identification_stats``).
+    Probes whose identity is absent from the gallery are excluded and
+    counted in ``skipped`` (feed them to ``dir_at_far``, same ``stats``).
+    """
+    if stats is None:
+        stats = identification_stats(gallery, gallery_labels, probe,
+                                     probe_labels, batch=batch,
+                                     device=device)
+    r = stats["ranks"]
+    return {
+        "probes": int(len(r)),
+        "gallery": stats["gallery_size"],
+        "skipped": int((~stats["mated_mask"]).sum()),
+        "cmc": {int(k): (float((r <= k).mean()) if len(r) else float("nan"))
+                for k in ranks},
+        "mean_rank": float(r.mean()) if len(r) else float("nan"),
+    }
+
+
+def dir_at_far(gallery: np.ndarray, gallery_labels: np.ndarray,
+               probe: np.ndarray, probe_labels: np.ndarray, *,
+               fars=(1e-1, 1e-2), rank: int = 1,
+               batch: int = 4096, stats: dict | None = None,
+               device="cuda") -> dict:
+    """Open-set identification: DIR@FAR (IJB/NIST 1:N protocol).
+
+    Non-mated probes' top gallery scores set the alarm threshold for
+    each target FAR (``tar_at_far``'s convention: acceptance strictly
+    above, achieved FAR <= target, NaN when FAR is finer than
+    1/N_nonmated). A mated probe is identified iff its correct identity
+    sits within ``rank`` AND that match scores above the threshold:
+
+        DIR(far, rank) = P[rank_i <= rank  AND  s_correct_i > thr(far)]
+    """
+    if stats is None:
+        stats = identification_stats(gallery, gallery_labels, probe,
+                                     probe_labels, batch=batch,
+                                     device=device)
+    mated_mask = stats["mated_mask"]
+    s_correct = stats["s_correct"]
+    r_mated = stats["ranks"]
+    neg = np.sort(stats["nm_top"].astype(np.float64))[::-1]  # descending
+
+    in_rank = r_mated <= rank
+    out: dict = {
+        "mated": int(mated_mask.sum()),
+        "nonmated": int((~mated_mask).sum()),
+        "gallery": stats["gallery_size"],
+        "rank": int(rank),
+        # the FAR→1 limit: pure closed-set rank-`rank` hit rate
+        "dir_closed_set": (float(in_rank.mean()) if len(r_mated)
+                           else float("nan")),
+    }
+    if len(neg) == 0:
+        import warnings
+        warnings.warn(
+            "dir_at_far: every probe identity is enrolled — no "
+            "non-mated probes to set thresholds; DIR@FAR is NaN "
+            "(add distractor probes for the open-set protocol)")
+    for far in fars:
+        key = f"dir@far={far:g}"
+        k = int(np.floor(far * len(neg)))
+        if len(neg) == 0 or len(s_correct) == 0 or \
+                (k == 0 and far > 0 and 1 / len(neg) > far):
+            out[key] = float("nan")
+            continue
+        thr = neg[k] if k < len(neg) else -np.inf
+        out[key] = float((in_rank & (s_correct > thr)).mean())
+        out[key.replace("dir@", "thr@")] = float(thr)
+    return out
