@@ -22,7 +22,8 @@ eval_identification CLIs. Phases:
    tombstoned, B 1/64/300, k 5/20/100
 8. gallery slice: enroll, search, remove, search; launch counts
 9. gallery CLIs: cluster (bf16, int8), search, eval_identification
-10. gallery times: kernels vs plain at 2^20 rows and 10^7 rows
+10. gallery times: kernels vs plain at 2^20 rows and 10^7 rows, and the
+    default (f32) gallery's search latency at 2^20 rows
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -394,8 +395,8 @@ def phase_gallery_clis(work: str, out_npy: str) -> None:
 
 
 def phase_gallery_times(g) -> list:
-    """Phase 10: kernel vs plain times (CUDA events) at 2^20 rows for
-    every store, and at 10^7 bf16 and int8 rows."""
+    """Phase 10: kernel vs plain times (CUDA events) at 2^20 and 10^7
+    rows for every store."""
     from tf_face_toolbox_tpu_torch import bench
     from tf_face_toolbox_tpu_torch.ops import topk as ttk
 
@@ -404,8 +405,7 @@ def phase_gallery_times(g) -> list:
     for cap in (1 << 20, 10_000_000):
         base = unit_rows(g, cap, d, dtype=torch.bfloat16)
         probes = unit_rows(g, 64, d)
-        dtypes = GALLERY_DTYPES if cap == 1 << 20 else ("bfloat16", "int8")
-        for dtype in dtypes:
+        for dtype in GALLERY_DTYPES:
             if dtype == "int8":
                 store = torch.empty((cap, d), dtype=torch.int8, device="cuda")
                 scale = torch.empty(cap, device="cuda")
@@ -444,6 +444,32 @@ def phase_gallery_times(g) -> list:
         del base
         torch.cuda.empty_cache()
     return rows
+
+
+def gallery_search_latency(g) -> None:
+    """Phase 10, informational: host p50/p99 of the default gallery's
+    search (f32 store, kernel 3) at 2^20 rows, k 5, B 1 and 64."""
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    cap, d = 1 << 20, 512
+    gal = DeviceGallery(d, dtype="float32", hbm_limit_gb=0, device="cuda")
+    gal.enroll(unit_rows(g, cap, d).cpu().numpy(), np.arange(cap))
+    probes = unit_rows(g, 64, d).cpu().numpy()
+    for b in (1, 64):
+        for _ in range(3):
+            gal.search(probes[:b], k=5)
+        ms = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            labels, scores = gal.search(probes[:b], k=5)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        expect(labels.shape == (b, 5) and np.isfinite(scores).all(),
+               "gallery search shape/finite")
+        p50, p99 = np.percentile(ms, [50, 99])
+        say(f"  DeviceGallery(float32).search {cap} rows B={b} k=5: host "
+            f"p50 {p50:.3f} ms, p99 {p99:.3f} ms over 50 searches")
+    del gal
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -633,8 +659,11 @@ def main() -> None:
     phase_gallery_clis(work, out_npy)
     say(f"[10 gallery times] {gpu}")
     topk_times = phase_gallery_times(g)
+    gallery_search_latency(g)
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
+    t_topk_f32 = next(r for r in topk_times if r["dtype"] == "float32"
+                      and r["rows"] == 1 << 20 and r["batch"] == 64)
     t_topk_q = next(r for r in topk_times if r["dtype"] == "int8"
                     and r["rows"] == 10_000_000 and r["batch"] == 64)
 
@@ -655,7 +684,8 @@ def main() -> None:
          "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
          "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:118",
          "launches": topk_launches["topk"], "max_abs_err": topk_err["topk"],
-         "ms": t_topk["ms"], "plain_ms": t_topk["plain_ms"]},
+         "ms": t_topk["ms"], "plain_ms": t_topk["plain_ms"],
+         "f32_ms": t_topk_f32["ms"], "f32_plain_ms": t_topk_f32["plain_ms"]},
         {"name": "topk_q", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
          "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:194",

@@ -150,9 +150,14 @@ def assert_topk_matches(got, want, want_next=None, *, tol=1e-5):
 
 
 # (cap, n_valid, batch, k): ragged fill and capacity, a batch that is
-# not a multiple of the 32-probe tile, k at the kernels' limit
+# not a multiple of a probe tile, k at the kernels' limit; for kernel 3:
+# one 64-probe tile and a ragged second one, k = 1024 at B = 64, a store
+# smaller than one 256-row ring stage, nothing valid, everything valid,
+# and a capacity off the tile rows over many slices
 _TOPK_CASES = [(3000, 2500, 1, 5), (4133, 4100, 33, 20), (2048, 1100, 7, 1024),
-               (700, 700, 64, 100)]
+               (700, 700, 64, 100), (5000, 4800, 64, 5), (5000, 4800, 65, 5),
+               (2048, 2000, 64, 1024), (100, 90, 3, 5), (1000, 0, 5, 5),
+               (1000, 1000, 9, 5), (70001, 69000, 16, 20)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -195,6 +200,24 @@ def test_topk_kernel_vs_plain(cuda, dtype, case):
     # the duplicated row: the smaller index first, when both make the cut
     if dtype != "int8" and cap - 1 < n:
         assert i[0, 0] == 7 and i[0, 1] == cap - 1
+    if n == 0:                          # all rows tie at -2e9: by index
+        assert (i == np.arange(k)).all() and (s == -2e9).all()
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 4), ("float32", 136),
+                                     ("bfloat16", 8), ("bfloat16", 136)])
+def test_topk_kernel_narrow_rows(cuda, dtype, d):
+    """Rows of one 16-byte piece, and rows whose last 128-byte column
+    chunk is partial (D = 136: 544 B f32, 272 B bf16): the ring's
+    zero-fill past the row must leave the sums exact."""
+    cap, n, b, k = 3000, 2900, 5, 10
+    st = _unit_rows(cuda, cap, d).to(getattr(torch, dtype))
+    probes = _unit_rows(cuda, b, d)
+    got = ttk.cosine_topk(st, probes, n, k)
+    torch.cuda.synchronize()
+    want = ttk.cosine_topk_reference(st, probes, n, k)
+    nxt = ttk.cosine_topk_reference(st, probes, n, k + 1)[0]
+    assert_topk_matches(got, want, nxt)
 
 
 @pytest.mark.parametrize("order", ["ascending", "descending", "clustered"])

@@ -242,17 +242,59 @@ def test_stable_topk_matches_lax_top_k_with_ties():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
+def _assert_covers(plan, cap, tile):
+    assert plan["slice_rows"] % tile == 0
+    assert plan["slices"] * plan["slice_rows"] >= cap
+    assert (plan["slices"] - 1) * plan["slice_rows"] < cap
+
+
 @pytest.mark.parametrize("batch,cap,k", [(1, 10_000_000, 5), (64, 1 << 20, 20),
                                          (300, 1 << 20, 100),
                                          (2048, 10**6, 1024), (7, 100, 64)])
 def test_launch_plan_covers_the_store(batch, cap, k):
-    plan = ttk.launch_plan(batch, cap, k, n_sms=132)
+    for bf16 in (False, True):
+        plan = ttk.launch_plan(batch, cap, k, n_sms=132, bf16=bf16)
+        assert 1 <= plan["per_cta"] <= min(batch, 64)
+        assert plan["per_cta"] <= plan["slots"] <= 64
+        assert plan["smem"] == ttk.stream_smem_bytes(
+            plan["slots"], plan["stages"], plan["per_cta"], k)
+        _assert_covers(plan, cap, ttk.STREAM_ROWS)
+        # about one CTA per SM, never more than 132 in one wave
+        n_ptiles = -(-batch // plan["per_cta"])
+        assert n_ptiles * plan["slices"] <= max(132, n_ptiles)
+    # kernel 4 keeps its own plan
+    plan = ttk.launch_plan_q(batch, cap, k, n_sms=132)
     assert 1 <= plan["per_cta"] <= 32
     assert plan["mt"] == (1 if plan["per_cta"] <= 16 else 2)
     assert plan["per_cta"] * k * 8 <= 64 << 10 or plan["per_cta"] == 1
-    assert plan["slice_rows"] % ttk.TILE_ROWS == 0
-    assert plan["slices"] * plan["slice_rows"] >= cap
-    assert (plan["slices"] - 1) * plan["slice_rows"] < cap
+    _assert_covers(plan, cap, ttk.TILE_ROWS)
+
+
+@pytest.mark.parametrize("k", [1, 5, 100, 1024])
+@pytest.mark.parametrize("batch", [1, 7, 33, 64, 65, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_plan_fits_shared_memory(dtype, batch, k):
+    """Kernel 3's plan at every k and batch: the ring, score tile and
+    lists fit an H100 block's 232,448 bytes (summed independently of the
+    plan's own formula), with at least 3 ring stages (3 fit at every k
+    up to K_MAX, down to 8 probes per CTA at k = 1024), and the probe
+    slots are a kernel template that holds the CTA's probes."""
+    bf16 = dtype == "bfloat16"
+    cap = 10**6
+    plan = ttk.launch_plan(batch, cap, k, n_sms=132, bf16=bf16)
+    slots, stages, per_cta = plan["slots"], plan["stages"], plan["per_cta"]
+    ring = stages * (256 + slots) * 144         # 128-byte chunks, 16 B pad
+    smem = ring + slots * 260 * 4 + per_cta * k * 8
+    assert plan["smem"] == smem <= 232_448
+    assert 3 <= stages <= 4
+    assert per_cta <= slots
+    assert slots in ((8, 16, 32, 64) if bf16 else (1, 2, 3, 4, 5, 6, 7, 8,
+                                                   16, 32, 64))
+    if k <= 20:                     # up to 64 probes read the store once
+        assert per_cta == min(batch, 64)
+    if k == 1024:
+        assert per_cta == min(batch, 8)
+    _assert_covers(plan, cap, 256)
 
 
 def test_wrappers_reject_bad_inputs():

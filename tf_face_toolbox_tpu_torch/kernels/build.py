@@ -42,11 +42,11 @@ SIGNATURES = {
     # device, stream
     "tfft_bottleneck_block": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # store, probes, bias, n_valid, cap, d, b, k, per_cta, mt,
-    # slice_rows, slices, store_bf16, part_s, part_i, out_s, out_i,
-    # device, stream
+    # store, probes, bias, n_valid, cap, d, b, k, per_cta, slots,
+    # stages, slice_rows, slices, smem_bytes, store_bf16, part_s,
+    # part_i, out_s, out_i, device, stream
     "tfft_topk": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _I, _P]),
+                       _I, _I, _P, _P, _P, _P, _I, _P]),
     # store, row_scale, probes, probe_scale, bias, n_valid, cap, d, b, k,
     # per_cta, mt, slice_rows, slices, part_s, part_i, out_s, out_i,
     # device, stream

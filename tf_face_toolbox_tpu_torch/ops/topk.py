@@ -27,7 +27,8 @@ import torch
 
 MASKED = -2e9        # masked / tombstoned row score (the JAX programs')
 K_MAX = 1024         # largest k the kernels take
-TILE_ROWS = 64       # store rows a kernel CTA scores per step
+# kernel 4 (csrc/topk.cu topk_partial_kernel)
+TILE_ROWS = 64       # store rows a kernel-4 CTA scores per step
 _SEL_BYTES = 64 << 10  # shared memory for a CTA's running lists
 _MAX_PROBES_PER_CTA = 32
 _LOW32 = 0xFFFFFFFF
@@ -170,8 +171,52 @@ def cosine_topk_q_reference(gallery_q: torch.Tensor, gallery_scale: torch.Tensor
                          bias, chunk_rows or _default_chunk(pq.shape[0], d), dev)
 
 
-def launch_plan(batch: int, cap: int, k: int, n_sms: int) -> dict:
-    """How the kernels cut a search: probes per CTA (its running lists
+# kernel 3 (csrc/topk.cu topk_stream_kernel): a 256-row tile; each ring
+# stage holds a 128-byte column chunk of the tile's rows and of the
+# probe slots at a 144-byte row stride; the score tile is (slots, 260)
+# f32; each probe's running list is k x (f32, int32)
+STREAM_ROWS = 256
+_RING_ROW_BYTES = 144
+_SCORE_STRIDE = STREAM_ROWS + 4
+_MAX_STAGES = 4
+SMEM_BYTES = 232448      # an H100 block's dynamic shared memory
+_F32_SLOTS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64)
+_BF16_SLOTS = (8, 16, 32, 64)
+
+
+def stream_smem_bytes(slots: int, stages: int, per_cta: int, k: int) -> int:
+    """Kernel 3's shared memory: the ring, the score tile, the lists."""
+    return (stages * (STREAM_ROWS + slots) * _RING_ROW_BYTES
+            + slots * _SCORE_STRIDE * 4 + per_cta * k * 8)
+
+
+def launch_plan(batch: int, cap: int, k: int, n_sms: int,
+                bf16: bool = False) -> dict:
+    """How kernel 3 cuts a search, from one shared-memory budget: the
+    most probes per CTA (up to 64) whose probe slots, 3-stage ring,
+    score tile and running lists fit ``SMEM_BYTES`` (a fourth stage
+    where it also fits), then about one CTA per SM in all."""
+    slot_set = _BF16_SLOTS if bf16 else _F32_SLOTS
+    for most in sorted(slot_set, reverse=True):
+        per_cta = min(batch, most)
+        slots = min(s for s in slot_set if s >= per_cta)
+        if stream_smem_bytes(slots, 3, per_cta, k) <= SMEM_BYTES:
+            break
+    else:
+        raise ValueError(f"k={k}: no probe tile fits kernel 3's shared memory")
+    stages = max(s for s in range(3, _MAX_STAGES + 1)
+                 if stream_smem_bytes(slots, s, per_cta, k) <= SMEM_BYTES)
+    n_ptiles = -(-batch // per_cta)
+    tiles = -(-cap // STREAM_ROWS)
+    slices = max(1, min(n_sms // n_ptiles, tiles))
+    slice_rows = -(-tiles // slices) * STREAM_ROWS
+    return {"per_cta": per_cta, "slots": slots, "stages": stages,
+            "slice_rows": slice_rows, "slices": -(-cap // slice_rows),
+            "smem": stream_smem_bytes(slots, stages, per_cta, k)}
+
+
+def launch_plan_q(batch: int, cap: int, k: int, n_sms: int) -> dict:
+    """How kernel 4 cuts a search: probes per CTA (its running lists
     fit ``_SEL_BYTES`` of shared memory), m16 tiles per CTA, and row
     slices (about four CTAs per SM in all, at least four 64-row tiles
     per slice)."""
@@ -194,9 +239,15 @@ def _device_args(t: torch.Tensor, dtype, what: str) -> torch.Tensor:
     return t
 
 
+def _n_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch(name: str, store: torch.Tensor, pointers: list, n_valid: int,
-            k: int, bias, batch: int, itemsize: int, tail: list):
-    """Allocate outputs and workspace, call one C entry point."""
+            k: int, bias, batch: int, itemsize: int, slices: int,
+            plan_args: list) -> tuple:
+    """Allocate outputs and a (slices, B, k) workspace, call one C entry
+    point with the plan's arguments."""
     from tf_face_toolbox_tpu_torch.kernels.build import check, load_library
 
     cap, d = store.shape
@@ -208,20 +259,15 @@ def _launch(name: str, store: torch.Tensor, pointers: list, n_valid: int,
         bias = _device_args(bias, torch.float32, "bias")
         if bias.device != dev:
             raise ValueError(f"bias on {bias.device}, store on {dev}")
-    plan = launch_plan(batch, cap, k, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    part_s = torch.empty((plan["slices"], batch, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((plan["slices"], batch, k), dtype=torch.int32,
-                         device=dev)
+    part_s = torch.empty((slices, batch, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((slices, batch, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((batch, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((batch, k), dtype=torch.int32, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, name)(
         *pointers, None if bias is None else bias.data_ptr(),
-        min(int(n_valid), cap), cap, d, batch, k, plan["per_cta"], plan["mt"],
-        plan["slice_rows"], plan["slices"], *tail, part_s.data_ptr(),
+        min(int(n_valid), cap), cap, d, batch, k, *plan_args, part_s.data_ptr(),
         part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         dev.index or 0, stream)
     check(lib, status, name)
@@ -243,9 +289,13 @@ def cosine_topk(gallery: torch.Tensor, probes: torch.Tensor, n_valid: int,
         raise ValueError(f"no kernel for device {gallery.device}")
     store = _device_args(gallery, gallery.dtype, "gallery")
     p = probes.to(device=store.device, dtype=store.dtype).contiguous()
+    bf16 = store.dtype == torch.bfloat16
+    batch = p.shape[0]
+    pl = launch_plan(batch, store.shape[0], k, _n_sms(store.device), bf16=bf16)
     out = _launch("tfft_topk", store, [store.data_ptr(), p.data_ptr()],
-                  n_valid, k, bias, p.shape[0], store.element_size(),
-                  [int(store.dtype == torch.bfloat16)])
+                  n_valid, k, bias, batch, store.element_size(), pl["slices"],
+                  [pl["per_cta"], pl["slots"], pl["stages"], pl["slice_rows"],
+                   pl["slices"], pl["smem"], int(bf16)])
     cosine_topk.launches += 1
     return out
 
@@ -276,9 +326,12 @@ def cosine_topk_q(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     ps = probe_scale.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(ps.shape) != (pq.shape[0],):
         raise ValueError(f"probe_scale must be ({pq.shape[0]},)")
+    batch = pq.shape[0]
+    pl = launch_plan_q(batch, store.shape[0], k, _n_sms(dev))
     out = _launch("tfft_topk_q", store,
                   [store.data_ptr(), gs.data_ptr(), pq.data_ptr(),
-                   ps.data_ptr()], n_valid, k, bias, pq.shape[0], 1, [])
+                   ps.data_ptr()], n_valid, k, bias, batch, 1, pl["slices"],
+                  [pl["per_cta"], pl["mt"], pl["slice_rows"], pl["slices"]])
     cosine_topk_q.launches += 1
     return out
 
