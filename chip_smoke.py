@@ -19,11 +19,16 @@ eval_identification CLIs. Phases:
 5. CLIs: extract (--engine fused) and eval_lfw as subprocesses
 6. times: kernels vs plain versions, and the port bench (informational)
 7. top-k kernels vs plain versions: 2^20-row stores, 10^6 valid, 1%
-   tombstoned, B 1/64/300, k 5/20/100
+   tombstoned, B 1/64/300, k 5/20/100 and k 1100; k 12,000 (lists in
+   the workspace) at 2^16 rows; galleries of 100-d (and 5-d f32) rows
+   against their plain twins
 8. gallery slice: enroll, search, remove, search; launch counts
 9. gallery CLIs: cluster (bf16, int8), search, eval_identification
-10. gallery times: kernels vs plain at 2^20 rows and 10^7 rows, and the
-    default (f32) gallery's search latency at 2^20 rows
+10. gallery times: kernels vs plain at 2^20 rows and 10^7 rows, each
+    beside its bound, the library route (matmul + torch.topk) at B=64,
+    and the f32 and int8 galleries' search latency at 2^20 rows
+    (tf_face_toolbox_tpu_torch.bench_search gallery gives the
+    10^7-row galleries' latency and device time by kernel)
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -40,6 +45,9 @@ import time
 
 import numpy as np
 import torch
+
+from tf_face_toolbox_tpu_torch.bench_search import (
+    gallery_search_latency, quantize_rows, unit_rows)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -96,8 +104,9 @@ def check_block_stack(name, x, entry, tail, stats: list) -> None:
     expect(cos >= 0.9999, f"{name}: min cosine {cos} < 0.9999")
     expect(err <= 2 * peak / 128, f"{name}: max_abs {err} > 2 bf16 steps "
                                   f"at the peak {peak}")
+    b_ms, b_by = block_stack_bound(x, entry, tail)
     stats.append({"stage": name, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain})
+                  "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
 
 
 def stage_operands(network: str, stem: str, seed: int):
@@ -121,24 +130,46 @@ def stage_operands(network: str, stem: str, seed: int):
 
 GALLERY_DTYPES = ("float32", "bfloat16", "int8")
 TOPK_TOL = 1e-5     # f32 sums in another order: scores, near-tie width
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): device
+# memory bytes/s, and operations/s by operand type (f32 outside the
+# tensor cores: the top-k kernel's products are exact f32, no TF32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
-def unit_rows(g, n: int, d: int, dtype=torch.float32,
-              chunk: int = 1 << 20) -> torch.Tensor:
-    """(n, d) seeded random unit rows on the card, made in chunks."""
-    out = torch.empty((n, d), dtype=dtype, device="cuda")
-    for i in range(0, n, chunk):
-        x = torch.randn((min(chunk, n - i), d), generator=g, device="cuda")
-        out[i:i + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(dtype)
-    return out
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """Least time (ms) the card could take: each input byte read and
+    each output byte written once at the memory rate, or the operations
+    at the peak for their type, whichever is larger; and which it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def quantize_rows(x: torch.Tensor):
-    """Per-row symmetric int8 on the card (serving/gallery._quantize_rows'
-    math: scale = max|x|/127 floored at 1e-12, round half to even)."""
-    scale = (x.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
-    q = torch.round(x / scale[:, None]).clamp(-127, 127).to(torch.int8)
-    return q, scale
+def topk_bound(dtype: str, cap: int, batch: int, d: int, k: int,
+               bias: bool = False) -> tuple[float, str]:
+    """Bound of one top-k search: the store, probes, (int8) row and
+    probe scales, bias and the (B, k) result once; 2 B cap D
+    operations."""
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    nbytes = (cap + batch) * d * item + batch * k * 8 + cap * 4 * bias
+    if dtype == "int8":
+        nbytes += (cap + batch) * 4
+    return bound(nbytes, 2 * batch * cap * d, dtype)
+
+
+def block_stack_bound(x, entry, tail) -> tuple[float, str]:
+    """Bound of one fused stage: input and output maps, weights and
+    biases once; 2 x N H W x (weight values) bf16 operations (every
+    weight value meets every pixel once: 1x1, 3x3 taps, projection)."""
+    n, h, w, _ = x.shape
+    parts = [t for t in (entry, tail) if t is not None]
+    weights = sum(v.numel() for d in parts for k, v in d.items()
+                  if k.startswith("w"))
+    c = (tail["w3s"].shape[1] if tail is not None else entry["w3"].shape[0])
+    nbytes = (x.numel() * x.element_size() + n * h * w * c * 2 + sum(
+        v.numel() * v.element_size() for d in parts for v in d.values()))
+    return bound(nbytes, 2 * n * h * w * weights, "bfloat16")
 
 
 def near_ties(ref: np.ndarray, k: int, tol: float = TOPK_TOL) -> np.ndarray:
@@ -203,19 +234,15 @@ def phase_topk_kernels(g) -> dict:
     err = {"topk": 0.0, "topk_q": 0.0}
     t0 = time.time()
     for dtype in GALLERY_DTYPES:
-        if dtype == "int8":
-            store, scale = quantize_rows(base)
-            pq, ps = quantize_rows(probes)
-        else:
-            store, scale = base.to(getattr(torch, dtype)), None
-            pq, ps = probes, None
-        for b in (1, 64, 300):
-            for k in (5, 20, 100):
-                e = check_topk_case(f"{dtype} B={b} k={k}", dtype, store, scale,
-                                    pq[:b], None if ps is None else ps[:b],
-                                    n_valid, k, bias, dead_np)
-                name = "topk_q" if dtype == "int8" else "topk"
-                err[name] = max(err[name], e)
+        store, scale, pq, ps = store_operands(dtype, base, probes)
+        name = "topk_q" if dtype == "int8" else "topk"
+        # k 1100: past the old 1024 limit, lists still in shared memory
+        for b, k in [(b, k) for b in (1, 64, 300) for k in (5, 20, 100)] + [
+                (16, 1100)]:
+            e = check_topk_case(f"{dtype} B={b} k={k}", dtype, store, scale,
+                                pq[:b], None if ps is None else ps[:b],
+                                n_valid, k, bias, dead_np)
+            err[name] = max(err[name], e)
         if dtype != "int8":
             _, i = ttk.cosine_topk(store, probes[:1], n_valid, 3, bias=bias)
             i = i.cpu().numpy()
@@ -224,11 +251,98 @@ def phase_topk_kernels(g) -> dict:
         del store, scale
     say(f"[7 top-k kernels] cap 2^20 x 512, n_valid 10^6, "
         f"{len(dead_np)} tombstones, f32/bf16/int8 x B 1/64/300 x k "
-        f"5/20/100: int8 index- and bit-equal; f32/bf16 max score error "
-        f"{err['topk']:.3g}, index-equal away from near-ties "
-        f"(<= {TOPK_TOL}); no masked/tombstoned row surfaced; "
+        f"5/20/100, and B=16 k=1100: int8 index- and bit-equal; f32/bf16 "
+        f"max score error {err['topk']:.3g}, index-equal away from "
+        f"near-ties (<= {TOPK_TOL}); no masked/tombstoned row surfaced; "
+        f"{time.time() - t0:.1f} s")
+    del base
+    for name, e in large_k_case(g).items():
+        err[name] = max(err[name], e)
+    any_width_galleries(g)
+    return err
+
+
+def store_operands(dtype: str, base: torch.Tensor, probes: torch.Tensor):
+    """(store, row scales, probes, probe scales) of one store dtype."""
+    if dtype == "int8":
+        return (*quantize_rows(base), *quantize_rows(probes))
+    return base.to(getattr(torch, dtype)), None, probes, None
+
+
+def large_k_case(g) -> dict:
+    """Phase 7: k 12,000 at 2^16 rows, B=2, every store. Two probes'
+    lists (192,000 bytes) do not fit beside the ring, so the plan keeps
+    them in the workspace, and the merge in a global scratch."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+
+    cap, n_valid, d, b, k = 1 << 16, 60_000, 512, 2, 12_000
+    base = unit_rows(g, cap, d)
+    dead = torch.randperm(n_valid, generator=g, device="cuda")[:n_valid // 100]
+    dead = dead[dead != 5]
+    bias = torch.zeros(cap, device="cuda")
+    bias[dead] = -2e9
+    probes = torch.cat([base[5:6], unit_rows(g, b - 1, d)])
+    err = {"topk": 0.0, "topk_q": 0.0}
+    t0 = time.time()
+    for dtype in GALLERY_DTYPES:
+        plan = ttk.launch_plan(b, cap, k, ttk._n_sms(base.device),
+                               dtype=getattr(torch, dtype))
+        expect(not plan["shared_lists"] and plan["merge_scratch"],
+               f"{dtype} k={k}: plan {plan} keeps its lists in shared memory")
+        store, scale, pq, ps = store_operands(dtype, base, probes)
+        name = "topk_q" if dtype == "int8" else "topk"
+        err[name] = max(err[name], check_topk_case(
+            f"{dtype} B={b} k={k}", dtype, store, scale, pq, ps, n_valid, k,
+            bias, dead.cpu().numpy()))
+    say(f"  k={k} at 2^16 rows, B={b}, lists in the workspace, merge in a "
+        f"global scratch: int8 bit-equal, f32/bf16 max score error "
+        f"{err['topk']:.3g}, index-equal away from near-ties; "
         f"{time.time() - t0:.1f} s")
     return err
+
+
+def any_width_galleries(g) -> None:
+    """Phase 7: DeviceGallery of 100-d rows in every store and of 5-d
+    rows in f32 (not a multiple of 16 bytes: the gallery pads the store
+    and the probes), kernels vs the plain programs on the same rows."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    n, k = 1 << 16, 10
+    t0 = time.time()
+    for dtype, dim in (("float32", 100), ("bfloat16", 100), ("int8", 100),
+                       ("float32", 5)):
+        rows = unit_rows(g, n, dim).cpu().numpy()
+        probes = rows[:64] + 0.1 * unit_rows(g, 64, dim).cpu().numpy()
+        kern = DeviceGallery(dim, dtype=dtype, device="cuda")
+        plain = DeviceGallery(dim, dtype=dtype, device="cuda")
+        plain.use_kernels = False
+        for gal in (kern, plain):
+            gal.enroll(rows, np.arange(n))
+            gal.remove(3)
+        counter = ttk.cosine_topk_q if dtype == "int8" else ttk.cosine_topk
+        before = counter.launches
+        lk, sk = kern.search(probes, k=k)
+        expect(counter.launches == before + 1, f"{dtype} d={dim}: no launch")
+        # int8 at the same k: its coarse stage keeps 4k rows
+        lp, sp = plain.search(probes, k=k if dtype == "int8" else k + 1)
+        label = f"gallery {dtype} d={dim} (row {kern._dev.shape[1]})"
+        expect(3 not in lk, f"{label}: a removed label surfaced")
+        if dtype == "int8":
+            expect(np.array_equal(lk, lp) and np.array_equal(sk, sp),
+                   f"{label}: kernel and plain two-stage searches differ")
+        else:
+            near = near_ties(sp, k)
+            expect((lk == lp[:, :k])[~near].all(),
+                   f"{label}: labels differ away from near-ties")
+            expect(np.abs(sk - sp[:, :k]).max() <= TOPK_TOL,
+                   f"{label}: scores differ")
+        del kern, plain
+    torch.cuda.empty_cache()
+    say(f"  galleries of 100-d rows (f32, bf16, int8) and 5-d rows (f32), "
+        f"2^16 rows, 64 probes, k={k}: equal to the plain programs "
+        f"(int8 exactly, f32/bf16 away from near-ties); "
+        f"{time.time() - t0:.1f} s")
 
 
 def phase_gallery_slice(g, faces: np.ndarray) -> dict:
@@ -394,9 +508,27 @@ def phase_gallery_clis(work: str, out_npy: str) -> None:
         f"weights: means nothing); {time.time() - t0:.1f} s")
 
 
+def library_route(dtype: str, store, probes, k: int, scale=None, pscale=None):
+    """The same search as library calls (a matmul, int8's rescale, then
+    torch.topk), timed for information only: nothing in the port calls
+    it. bf16's product comes back in bf16; torch.topk leaves tie order
+    open."""
+    if dtype == "int8":
+        def run():
+            acc = torch._int_mm(probes, store.T)
+            return torch.topk(acc.float() * pscale[:, None] * scale[None, :], k)
+    else:
+        p = probes.to(store.dtype)
+
+        def run():
+            return torch.topk(p @ store.T, k)
+    return run
+
+
 def phase_gallery_times(g) -> list:
     """Phase 10: kernel vs plain times (CUDA events) at 2^20 and 10^7
-    rows for every store."""
+    rows for every store, each beside its bound, and the library route
+    at B=64."""
     from tf_face_toolbox_tpu_torch import bench
     from tf_face_toolbox_tpu_torch.ops import topk as ttk
 
@@ -433,43 +565,31 @@ def phase_gallery_times(g) -> list:
                 p_ms2 = bench.time_ms(lambda: plain(*args), iters=iters, warmup=1)
                 gb = store.numel() * store.element_size() / 1e9
                 km = (k_ms + k_ms2) / 2
-                rows.append({"dtype": dtype, "rows": cap, "batch": b, "k": k,
-                             "ms": km, "plain_ms": (p_ms + p_ms2) / 2,
-                             "gb_per_s": gb / km * 1e3})
+                b_ms, b_by = topk_bound(dtype, cap, b, d, k)
+                row = {"dtype": dtype, "rows": cap, "batch": b, "k": k,
+                       "ms": km, "plain_ms": (p_ms + p_ms2) / 2,
+                       "gb_per_s": gb / km * 1e3, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_share": b_ms / km}
+                lib = ""
+                if b == 64:
+                    route = (library_route(dtype, store, pq, k, scale, ps)
+                             if dtype == "int8" else
+                             library_route(dtype, store, probes, k))
+                    row["library_route_ms"] = bench.time_ms(
+                        route, iters=iters, warmup=1)
+                    lib = (f", library route (matmul + torch.topk) "
+                           f"{row['library_route_ms']:.3f} ms")
+                    torch.cuda.empty_cache()
+                rows.append(row)
                 say(f"  top-k {dtype} {cap} rows B={b} k={k}: kernel "
                     f"{k_ms:.3f}/{k_ms2:.3f} ms ({gb / km * 1e3:.0f} GB/s of "
-                    f"store), plain {p_ms:.3f}/{p_ms2:.3f} ms")
+                    f"store), plain {p_ms:.3f}/{p_ms2:.3f} ms, bound "
+                    f"{b_ms:.3f} ms ({b_by}), {b_ms / km:.1%} of it{lib}")
             if store is not base:
                 del store
         del base
         torch.cuda.empty_cache()
     return rows
-
-
-def gallery_search_latency(g) -> None:
-    """Phase 10, informational: host p50/p99 of the default gallery's
-    search (f32 store, kernel 3) at 2^20 rows, k 5, B 1 and 64."""
-    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
-
-    cap, d = 1 << 20, 512
-    gal = DeviceGallery(d, dtype="float32", hbm_limit_gb=0, device="cuda")
-    gal.enroll(unit_rows(g, cap, d).cpu().numpy(), np.arange(cap))
-    probes = unit_rows(g, 64, d).cpu().numpy()
-    for b in (1, 64):
-        for _ in range(3):
-            gal.search(probes[:b], k=5)
-        ms = []
-        for _ in range(50):
-            t0 = time.perf_counter()
-            labels, scores = gal.search(probes[:b], k=5)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        expect(labels.shape == (b, 5) and np.isfinite(scores).all(),
-               "gallery search shape/finite")
-        p50, p99 = np.percentile(ms, [50, 99])
-        say(f"  DeviceGallery(float32).search {cap} rows B={b} k=5: host "
-            f"p50 {p50:.3f} ms, p99 {p99:.3f} ms over 50 searches")
-    del gal
-    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -637,12 +757,18 @@ def main() -> None:
     zeros = torch.zeros(256, device="cuda")
     pre_plain = bench.time_ms(lambda: fp.fused_preprocess_reference(
         u8, zeros, out_h=112, out_w=112))
+    # u8 in, bf16 out, the flip flags; per output value 2 taps on each
+    # axis (6 flops) and the standardization (5)
+    pre_bound = bound(u8.numel() + u8.shape[0] * (112 * 112 * 3 * 2 + 4),
+                      11 * u8.shape[0] * 112 * 112 * 3, "float32")
     say(f"[6 times] {gpu}")
     say(f"  preprocess (256,120,120,3) u8 -> bf16 112: kernel "
-        f"{pre_ms:.3f} ms, plain (f32) {pre_plain:.3f} ms")
+        f"{pre_ms:.3f} ms, plain (f32) {pre_plain:.3f} ms, bound "
+        f"{pre_bound[0]:.4f} ms ({pre_bound[1]})")
     for s in block_stats:
         say(f"  fused_block stage {s['stage']} b256: kernel {s['ms']:.3f} ms, "
-            f"plain {s['plain_ms']:.3f} ms")
+            f"plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms "
+            f"({s['bound_by']})")
     for batch in (128, 256):
         for e2e in (False, True):
             for impl in bench.IMPLS:
@@ -659,7 +785,10 @@ def main() -> None:
     phase_gallery_clis(work, out_npy)
     say(f"[10 gallery times] {gpu}")
     topk_times = phase_gallery_times(g)
-    gallery_search_latency(g)
+    for r in gallery_search_latency(1 << 20, ("float32", "int8")):
+        say(f"  DeviceGallery({r['dtype']}).search {r['rows']} rows B={r['batch']} "
+            f"k=5: host p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms over "
+            f"50 searches")
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
     t_topk_f32 = next(r for r in topk_times if r["dtype"] == "float32"
@@ -667,32 +796,40 @@ def main() -> None:
     t_topk_q = next(r for r in topk_times if r["dtype"] == "int8"
                     and r["rows"] == 10_000_000 and r["batch"] == 64)
 
+    block_ms = sum(s["ms"] for s in block_stats)
+    block_bound = sum(s["bound_ms"] for s in block_stats)
+    by = {s["bound_by"] for s in block_stats}
+    # library_ms: no single PyTorch call computes any of the four (the
+    # top-k's library route is a matmul and torch.topk: two calls)
     kernels = [
         {"name": "preprocess", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/preprocess.cu",
          "replaces": "tf_face_toolbox_tpu/ops/pallas_preprocess.py:64",
          "launches": launches["preprocess"], "max_abs_err": pre_err,
-         "ms": pre_ms, "plain_ms": pre_plain},
+         "ms": pre_ms, "plain_ms": pre_plain, "bound_ms": pre_bound[0],
+         "bound_by": pre_bound[1], "bound_share": pre_bound[0] / pre_ms,
+         "library_ms": None},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",
          "launches": launches["fused_block"],
          "max_abs_err": max(s["max_abs_err"] for s in block_stats),
-         "ms": sum(s["ms"] for s in block_stats),
-         "plain_ms": sum(s["plain_ms"] for s in block_stats)},
-        {"name": "topk", "route": "cuda",
-         "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
-         "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:118",
-         "launches": topk_launches["topk"], "max_abs_err": topk_err["topk"],
-         "ms": t_topk["ms"], "plain_ms": t_topk["plain_ms"],
-         "f32_ms": t_topk_f32["ms"], "f32_plain_ms": t_topk_f32["plain_ms"]},
-        {"name": "topk_q", "route": "cuda",
-         "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
-         "replaces": "tf_face_toolbox_tpu/ops/pallas_topk.py:194",
-         "launches": topk_launches["topk_q"],
-         "max_abs_err": topk_err["topk_q"],
-         "ms": t_topk_q["ms"], "plain_ms": t_topk_q["plain_ms"]},
+         "ms": block_ms, "plain_ms": sum(s["plain_ms"] for s in block_stats),
+         "bound_ms": block_bound,
+         "bound_by": by.pop() if len(by) == 1 else "bytes and operations",
+         "bound_share": block_bound / block_ms, "library_ms": None},
     ]
+    for name, row, replaces in (("topk", t_topk, 118), ("topk_q", t_topk_q, 194)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tf_face_toolbox_tpu_torch/csrc/topk.cu",
+            "replaces": f"tf_face_toolbox_tpu/ops/pallas_topk.py:{replaces}",
+            "launches": topk_launches[name], "max_abs_err": topk_err[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_share": row["bound_share"], "library_ms": None,
+            "library_route_ms": row["library_route_ms"]})
+    kernels[2].update(f32_ms=t_topk_f32["ms"], f32_plain_ms=t_topk_f32["plain_ms"])
     say(json.dumps({"kernels": kernels}))
     say(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -87,10 +87,11 @@ def test_slice_matches_jax_extract_shard(tmp_path, engine, loader):
     flat = flatten_variables(variables)
     net = create_network("resnet_tiny", **_NET, input_size=16)
     apply = (load_jax_variables(net, flat) if engine == "module" else
-             make_serving_apply(net, flat, use_kernels=engine == "fused"))
+             make_serving_apply(net, flat, use_kernels=engine == "fused",
+                                device="cpu"))
     got = extract_shard(net, flat, FaceShardSource(shard), image_size=16,
                         crop_from=20, batch=5, num_threads=2, loader=loader,
-                        extract_fn=make_extract_fn(apply))
+                        extract_fn=make_extract_fn(apply), device="cpu")
     assert got.shape == want.shape == (12, 16) and got.dtype == np.float32
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
@@ -184,10 +185,21 @@ def test_extract_dataset_is_batch_independent():
     fn = make_extract_fn(load_jax_variables(net, flatten_variables(variables)))
     x = np.random.default_rng(2).standard_normal((6, 16, 16, 3)).astype(
         np.float32)
-    got = extract_dataset(fn, [x[:4], x[4:]])
+    got = extract_dataset(fn, [x[:4], x[4:]], device="cpu")
     assert got.shape == (6, 16)
     np.testing.assert_allclose(got, fn(torch.from_numpy(x)).numpy(),
                                atol=1e-6)
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from tf_face_toolbox_tpu_torch.extract import _standardized_batches
+
+    for fn in (extract_shard, extract_dataset, _standardized_batches,
+               make_serving_apply):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("ext", ["npy", "npz", "mat", "bin"])

@@ -302,6 +302,53 @@ def test_concurrent_search_enroll_remove():
     assert labs[0, 0] == 0
 
 
+def _same_near_ties(jg, tg, probes, k, tol=2e-6):
+    """Scores within ``tol`` of the JAX gallery's; labels equal except
+    where the JAX scores around a position are within ``tol`` of each
+    other (two f32 dot programs may order such rows either way)."""
+    jl, js = jg.search(probes, k=k + 1)
+    tl, ts = tg.search(probes, k=k)
+    np.testing.assert_allclose(ts, js[:, :k], atol=tol, rtol=0)
+    gap = np.diff(-js, axis=1) <= tol
+    near = np.zeros(tl.shape, bool)
+    near[:, 1:] |= gap[:, :k - 1]
+    near[:, :] |= gap[:, :k]
+    np.testing.assert_array_equal(tl[~near], jl[:, :k][~near])
+    assert np.all(np.diff(ts, axis=1) <= 0)
+
+
+@pytest.mark.parametrize("dtype,dim,k", [
+    ("float32", 100, 5), ("bfloat16", 100, 5), ("int8", 100, 5),
+    ("float32", 5, 5), ("float32", 128, 1100), ("bfloat16", 100, 1100),
+    ("int8", 100, 300)])
+def test_any_width_and_k_match_jax(dtype, dim, k):
+    """Row widths that are not a multiple of 16 bytes (the device store
+    and the probes are zero-padded to one) and k past 1024 (int8: a
+    coarse stage of 4k = 1200 rows), against the JAX gallery."""
+    rng = np.random.default_rng(dim + k)
+    e = rng.normal(size=(3000, dim)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    probes = e[[3, 500, 2999]] + 0.05 * rng.normal(size=(3, dim)).astype(
+        np.float32)
+    jg = jgal.DeviceGallery(dim, block=512, dtype=dtype)
+    tg = tgal.DeviceGallery(dim, block=512, dtype=dtype, device="cpu")
+    for g in (jg, tg):
+        g.enroll(e[:1700], np.arange(1700))
+        g.enroll(e[1700:], np.arange(1700, 3000))
+        g.remove(500)
+    width = tg._dev.shape[1]
+    assert width >= dim and (width * tg.itemsize) % 16 == 0
+    assert width * tg.itemsize - dim * tg.itemsize < 16
+    assert tg.device_bytes() == jg.device_bytes()
+    assert not tg._dev[:, dim:].float().any()        # the pad is zeros
+    if dtype == "int8":
+        _same(jg, tg, probes, k)          # the coarse stage is exact
+    else:
+        _same_near_ties(jg, tg, probes, k)
+    labels, _ = tg.search(probes, k=k)
+    assert 500 not in labels and labels.shape == (3, k)
+
+
 def test_non_cuda_store_has_no_kernel():
     store = torch.zeros((8, DIM), device="meta")
     with pytest.raises(ValueError, match="no kernel"):

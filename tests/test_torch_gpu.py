@@ -205,12 +205,21 @@ def test_topk_kernel_vs_plain(cuda, dtype, case):
 
 
 @pytest.mark.parametrize("dtype,d", [("float32", 4), ("float32", 136),
-                                     ("bfloat16", 8), ("bfloat16", 136)])
+                                     ("bfloat16", 8), ("bfloat16", 136),
+                                     ("int8", 16), ("int8", 144)])
 def test_topk_kernel_narrow_rows(cuda, dtype, d):
     """Rows of one 16-byte piece, and rows whose last 128-byte column
-    chunk is partial (D = 136: 544 B f32, 272 B bf16): the ring's
-    zero-fill past the row must leave the sums exact."""
+    chunk is partial (D = 136: 544 B f32, 272 B bf16; D = 144 int8):
+    the ring's zero-fill past the row must leave the sums exact."""
     cap, n, b, k = 3000, 2900, 5, 10
+    if dtype == "int8":
+        gq, gs = _quantize(_unit_rows(cuda, cap, d))
+        pq, ps = _quantize(_unit_rows(cuda, b, d))
+        got = ttk.cosine_topk_q(gq, gs, pq, ps, n, k)
+        torch.cuda.synchronize()
+        want = ttk.cosine_topk_q_reference(gq, gs, pq, ps, n, k)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        return
     st = _unit_rows(cuda, cap, d).to(getattr(torch, dtype))
     probes = _unit_rows(cuda, b, d)
     got = ttk.cosine_topk(st, probes, n, k)
@@ -248,15 +257,64 @@ def test_topk_kernel_adversarial_orderings(cuda, order):
     assert len(set(got[1][0].tolist())) == k
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
-def test_topk_kernel_refuses_k_above_limit(cuda, dtype):
-    store = _unit_rows(cuda, 2048, 64)
-    with pytest.raises(ValueError, match="K_MAX"):
-        if dtype == "int8":
-            gq, gs = _quantize(store)
-            ttk.cosine_topk_q(gq, gs, gq[:2], gs[:2], 2048, ttk.K_MAX + 1)
-        else:
-            ttk.cosine_topk(store, store[:2], 2048, ttk.K_MAX + 1)
+@pytest.mark.parametrize("k", [1100, 5000, 12000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_topk_kernel_large_k(cuda, dtype, k):
+    """k past 1024: lists in shared memory (1100; 5000, whose merge
+    needs more than 48 KB of shared memory) and in the workspace with a
+    global merge scratch (12,000), against the plain version."""
+    cap, n, b, d = 1 << 15, 30000, 2, 128
+    store = _unit_rows(cuda, cap, d)
+    probes = torch.cat([store[7:8], _unit_rows(cuda, b - 1, d)])
+    bias = torch.zeros(cap, device="cuda")
+    bias[torch.arange(0, n, 97, device="cuda")] = -2e9
+    plan = ttk.launch_plan(b, cap, k, ttk._n_sms(store.device),
+                           dtype=getattr(torch, dtype))
+    assert plan["shared_lists"] == (k < 12000)
+    if dtype == "int8":
+        gq, gs = _quantize(store)
+        pq, ps = _quantize(probes)
+        got = ttk.cosine_topk_q(gq, gs, pq, ps, n, k, bias=bias)
+        torch.cuda.synchronize()
+        want = ttk.cosine_topk_q_reference(gq, gs, pq, ps, n, k, bias=bias)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        return
+    st = store.to(getattr(torch, dtype))
+    got = ttk.cosine_topk(st, probes, n, k, bias=bias)
+    torch.cuda.synchronize()
+    want = ttk.cosine_topk_reference(st, probes, n, k, bias=bias)
+    nxt = ttk.cosine_topk_reference(st, probes, n, k + 1, bias=bias)[0]
+    assert_topk_matches(got, want, nxt)
+
+
+@pytest.mark.parametrize("k", [20, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_topk_kernel_neg_inf_bias(cuda, dtype, k):
+    """A -inf bias on the first k rows of every slice fills each list
+    with (-inf, row) entries, which rank ahead of the empty (-inf,
+    INT_MAX) ones; the next live row must still insert in place."""
+    cap, n, b, d = 1 << 15, 30000, 3, 128
+    store = _unit_rows(cuda, cap, d)
+    probes = _unit_rows(cuda, b, d)
+    plan = ttk.launch_plan(b, cap, k, ttk._n_sms(store.device),
+                           dtype=getattr(torch, dtype))
+    bias = torch.zeros(cap, device="cuda")
+    for s in range(0, cap, plan["slice_rows"]):
+        bias[s:s + k] = -float("inf")
+    if dtype == "int8":
+        gq, gs = _quantize(store)
+        pq, ps = _quantize(probes)
+        got = ttk.cosine_topk_q(gq, gs, pq, ps, n, k, bias=bias)
+        torch.cuda.synchronize()
+        want = ttk.cosine_topk_q_reference(gq, gs, pq, ps, n, k, bias=bias)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        return
+    st = store.to(getattr(torch, dtype))
+    got = ttk.cosine_topk(st, probes, n, k, bias=bias)
+    torch.cuda.synchronize()
+    want = ttk.cosine_topk_reference(st, probes, n, k, bias=bias)
+    nxt = ttk.cosine_topk_reference(st, probes, n, k + 1, bias=bias)[0]
+    assert_topk_matches(got, want, nxt)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -293,3 +351,40 @@ def test_cuda_gallery_runs_the_kernels(cuda, dtype):
     np.testing.assert_array_equal(ls, lp)
     np.testing.assert_allclose(sr, sp, atol=1e-5)
     assert 3 not in lr
+
+
+@pytest.mark.parametrize("dtype,dim", [("float32", 100), ("bfloat16", 100),
+                                       ("int8", 100), ("float32", 5)])
+def test_cuda_gallery_any_width(cuda, dtype, dim):
+    """Rows that are not a multiple of 16 bytes: the gallery pads its
+    store and probes, the kernels launch, and the results equal the
+    plain programs' (int8: exactly; f32/bf16: away from near-ties)."""
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    rng = np.random.default_rng(dim)
+    e = rng.normal(size=(3000, dim)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    counter = ttk.cosine_topk_q if dtype == "int8" else ttk.cosine_topk
+    kern = DeviceGallery(dim, block=512, dtype=dtype, device="cuda")
+    plain = DeviceGallery(dim, block=512, dtype=dtype, device="cuda")
+    plain.use_kernels = False
+    for g in (kern, plain):
+        g.enroll(e, np.arange(3000))
+        g.remove(11)
+    assert (kern._dev.shape[1] * kern.itemsize) % 16 == 0
+    before = counter.launches
+    lk, sk = kern.search(e[:40], k=10)
+    assert counter.launches == before + 1
+    # int8 at the same k: its coarse stage keeps 4k rows
+    lp, sp = plain.search(e[:40], k=10 if dtype == "int8" else 11)
+    if dtype == "int8":
+        np.testing.assert_array_equal(lk, lp)
+        np.testing.assert_array_equal(sk, sp)
+    else:
+        gap = np.diff(-sp, axis=1) <= 1e-5
+        near = np.zeros(lk.shape, bool)
+        near[:, 1:] |= gap[:, :9]
+        near |= gap[:, :10]
+        assert (lk == lp[:, :10])[~near].all()
+        np.testing.assert_allclose(sk, sp[:, :10], atol=1e-5)
+    assert 11 not in lk

@@ -50,7 +50,7 @@ def test_engine_matches_jax_f32(stem, head, use_kernels):
     tnet = create_network("resnet_tiny", **_NET_KW, stem=stem,
                           head_variant=head, input_size=32)
     apply = teng.make_serving_apply(tnet, flatten_variables(variables),
-                                    use_kernels=use_kernels)
+                                    use_kernels=use_kernels, device="cpu")
     got = apply(torch.from_numpy(x)).numpy()
     assert got.dtype == np.float32 and got.shape == want_engine.shape
     np.testing.assert_allclose(got, want_engine, rtol=2e-4, atol=2e-4)
@@ -66,7 +66,8 @@ def test_engine_matches_jax_bf16():
     tnet = create_network("resnet_tiny", **_NET_KW, stem="imagenet",
                           dtype=torch.bfloat16)
     got = teng.make_serving_apply(tnet, flatten_variables(variables),
-                                  use_kernels=True)(torch.from_numpy(x))
+                                  use_kernels=True,
+                                  device="cpu")(torch.from_numpy(x))
     assert got.dtype == torch.float32
     got = got.double().numpy()
     cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)

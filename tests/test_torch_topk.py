@@ -15,7 +15,11 @@ from tf_face_toolbox_tpu.ops.pallas_topk import (
     cosine_topk_impl,
     cosine_topk_q_impl,
 )
-from tf_face_toolbox_tpu.serving.gallery import _quantize_rows, _search_fn
+from tf_face_toolbox_tpu.serving.gallery import (
+    _quantize_rows,
+    _search_fn,
+    _search_q_fn,
+)
 from tf_face_toolbox_tpu_torch.ops import topk as ttk
 
 torch.set_num_threads(1)
@@ -190,25 +194,25 @@ def test_bias_masks_tombstones_like_jax(dtype):
 
 
 def test_large_k_matches_xla_program():
-    """k above the kernels' limit: the wrapper raises (no switch to
-    the plain version); the plain version itself takes it and agrees
-    with the JAX XLA program."""
+    """k past 1024 (the kernels' old limit): a CPU store serves it
+    through the wrappers, as the JAX XLA programs do, f32 and int8."""
     rng = np.random.default_rng(8)
-    cap, n, k = 2048, 1900, 1100
+    cap, n, k = 2048, 1900, 1025
     g = np.zeros((cap, 64), np.float32)
     g[:n] = _unit(rng, n, 64)
     p = g[:3]
-    with pytest.raises(ValueError, match="K_MAX"):
-        ttk.cosine_topk(_t(g), _t(p), n, ttk.K_MAX + 1)
-    with pytest.raises(ValueError, match="K_MAX"):
-        gq, gs = _quantize_rows(g)
-        ttk.cosine_topk_q(_t(gq), _t(gs), _t(gq[:2]), _t(gs[:2]), n,
-                          ttk.K_MAX + 1)
     js, ji = _search_fn(k + 1)(jnp.asarray(g), jnp.zeros(cap), jnp.asarray(p),
                                jnp.int32(n))
-    got = ttk.cosine_topk_reference(_t(g), _t(p), n, k)
+    got = ttk.cosine_topk(_t(g), _t(p), n, k)
     assert_topk_close(got, np.asarray(js)[:, :k], np.asarray(ji)[:, :k],
                       ref_next=js)
+    gq, gs = _quantize_rows(g)
+    pq, ps = _quantize_rows(p)
+    js, ji = _search_q_fn(k)(jnp.asarray(gq), jnp.asarray(gs), jnp.zeros(cap),
+                             jnp.asarray(pq), jnp.asarray(ps), jnp.int32(n))
+    s, i = ttk.cosine_topk_q(_t(gq), _t(gs), _t(pq), _t(ps), n, k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("chunk_rows", [None, 100, 1000, 4096])
@@ -252,8 +256,8 @@ def _assert_covers(plan, cap, tile):
                                          (300, 1 << 20, 100),
                                          (2048, 10**6, 1024), (7, 100, 64)])
 def test_launch_plan_covers_the_store(batch, cap, k):
-    for bf16 in (False, True):
-        plan = ttk.launch_plan(batch, cap, k, n_sms=132, bf16=bf16)
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ttk.launch_plan(batch, cap, k, n_sms=132, dtype=dtype)
         assert 1 <= plan["per_cta"] <= min(batch, 64)
         assert plan["per_cta"] <= plan["slots"] <= 64
         assert plan["smem"] == ttk.stream_smem_bytes(
@@ -262,39 +266,79 @@ def test_launch_plan_covers_the_store(batch, cap, k):
         # about one CTA per SM, never more than 132 in one wave
         n_ptiles = -(-batch // plan["per_cta"])
         assert n_ptiles * plan["slices"] <= max(132, n_ptiles)
-    # kernel 4 keeps its own plan
-    plan = ttk.launch_plan_q(batch, cap, k, n_sms=132)
-    assert 1 <= plan["per_cta"] <= 32
-    assert plan["mt"] == (1 if plan["per_cta"] <= 16 else 2)
-    assert plan["per_cta"] * k * 8 <= 64 << 10 or plan["per_cta"] == 1
-    _assert_covers(plan, cap, ttk.TILE_ROWS)
+    # kernel 4 (int8) takes the same plan, with its probe scales
+    plan = ttk.launch_plan(batch, cap, k, n_sms=132, dtype=torch.int8)
+    assert 1 <= plan["per_cta"] <= min(batch, 64)
+    assert plan["slots"] in (8, 16, 32, 64) and plan["per_cta"] <= plan["slots"]
+    assert plan["smem"] == ttk.stream_smem_bytes(
+        plan["slots"], plan["stages"], plan["per_cta"], k, int8=True)
+    _assert_covers(plan, cap, ttk.STREAM_ROWS)
+    n_ptiles = -(-batch // plan["per_cta"])
+    assert n_ptiles * plan["slices"] <= max(132, n_ptiles)
 
 
 @pytest.mark.parametrize("k", [1, 5, 100, 1024])
 @pytest.mark.parametrize("batch", [1, 7, 33, 64, 65, 300])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_launch_plan_fits_shared_memory(dtype, batch, k):
-    """Kernel 3's plan at every k and batch: the ring, score tile and
-    lists fit an H100 block's 232,448 bytes (summed independently of the
-    plan's own formula), with at least 3 ring stages (3 fit at every k
-    up to K_MAX, down to 8 probes per CTA at k = 1024), and the probe
-    slots are a kernel template that holds the CTA's probes."""
-    bf16 = dtype == "bfloat16"
+    """The stream kernel's plan at every k up to 1024 and batch: the
+    ring, score tile and flags, int8 probe scales and lists fit an H100
+    block's 232,448 bytes (summed independently of the plan's own
+    formula),
+    with at least 3 ring stages (down to 8 probes per CTA at k = 1024),
+    and the probe slots are a kernel template that holds the CTA's
+    probes."""
+    f32 = dtype == "float32"
     cap = 10**6
-    plan = ttk.launch_plan(batch, cap, k, n_sms=132, bf16=bf16)
+    plan = ttk.launch_plan(batch, cap, k, n_sms=132,
+                           dtype=getattr(torch, dtype))
     slots, stages, per_cta = plan["slots"], plan["stages"], plan["per_cta"]
-    ring = stages * (256 + slots) * 144         # 128-byte chunks, 16 B pad
-    smem = ring + slots * 260 * 4 + per_cta * k * 8
+    # 128-byte chunks at a 144-byte stride, then 256 row scales and bias
+    ring = stages * ((256 + slots) * 144 + 2 * 256 * 4)
+    smem = ring + slots * (260 * 4 + 8) + per_cta * k * 8
+    if dtype == "int8":
+        smem += slots * 4
     assert plan["smem"] == smem <= 232_448
+    assert plan["shared_lists"] and not plan["merge_scratch"]
     assert 3 <= stages <= 4
     assert per_cta <= slots
-    assert slots in ((8, 16, 32, 64) if bf16 else (1, 2, 3, 4, 5, 6, 7, 8,
-                                                   16, 32, 64))
+    assert slots in ((1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64) if f32
+                     else (8, 16, 32, 64))
     if k <= 20:                     # up to 64 probes read the store once
         assert per_cta == min(batch, 64)
     if k == 1024:
         assert per_cta == min(batch, 8)
     _assert_covers(plan, cap, 256)
+
+
+@pytest.mark.parametrize("k", [1100, 5000, 12000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_launch_plan_places_large_lists(dtype, k):
+    """Past k = 1024: the running lists stay in shared memory while
+    min(B, 8) probes' lists fit beside a 3-stage ring (k 1100 and 5000
+    at B = 2), else they live in the workspace with no list bytes in
+    shared memory (k 12,000: 2 x 12,000 x 8 bytes do not fit). The
+    merge's lists go to a global scratch when neither all slices' lists
+    twice (16 x slices x k bytes) nor three lists (k x 24 bytes) fit in
+    232,448 bytes (k 12,000). No slice is shorter than k rows."""
+    cap, batch = 1 << 16, 2
+    int8 = dtype == "int8"
+    plan = ttk.launch_plan(batch, cap, k, n_sms=132,
+                           dtype=getattr(torch, dtype))
+    assert plan["per_cta"] == batch
+    assert plan["shared_lists"] == (k < 12000)
+    assert plan["merge_scratch"] == (k == 12000)
+    assert plan["merge_scratch"] == (16 * plan["slices"] * k > 232_448
+                                     and 24 * k > 232_448)
+    lists = batch * k * 8 if plan["shared_lists"] else 0
+    assert plan["smem"] == ttk.stream_smem_bytes(
+        plan["slots"], plan["stages"], batch, k, int8=int8,
+        shared_lists=plan["shared_lists"]) <= 232_448
+    assert plan["smem"] - lists == ttk.stream_smem_bytes(
+        plan["slots"], plan["stages"], batch, k, int8=int8,
+        shared_lists=False)
+    assert plan["slice_rows"] >= k and plan["slices"] <= cap // k
+    _assert_covers(plan, cap, ttk.STREAM_ROWS)
 
 
 def test_wrappers_reject_bad_inputs():

@@ -48,7 +48,7 @@ def extract_shard(net, variables, source, *, image_size: int,
                   extract_fn: Callable | None = None,
                   progress: Callable[[int, int], None] | None = None,
                   rows: tuple[int, int] | None = None,
-                  device: str | torch.device = "cpu") -> np.ndarray:
+                  device: str | torch.device = "cuda") -> np.ndarray:
     """Extract embeddings for every record of a FaceShardSource.
 
     - host: decode + half-pixel bilinear resize to ``crop_from``
@@ -87,7 +87,7 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
                           loader: str = "auto",
                           norm: str = "per_image",
                           rows: tuple[int, int] | None = None,
-                          device: str | torch.device = "cpu"):
+                          device: str | torch.device = "cuda"):
     """Yield the eval-chain standardized image batches of a shard
     (decode -> resize to crop_from -> center crop -> standardize), f32
     NHWC on ``device``. ``rows``: half-open [lo, hi) record range."""
@@ -150,7 +150,7 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
 
 
 def extract_dataset(extract_fn: Callable, batches: Iterable[np.ndarray],
-                    device: str | torch.device = "cpu") -> np.ndarray:
+                    device: str | torch.device = "cuda") -> np.ndarray:
     """Extract embeddings for a stream of standardized image batches."""
     outs = [extract_fn(torch.as_tensor(np.asarray(b)).to(device)).cpu().numpy()
             for b in batches]

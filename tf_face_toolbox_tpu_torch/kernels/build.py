@@ -42,16 +42,16 @@ SIGNATURES = {
     # device, stream
     "tfft_bottleneck_block": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # store, probes, bias, n_valid, cap, d, b, k, per_cta, slots,
-    # stages, slice_rows, slices, smem_bytes, store_bf16, part_s,
-    # part_i, out_s, out_i, device, stream
-    "tfft_topk": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P, _P, _P, _P, _I, _P]),
-    # store, row_scale, probes, probe_scale, bias, n_valid, cap, d, b, k,
-    # per_cta, mt, slice_rows, slices, part_s, part_i, out_s, out_i,
+    # store, probes, bias, n_valid, cap, d, b, k, store_bf16, then the
+    # plan (per_cta, slots, stages, slice_rows, slices, smem_bytes,
+    # shared_lists), part_s, part_i, merge_scratch, out_s, out_i,
     # device, stream
-    "tfft_topk_q": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P, _P, _P, _P, _I, _P]),
+    "tfft_topk": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I]
+                  + [_I] * 7 + [_P] * 5 + [_I, _P]),
+    # store, row_scale, probes, probe_scale, bias, n_valid, cap, d, b, k,
+    # then the same plan and buffers as tfft_topk
+    "tfft_topk_q": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                    + [_I] * 7 + [_P] * 5 + [_I, _P]),
     "tfft_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -26,11 +26,6 @@ from __future__ import annotations
 import torch
 
 MASKED = -2e9        # masked / tombstoned row score (the JAX programs')
-K_MAX = 1024         # largest k the kernels take
-# kernel 4 (csrc/topk.cu topk_partial_kernel)
-TILE_ROWS = 64       # store rows a kernel-4 CTA scores per step
-_SEL_BYTES = 64 << 10  # shared memory for a CTA's running lists
-_MAX_PROBES_PER_CTA = 32
 _LOW32 = 0xFFFFFFFF
 
 
@@ -61,13 +56,10 @@ def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return _decode(keys)
 
 
-def _check_k(k: int, cap: int, kernel: bool = True) -> int:
+def _check_k(k: int, cap: int) -> int:
     k = int(k)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if kernel and k > K_MAX:
-        raise ValueError(f"k={k} exceeds the top-k kernels' limit "
-                         f"K_MAX={K_MAX}")
     if k > cap:
         raise ValueError(f"k={k} exceeds the store's {cap} rows")
     return k
@@ -130,7 +122,7 @@ def cosine_topk_reference(gallery: torch.Tensor, probes: torch.Tensor,
     ``_search_scan_fn``. Any device; on a CUDA device TF32 must be off."""
     _check_store(gallery, probes, bias, (torch.float32, torch.bfloat16))
     cap, d = gallery.shape
-    k = _check_k(k, cap, kernel=False)
+    k = _check_k(k, cap)
     _check_tf32(gallery)
     dev = gallery.device
     # cast to the store dtype (as the kernel does), then exact in f32
@@ -156,7 +148,7 @@ def cosine_topk_q_reference(gallery_q: torch.Tensor, gallery_scale: torch.Tensor
     cap, d = gallery_q.shape
     if d > 1040:
         raise ValueError(f"int8 dim {d} > 1040: the f32 dot is no longer exact")
-    k = _check_k(k, cap, kernel=False)
+    k = _check_k(k, cap)
     _check_tf32(gallery_q)
     dev = gallery_q.device
     pq = probes_q.to(device=dev, dtype=torch.int8).to(torch.float32)
@@ -171,63 +163,78 @@ def cosine_topk_q_reference(gallery_q: torch.Tensor, gallery_scale: torch.Tensor
                          bias, chunk_rows or _default_chunk(pq.shape[0], d), dev)
 
 
-# kernel 3 (csrc/topk.cu topk_stream_kernel): a 256-row tile; each ring
-# stage holds a 128-byte column chunk of the tile's rows and of the
-# probe slots at a 144-byte row stride; the score tile is (slots, 260)
-# f32; each probe's running list is k x (f32, int32)
+# kernels 3 and 4 (csrc/topk.cu topk_stream_kernel): a 256-row tile;
+# each ring stage holds a 128-byte column chunk of the tile's rows and
+# of the probe slots at a 144-byte row stride, and the tile's row
+# scales and bias (2 x 256 f32); the score tile is (slots, 260) f32 with
+# 8 bytes of flags a slot; an int8 CTA keeps its probe scales (slots
+# f32); each probe's running list is k x (f32, int32), in shared memory
+# or in the workspace
 STREAM_ROWS = 256
 _RING_ROW_BYTES = 144
+_STAGE_SIDE_BYTES = 2 * STREAM_ROWS * 4
 _SCORE_STRIDE = STREAM_ROWS + 4
 _MAX_STAGES = 4
 SMEM_BYTES = 232448      # an H100 block's dynamic shared memory
 _F32_SLOTS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64)
-_BF16_SLOTS = (8, 16, 32, 64)
+_MMA_SLOTS = (8, 16, 32, 64)     # bf16 and int8: the n8 mma tile
+_WARPS = 8                       # one probe a warp in the selection pass
 
 
-def stream_smem_bytes(slots: int, stages: int, per_cta: int, k: int) -> int:
-    """Kernel 3's shared memory: the ring, the score tile, the lists."""
-    return (stages * (STREAM_ROWS + slots) * _RING_ROW_BYTES
-            + slots * _SCORE_STRIDE * 4 + per_cta * k * 8)
+def stream_smem_bytes(slots: int, stages: int, per_cta: int, k: int,
+                      int8: bool = False, shared_lists: bool = True) -> int:
+    """The stream kernel's shared memory: the ring, the score tile and
+    its flags, the int8 probe scales, and the running lists when they
+    live there."""
+    return (stages * ((STREAM_ROWS + slots) * _RING_ROW_BYTES
+                      + _STAGE_SIDE_BYTES)
+            + slots * (_SCORE_STRIDE * 4 + 8) + (slots * 4 if int8 else 0)
+            + (per_cta * k * 8 if shared_lists else 0))
 
 
 def launch_plan(batch: int, cap: int, k: int, n_sms: int,
-                bf16: bool = False) -> dict:
-    """How kernel 3 cuts a search, from one shared-memory budget: the
-    most probes per CTA (up to 64) whose probe slots, 3-stage ring,
-    score tile and running lists fit ``SMEM_BYTES`` (a fourth stage
-    where it also fits), then about one CTA per SM in all."""
-    slot_set = _BF16_SLOTS if bf16 else _F32_SLOTS
-    for most in sorted(slot_set, reverse=True):
-        per_cta = min(batch, most)
+                dtype: torch.dtype = torch.float32) -> dict:
+    """How the stream kernel cuts a search of an f32, bf16 or int8
+    store, from one shared-memory budget:
+
+    - probes per CTA: the most, from min(batch, 64) down to
+      min(batch, 8) (one a warp), whose probe slots, 3-stage ring, score
+      tile and running lists fit ``SMEM_BYTES``; past that k the lists
+      live in the workspace and a CTA takes min(batch, 8) probes;
+    - a fourth ring stage where it also fits;
+    - about one CTA per SM in all, and no slice shorter than k rows (so
+      the workspace stays within slices x B x k <= cap x B entries);
+    - the merge loads every slice's list into shared memory when two
+      copies fit (16 x slices x k bytes), else folds them one at a time
+      with three lists (k x 24 bytes) in shared memory while they fit,
+      else in a global scratch (``merge_scratch``).
+    """
+    int8 = dtype == torch.int8
+    slot_set = _F32_SLOTS if dtype == torch.float32 else _MMA_SLOTS
+
+    def smem(per_cta: int, stages: int, shared: bool) -> tuple[int, int]:
         slots = min(s for s in slot_set if s >= per_cta)
-        if stream_smem_bytes(slots, 3, per_cta, k) <= SMEM_BYTES:
+        return slots, stream_smem_bytes(slots, stages, per_cta, k, int8,
+                                        shared)
+
+    for most in (64, 32, 16, _WARPS):
+        per_cta, shared = min(batch, most), True
+        if smem(per_cta, 3, shared)[1] <= SMEM_BYTES:
             break
     else:
-        raise ValueError(f"k={k}: no probe tile fits kernel 3's shared memory")
+        per_cta, shared = min(batch, _WARPS), False
+    slots = smem(per_cta, 3, shared)[0]
     stages = max(s for s in range(3, _MAX_STAGES + 1)
-                 if stream_smem_bytes(slots, s, per_cta, k) <= SMEM_BYTES)
+                 if smem(per_cta, s, shared)[1] <= SMEM_BYTES)
     n_ptiles = -(-batch // per_cta)
     tiles = -(-cap // STREAM_ROWS)
-    slices = max(1, min(n_sms // n_ptiles, tiles))
+    slices = max(1, min(n_sms // n_ptiles, tiles, cap // k))
     slice_rows = -(-tiles // slices) * STREAM_ROWS
+    slices = -(-cap // slice_rows)
     return {"per_cta": per_cta, "slots": slots, "stages": stages,
-            "slice_rows": slice_rows, "slices": -(-cap // slice_rows),
-            "smem": stream_smem_bytes(slots, stages, per_cta, k)}
-
-
-def launch_plan_q(batch: int, cap: int, k: int, n_sms: int) -> dict:
-    """How kernel 4 cuts a search: probes per CTA (its running lists
-    fit ``_SEL_BYTES`` of shared memory), m16 tiles per CTA, and row
-    slices (about four CTAs per SM in all, at least four 64-row tiles
-    per slice)."""
-    per_cta = max(1, min(_MAX_PROBES_PER_CTA, batch, _SEL_BYTES // (8 * k)))
-    mt = 1 if per_cta <= 16 else 2
-    n_ptiles = -(-batch // per_cta)
-    tiles = -(-cap // TILE_ROWS)
-    slices = max(1, min(-(-4 * n_sms // n_ptiles), tiles // 4))
-    slice_rows = -(-tiles // slices) * TILE_ROWS
-    return {"per_cta": per_cta, "mt": mt, "slices": -(-cap // slice_rows),
-            "slice_rows": slice_rows}
+            "slice_rows": slice_rows, "slices": slices,
+            "smem": smem(per_cta, stages, shared)[1], "shared_lists": shared,
+            "merge_scratch": min(16 * slices, 24) * k > SMEM_BYTES}
 
 
 def _device_args(t: torch.Tensor, dtype, what: str) -> torch.Tensor:
@@ -239,39 +246,49 @@ def _device_args(t: torch.Tensor, dtype, what: str) -> torch.Tensor:
     return t
 
 
-def _n_sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+def _bias_ptr(bias, dev: torch.device):
+    if bias is None:
+        return None
+    bias = _device_args(bias, torch.float32, "bias")
+    if bias.device != dev:
+        raise ValueError(f"bias on {bias.device}, store on {dev}")
+    return bias.data_ptr()
 
 
-def _launch(name: str, store: torch.Tensor, pointers: list, n_valid: int,
-            k: int, bias, batch: int, itemsize: int, slices: int,
-            plan_args: list) -> tuple:
-    """Allocate outputs and a (slices, B, k) workspace, call one C entry
-    point with the plan's arguments."""
+def _launch(name: str, head: list, store: torch.Tensor, batch: int, k: int,
+            dtype: torch.dtype) -> tuple:
+    """Plan the search, allocate the outputs, the (slices, B, k)
+    workspace and the merge scratch, and call one C entry point with
+    ``head`` (its pointers and sizes) and the plan's arguments."""
     from tf_face_toolbox_tpu_torch.kernels.build import check, load_library
 
     cap, d = store.shape
-    if (d * itemsize) % 16:
+    if (d * store.element_size()) % 16:
         raise ValueError(f"the top-k kernels take rows of a multiple of 16 "
-                         f"bytes, got D={d} x {itemsize} B")
+                         f"bytes, got D={d} x {store.element_size()} B")
     dev = store.device
-    if bias is not None:
-        bias = _device_args(bias, torch.float32, "bias")
-        if bias.device != dev:
-            raise ValueError(f"bias on {bias.device}, store on {dev}")
-    part_s = torch.empty((slices, batch, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((slices, batch, k), dtype=torch.int32, device=dev)
+    pl = launch_plan(batch, cap, k, _n_sms(dev), dtype=dtype)
+    part_s = torch.empty((pl["slices"], batch, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((pl["slices"], batch, k), dtype=torch.int32,
+                         device=dev)
+    scratch = (torch.empty((batch, 6 * k), dtype=torch.int32, device=dev)
+               if pl["merge_scratch"] else None)
     out_s = torch.empty((batch, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((batch, k), dtype=torch.int32, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, name)(
-        *pointers, None if bias is None else bias.data_ptr(),
-        min(int(n_valid), cap), cap, d, batch, k, *plan_args, part_s.data_ptr(),
-        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        dev.index or 0, stream)
+        *head, pl["per_cta"], pl["slots"], pl["stages"], pl["slice_rows"],
+        pl["slices"], pl["smem"], int(pl["shared_lists"]), part_s.data_ptr(),
+        part_i.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), dev.index or 0, stream)
     check(lib, status, name)
     return out_s, out_i
+
+
+def _n_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def cosine_topk(gallery: torch.Tensor, probes: torch.Tensor, n_valid: int,
@@ -279,8 +296,9 @@ def cosine_topk(gallery: torch.Tensor, probes: torch.Tensor, n_valid: int,
     """Top-``k`` cosine matches of ``probes`` (B, D) against ``gallery``
     (cap, D) f32/bf16, rows >= ``n_valid`` masked, ``bias`` (cap,) f32
     or None added per row. Returns (scores (B, k) f32, idx (B, k)
-    int32). Any capacity, batch and fill; ``k`` <= ``K_MAX``. A CPU
-    store runs the plain version; a CUDA store runs kernel 3."""
+    int32). Any capacity, batch, fill and ``k`` up to the capacity. A
+    CPU store runs the plain version; a CUDA store runs kernel 3, whose
+    rows must be a multiple of 16 bytes (``DeviceGallery`` pads them)."""
     _check_store(gallery, probes, bias, (torch.float32, torch.bfloat16))
     k = _check_k(k, gallery.shape[0])
     if gallery.device.type == "cpu":
@@ -289,13 +307,12 @@ def cosine_topk(gallery: torch.Tensor, probes: torch.Tensor, n_valid: int,
         raise ValueError(f"no kernel for device {gallery.device}")
     store = _device_args(gallery, gallery.dtype, "gallery")
     p = probes.to(device=store.device, dtype=store.dtype).contiguous()
-    bf16 = store.dtype == torch.bfloat16
+    cap, d = store.shape
     batch = p.shape[0]
-    pl = launch_plan(batch, store.shape[0], k, _n_sms(store.device), bf16=bf16)
-    out = _launch("tfft_topk", store, [store.data_ptr(), p.data_ptr()],
-                  n_valid, k, bias, batch, store.element_size(), pl["slices"],
-                  [pl["per_cta"], pl["slots"], pl["stages"], pl["slice_rows"],
-                   pl["slices"], pl["smem"], int(bf16)])
+    out = _launch("tfft_topk", [
+        store.data_ptr(), p.data_ptr(), _bias_ptr(bias, store.device),
+        min(int(n_valid), cap), cap, d, batch, k,
+        int(store.dtype == torch.bfloat16)], store, batch, k, store.dtype)
     cosine_topk.launches += 1
     return out
 
@@ -309,7 +326,8 @@ def cosine_topk_q(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     """int8-store twin of :func:`cosine_topk`, the coarse stage of the
     gallery's two-stage int8 search: ``gallery_q`` (cap, D) int8 with
     ``gallery_scale`` (cap,) f32, ``probes_q`` (B, D) int8 with
-    ``probe_scale`` (B,) f32. A CUDA store runs kernel 4."""
+    ``probe_scale`` (B,) f32. A CUDA store runs kernel 4, the same
+    stream kernel with int8 mma."""
     _check_store(gallery_q, probes_q, bias, (torch.int8,))
     k = _check_k(k, gallery_q.shape[0])
     if gallery_q.device.type == "cpu":
@@ -326,15 +344,14 @@ def cosine_topk_q(gallery_q: torch.Tensor, gallery_scale: torch.Tensor,
     ps = probe_scale.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(ps.shape) != (pq.shape[0],):
         raise ValueError(f"probe_scale must be ({pq.shape[0]},)")
+    cap, d = store.shape
     batch = pq.shape[0]
-    pl = launch_plan_q(batch, store.shape[0], k, _n_sms(dev))
-    out = _launch("tfft_topk_q", store,
-                  [store.data_ptr(), gs.data_ptr(), pq.data_ptr(),
-                   ps.data_ptr()], n_valid, k, bias, batch, 1, pl["slices"],
-                  [pl["per_cta"], pl["mt"], pl["slice_rows"], pl["slices"]])
+    out = _launch("tfft_topk_q", [
+        store.data_ptr(), gs.data_ptr(), pq.data_ptr(), ps.data_ptr(),
+        _bias_ptr(bias, dev), min(int(n_valid), cap), cap, d, batch, k],
+        store, batch, k, torch.int8)
     cosine_topk_q.launches += 1
     return out
 
 
 cosine_topk_q.launches = 0
-

@@ -181,7 +181,7 @@ def _to(d: dict | None, device) -> dict | None:
 
 def make_serving_apply(net: ResNet, variables: dict, *,
                        use_kernels: bool = False,
-                       device: str | torch.device = "cpu") -> Callable:
+                       device: str | torch.device = "cuda") -> Callable:
     """Build ``apply(images) -> (N, D) f32 embeddings`` on ``device``.
 
     ``use_kernels=False``: the folded engine, folded convs only.

@@ -13,10 +13,16 @@ int8 rescore) in doubling-capacity buffers.
   rescore of only those rows against the host master (``_rescore``).
 - **Search.** On a CUDA store every search, resident or streamed, runs
   kernel 3 (f32/bf16, ``ops/topk.cosine_topk``) or kernel 4 (int8
-  coarse stage, ``cosine_topk_q``). The kernels take any capacity and
-  batch. ``use_kernels=False`` selects their plain PyTorch versions
-  (chunked past ``scan_sims_bytes``, like the JAX scan program); it is
-  never chosen automatically. A CPU store runs the plain versions.
+  coarse stage, ``cosine_topk_q``). The kernels take any capacity,
+  batch and k. ``use_kernels=False`` selects their plain PyTorch
+  versions (chunked past ``scan_sims_bytes``, like the JAX scan
+  program); it is never chosen automatically. A CPU store runs the
+  plain versions.
+- **Any row width.** The device store and each probe batch are
+  zero-padded to a row of a multiple of 16 bytes (the kernels' row
+  unit), on every device: the zeros add exactly nothing to a dot. int8
+  rows are quantized from their real columns first, then padded. The
+  capacity bound counts ``dim`` columns, as the JAX gallery does.
 - **Incremental sync.** Enrolling appends only the new rows: within
   capacity an in-place ``copy_`` into the store under the write gate,
   at a block boundary a new allocation plus copy.
@@ -124,6 +130,15 @@ def _rescore(host: np.ndarray, n: int, probes: np.ndarray,
     return cidx[rows, order], exact[rows, order]
 
 
+def _pad_cols(rows: np.ndarray, width: int) -> np.ndarray:
+    """``rows`` with zero columns up to ``width``."""
+    if rows.shape[1] == width:
+        return np.ascontiguousarray(rows)
+    out = np.zeros((rows.shape[0], width), rows.dtype)
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
 def _quantize_rows(rows: np.ndarray):
     """Per-row symmetric int8: scale = max|x|/127 (f32), q = x/scale.
     Unit embeddings quantize at ~1e-2 worst-case cosine error — the
@@ -163,6 +178,8 @@ class DeviceGallery:
         self.dtype = dtype
         self.device = torch.device(device)
         self.itemsize = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+        # device row width: dim padded to a multiple of 16 bytes
+        self._width = -(-self.dim * self.itemsize // 16) * 16 // self.itemsize
         # int8 search: coarse top-(k * rescore_expand) on the device,
         # then the exact f32 rescore of only those rows on the host
         self.rescore_expand = 4
@@ -187,7 +204,7 @@ class DeviceGallery:
         self._lab = np.zeros((0,), np.int64)
         self._bias = np.zeros((0,), np.float32)
         self._n = 0                 # fill (live + tombstoned rows)
-        self._dev = None            # (capacity, D) device tensor
+        self._dev = None            # (capacity, _width) device tensor
         self._dev_scale = None      # (capacity,) f32, int8 store only
         self._dev_bias = None       # (capacity,) f32 tombstone bias
 
@@ -286,14 +303,15 @@ class DeviceGallery:
         self._dev_bias = None
 
     def _store_rows(self, rows: np.ndarray):
-        """Host f32 rows → (store-dtype rows, int8 scales or None) on
-        the device. Cast or quantize on the host (never truncate to
-        int8), so bf16 moves half the bytes and int8 a quarter."""
+        """Host f32 rows → (store-dtype rows padded to ``_width``,
+        int8 scales or None) on the device. Cast or quantize on the
+        host (never truncate to int8), so bf16 moves half the bytes and
+        int8 a quarter."""
         if self.dtype == "int8":
             q, scale = _quantize_rows(rows)
-            return (torch.from_numpy(q).to(self.device),
+            return (torch.from_numpy(_pad_cols(q, self._width)).to(self.device),
                     torch.from_numpy(scale).to(self.device))
-        t = torch.from_numpy(np.ascontiguousarray(rows))
+        t = torch.from_numpy(_pad_cols(rows, self._width))
         return t.to(_DTYPES[self.dtype]).to(self.device), None
 
     def _sync_locked(self, new_rows: np.ndarray | None = None,
@@ -320,7 +338,7 @@ class DeviceGallery:
                 # the old fill)
                 return
             if cap > cur_cap and cap_bytes <= self.grow_on_device_max:
-                grown = torch.zeros((cap, self.dim), dtype=dt,
+                grown = torch.zeros((cap, self._width), dtype=dt,
                                     device=self.device)
                 grown[:cur_cap].copy_(self._dev)
                 grown[offset:end].copy_(rows)
@@ -339,7 +357,7 @@ class DeviceGallery:
         # full upload in ~0.5 GB slabs into a store allocated on the
         # device; the outgoing store is freed first
         self._free_device()
-        dev = torch.zeros((cap, self.dim), dtype=dt, device=self.device)
+        dev = torch.zeros((cap, self._width), dtype=dt, device=self.device)
         dscale = (torch.zeros((cap,), dtype=torch.float32, device=self.device)
                   if q8 else None)
         slab = max(self.block, (1 << 29) // (self.dim * 4))
@@ -403,7 +421,7 @@ class DeviceGallery:
         """One search of a device store → host (scores, int64 idx).
         Finishes on the device before returning, inside the caller's
         read gate."""
-        p = torch.from_numpy(np.ascontiguousarray(probes)).to(self.device)
+        p = torch.from_numpy(_pad_cols(probes, store.shape[1])).to(self.device)
         if self.use_kernels:
             if store_scale is None:
                 s, i = topk.cosine_topk(store, p, n, k, bias=store_bias)
