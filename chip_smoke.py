@@ -17,7 +17,9 @@ eval_identification CLIs. Phases:
 4. slice: the e2e chain, its launch counts, and its embeddings held
    against the f32 module path (no kernels) on the same card
 5. CLIs: extract (--engine fused) and eval_lfw as subprocesses
-6. times: kernels vs plain versions, and the port bench (informational)
+6. times: kernels vs plain versions, the fused blocks' library route
+   (the folded engine's cuDNN/cuBLAS convs for the same blocks, per
+   stage), and the port bench (informational)
 7. top-k kernels vs plain versions: 2^20-row stores, 10^6 valid, 1%
    tombstoned, B 1/64/300, k 5/20/100 and k 1100; k 12,000 (lists in
    the workspace) at 2^16 rows; galleries of 100-d (and 5-d f32) rows
@@ -46,6 +48,8 @@ import time
 import numpy as np
 import torch
 
+from tf_face_toolbox_tpu_torch.bench_blocks import (
+    graph_ms, in_turns, run_folded, stack_work, stage_operands)
 from tf_face_toolbox_tpu_torch.bench_search import (
     gallery_search_latency, quantize_rows, unit_rows)
 
@@ -78,8 +82,11 @@ def per_image_cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a, b, dim=1)
 
 
-def check_block_stack(name, x, entry, tail, stats: list) -> None:
-    """Fused-block kernel vs its plain version on one stage's stack."""
+def check_block_stack(name, x, entry, tail, folded, stats: list) -> None:
+    """Fused-block kernel vs its plain version on one stage's stack, and
+    the library route (the folded engine's cuDNN / cuBLAS convs for the
+    same blocks) timed in turns with the kernel: eagerly (host gaps
+    count) and as CUDA-graph replays (device time alone)."""
     from tf_face_toolbox_tpu_torch.bench import time_ms
     from tf_face_toolbox_tpu_torch.serving.fused_block import (
         fused_bottleneck_stack, fused_bottleneck_stack_reference)
@@ -92,40 +99,37 @@ def check_block_stack(name, x, entry, tail, stats: list) -> None:
     peak = want.float().abs().max().item()
     rms = want.float().pow(2).mean().sqrt().item()
     cos = per_image_cos(got, want).min().item()
-    ms = time_ms(lambda: fused_bottleneck_stack(x, entry, tail, h=h, w=w))
+
+    def kernel():
+        return fused_bottleneck_stack(x, entry, tail, h=h, w=w)
+
+    def library():
+        return run_folded(x, folded)
+
+    ks, ls = in_turns(kernel, library, 1, time_ms)
+    kg, lg = in_turns(kernel, library, 1, graph_ms)
+    ms, library_ms = sum(ks) / len(ks), sum(ls) / len(ls)
     plain = time_ms(
         lambda: fused_bottleneck_stack_reference(x, entry, tail, h=h, w=w))
     say(f"  fused_block {name} x{tuple(x.shape)}: max_abs={err:.4g} "
         f"(max|ref|={peak:.4g}, /rms={err / rms:.4g}) min_cos={cos:.7f} "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        f"plain {plain:.3f} ms; in turns, kernel / library route / route / "
+        f"kernel: eager {ks[0]:.3f} / {ls[0]:.3f} / {ls[1]:.3f} / "
+        f"{ks[1]:.3f} ms, graph replays {kg[0]:.3f} / {lg[0]:.3f} / "
+        f"{lg[1]:.3f} / {kg[1]:.3f} ms")
     # bf16 output: a rounding flip anywhere upstream moves an output by
     # one bf16 step, whose size at the map's largest value is peak/128.
     expect(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
     expect(cos >= 0.9999, f"{name}: min cosine {cos} < 0.9999")
     expect(err <= 2 * peak / 128, f"{name}: max_abs {err} > 2 bf16 steps "
                                   f"at the peak {peak}")
-    b_ms, b_by = block_stack_bound(x, entry, tail)
+    b_ms, b_by = bound(*stack_work(x, entry, tail), "bfloat16")
     stats.append({"stage": name, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
-
-
-def stage_operands(network: str, stem: str, seed: int):
-    """Per stage: (input shape, entry, tail) of the fused segment, from
-    seeded random variables folded for bf16 serving on the card."""
-    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
-    from tf_face_toolbox_tpu_torch.serving.engine import (
-        _plan_stage_fusion, _to, build_plan)
-
-    net = create_network(network, dtype=torch.bfloat16, stem=stem)
-    plan = build_plan(net, random_variables(net, seed))
-    size = 112 // 4 if stem == "imagenet" else 112
-    out = []
-    for blocks in plan.stages:
-        size = -(-size // blocks[0].conv2.strides)
-        n_folded, entry, tail = _plan_stage_fusion(blocks)
-        cin = (entry["w1"] if entry is not None else tail["w1s"][0]).shape[1]
-        out.append(((size, size, cin), _to(entry, "cuda"), _to(tail, "cuda")))
-    return out
+                  "plain_ms": plain, "library_route_ms": library_ms,
+                  "library_route_range": (min(ls), max(ls)),
+                  "graph_ms": sum(kg) / len(kg),
+                  "library_route_graph_ms": sum(lg) / len(lg),
+                  "bound_ms": b_ms, "bound_by": b_by})
 
 
 GALLERY_DTYPES = ("float32", "bfloat16", "int8")
@@ -156,20 +160,6 @@ def topk_bound(dtype: str, cap: int, batch: int, d: int, k: int,
     if dtype == "int8":
         nbytes += (cap + batch) * 4
     return bound(nbytes, 2 * batch * cap * d, dtype)
-
-
-def block_stack_bound(x, entry, tail) -> tuple[float, str]:
-    """Bound of one fused stage: input and output maps, weights and
-    biases once; 2 x N H W x (weight values) bf16 operations (every
-    weight value meets every pixel once: 1x1, 3x3 taps, projection)."""
-    n, h, w, _ = x.shape
-    parts = [t for t in (entry, tail) if t is not None]
-    weights = sum(v.numel() for d in parts for k, v in d.items()
-                  if k.startswith("w"))
-    c = (tail["w3s"].shape[1] if tail is not None else entry["w3"].shape[0])
-    nbytes = (x.numel() * x.element_size() + n * h * w * c * 2 + sum(
-        v.numel() * v.element_size() for d in parts for v in d.values()))
-    return bound(nbytes, 2 * n * h * w * weights, "bfloat16")
 
 
 def near_ties(ref: np.ndarray, k: int, tol: float = TOPK_TOL) -> np.ndarray:
@@ -653,18 +643,18 @@ def main() -> None:
             pre_err = err32
 
     block_stats: list = []
-    for (shape, entry, tail), name in zip(
+    for (shape, entry, tail, folded), name in zip(
             stage_operands("resnet_v1_50", "imagenet", 0),
             ("28x28", "14x14", "7x7", "4x4")):
         x = torch.relu(torch.randn((256, *shape), generator=g, device="cuda")
                        ).to(torch.bfloat16)
-        check_block_stack(name, x, entry, tail, block_stats)
+        check_block_stack(name, x, entry, tail, folded, block_stats)
     face = stage_operands("resnet_v1_50", "face", 1)
     for idx, name in ((0, "face 56x56"), (3, "face 7x7")):
-        shape, entry, tail = face[idx]
+        shape, entry, tail, folded = face[idx]
         x = torch.relu(torch.randn((64, *shape), generator=g, device="cuda")
                        ).to(torch.bfloat16)
-        check_block_stack(name, x, entry, tail, [])
+        check_block_stack(name, x, entry, tail, folded, [])
 
     # ---- 4. slice: the e2e chain on the card, held against f32 module
     from tf_face_toolbox_tpu_torch.extract import make_extract_fn
@@ -766,9 +756,13 @@ def main() -> None:
         f"{pre_ms:.3f} ms, plain (f32) {pre_plain:.3f} ms, bound "
         f"{pre_bound[0]:.4f} ms ({pre_bound[1]})")
     for s in block_stats:
-        say(f"  fused_block stage {s['stage']} b256: kernel {s['ms']:.3f} ms, "
-            f"plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms "
-            f"({s['bound_by']})")
+        lo, hi = s["library_route_range"]
+        say(f"  fused_block stage {s['stage']} b256: kernel {s['ms']:.3f} ms "
+            f"(graph replay {s['graph_ms']:.3f}), plain {s['plain_ms']:.3f} "
+            f"ms, library route (folded cuDNN/cuBLAS blocks) "
+            f"{s['library_route_ms']:.3f} ms ({lo:.3f}-{hi:.3f}; graph "
+            f"replay {s['library_route_graph_ms']:.3f}), bound "
+            f"{s['bound_ms']:.3f} ms ({s['bound_by']})")
     for batch in (128, 256):
         for e2e in (False, True):
             for impl in bench.IMPLS:
@@ -800,7 +794,8 @@ def main() -> None:
     block_bound = sum(s["bound_ms"] for s in block_stats)
     by = {s["bound_by"] for s in block_stats}
     # library_ms: no single PyTorch call computes any of the four (the
-    # top-k's library route is a matmul and torch.topk: two calls)
+    # top-k's library route is a matmul and torch.topk: two calls; the
+    # fused blocks' is the folded engine's convs and elementwise ops)
     kernels = [
         {"name": "preprocess", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/preprocess.cu",
@@ -817,7 +812,11 @@ def main() -> None:
          "ms": block_ms, "plain_ms": sum(s["plain_ms"] for s in block_stats),
          "bound_ms": block_bound,
          "bound_by": by.pop() if len(by) == 1 else "bytes and operations",
-         "bound_share": block_bound / block_ms, "library_ms": None},
+         "bound_share": block_bound / block_ms, "library_ms": None,
+         "library_route_ms": sum(s["library_route_ms"] for s in block_stats),
+         "graph_ms": sum(s["graph_ms"] for s in block_stats),
+         "library_route_graph_ms": sum(s["library_route_graph_ms"]
+                                       for s in block_stats)},
     ]
     for name, row, replaces in (("topk", t_topk, 118), ("topk_q", t_topk_q, 194)):
         kernels.append({

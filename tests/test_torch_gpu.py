@@ -73,10 +73,17 @@ def test_preprocess_kernel(cuda, out_dtype):
 
 
 # (n, h, w, cin, b, c, entry): an entry block on a ragged 14-wide tiling,
-# identity blocks packing several images per CTA with a ragged last CTA,
-# and a wide bottleneck whose tile must shrink to fit shared memory
+# identity blocks packing several images per CTA with a ragged last CTA
+# (four 9x9 halos: two passes over y1's rows), a wide bottleneck whose
+# tile must shrink to fit shared memory with a 2-stage ring; then the
+# ring's edges: K (cin 80, b 48) not a multiple of the 64-wide chunk,
+# n-blocks that overhang b and c (80 in a 128-wide block, 208 in 256),
+# M not a multiple of 16 (25 halo and 9 tile rows), and the 4x4 x 2048
+# -> 512 stage's shape packing two images with the projection
 _BLOCKS = [(4, 20, 13, 64, 32, 128, True), (5, 7, 7, 256, 64, 256, False),
-           (3, 4, 4, 512, 128, 512, False), (2, 14, 14, 512, 512, 512, False)]
+           (3, 4, 4, 512, 128, 512, False), (2, 14, 14, 512, 512, 512, False),
+           (2, 9, 9, 80, 48, 96, True), (3, 5, 6, 208, 80, 208, False),
+           (1, 3, 3, 64, 64, 64, False), (3, 4, 4, 2048, 512, 2048, True)]
 
 
 @pytest.mark.parametrize("shape", _BLOCKS, ids=str)
@@ -98,6 +105,24 @@ def test_fused_block_kernel_refuses_f32(cuda):
     x = torch.zeros(1, 4, 4, 64, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
         tfb.fused_bottleneck_block(x, blk)
+
+
+def test_fused_block_kernel_refuses_a_plan_mismatch(cuda, monkeypatch):
+    """The C side checks the wrapper's plan and refuses a shared-memory
+    sum that is not its tiles' and ring's: the wrapper raises, no
+    fallback."""
+    blk = _block(cuda, 64, 64, 64, False)
+    x = torch.zeros(1, 4, 4, 64, device="cuda", dtype=torch.bfloat16)
+    plan = tfb.launch_plan
+
+    def off_by_16(*args):
+        return {**plan(*args), "smem_bytes": plan(*args)["smem_bytes"] + 16}
+
+    monkeypatch.setattr(tfb, "launch_plan", off_by_16)
+    before = tfb.fused_bottleneck_block.launches
+    with pytest.raises(RuntimeError, match="out of step"):
+        tfb.fused_bottleneck_block(x, blk)
+    assert tfb.fused_bottleneck_block.launches == before
 
 
 def test_fused_engine_matches_folded(cuda):
