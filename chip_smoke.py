@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from tf_face_toolbox_tpu_torch.bench_blocks import (
-    graph_ms, in_turns, run_folded, stack_work, stage_operands)
+    graph_ms, in_turns, run_folded, stack_work, stage_operands, stage_plans)
 from tf_face_toolbox_tpu_torch.bench_search import (
     gallery_search_latency, quantize_rows, unit_rows)
 
@@ -119,6 +119,10 @@ def check_block_stack(name, x, entry, tail, folded, stats: list) -> None:
         f"{lg[1]:.3f} / {kg[1]:.3f} ms")
     # bf16 output: a rounding flip anywhere upstream moves an output by
     # one bf16 step, whose size at the map's largest value is peak/128.
+    for pl in stage_plans(x, entry, tail):
+        say(f"    plan: tile {pl['th']}x{pl['tw']}, g {pl['g']}, cluster "
+            f"{pl['cluster']}, grid {pl['grid']}, stages {pl['stages']}, "
+            f"CTAs/SM {pl['ctas_per_sm']}, n-blocks {pl['nb']}")
     expect(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
     expect(cos >= 0.9999, f"{name}: min cosine {cos} < 0.9999")
     expect(err <= 2 * peak / 128, f"{name}: max_abs {err} > 2 bf16 steps "

@@ -104,36 +104,34 @@ _R50 = [(256, 28, 28, 64, 64, 256), (256, 28, 28, 256, 64, 256),
 _PLAN_SHAPES = _R50 + [s[:6] for s in _GPU_BLOCKS]
 
 
-def _tile_rule_before_the_ring(n, h, w, b):
-    """The tile rule as it was before the weight ring took shared
-    memory: halve while y1s + y2s pass 232,448 bytes, then pack up to
-    8 whole images while they fit 160 KB."""
-    def nbytes(th, tw, g):
-        return g * ((th + 2) * (tw + 2) + th * tw) * (b + tfb.PAD) * 2
-    th, tw = (h if h <= 16 else 14), (w if w <= 16 else 14)
-    while nbytes(th, tw, 1) > tfb.SMEM_MAX and (th > 1 or tw > 1):
-        if th >= tw:
-            th = (th + 1) // 2
-        else:
-            tw = (tw + 1) // 2
-    g = 1
+def _smem_sum(plan, h, w, b):
+    """y1s + y2s + the ring, by the formula: whole images hold y1's
+    image rows and one zero row, tiles y1's (th+2) x (tw+2) halo."""
+    th, tw, g = plan["th"], plan["tw"], plan["g"]
     if (th, tw) == (h, w):
-        while g * 2 <= min(8, n) and nbytes(th, tw, g * 2) <= tfb.SMEM_BUDGET:
-            g *= 2
-    return th, tw, g
+        rows = 2 * g * h * w + 1
+    else:
+        rows = g * ((th + 2) * (tw + 2) + th * tw)
+    ring = max(ph["nb"] for ph in plan["phases"].values())
+    return rows * (b + 8) * 2 + plan["stages"] * ring * 144
 
 
 @pytest.mark.parametrize("shape", _PLAN_SHAPES, ids=str)
 def test_launch_plan_fits_and_covers(shape):
     """Shared memory within a CTA's 232,448 bytes; every phase's warps
     tile the n-block with at most 64 f32 accumulators a thread, and its
-    passes cover every output row."""
+    passes cover every output row; a pair's two halves of each phase's
+    columns are multiples of 16 and cover them without overlap; on whole
+    images every pass's rows more than half fill the warps' m-tile
+    slots unless the n-block is already as wide as it goes."""
     n, h, w, cin, b, c = shape
     plan = tfb.launch_plan(*shape)
     assert plan["smem_bytes"] <= 232448
-    assert plan["stages"] in (2, 3)
-    th, tw, g = plan["th"], plan["tw"], plan["g"]
-    assert plan["grid"] == -(-n // g) * -(-h // th) * -(-w // tw)
+    assert plan["stages"] in (2, 3) and plan["cluster"] in (1, 2)
+    th, tw, g, cl = plan["th"], plan["tw"], plan["g"], plan["cluster"]
+    whole = (th, tw) == (h, w)
+    assert plan["grid"] == -(-n // g) * -(-h // th) * -(-w // tw) * cl
+    assert cl == 1 or whole
     for name, ph in plan["phases"].items():
         # the kernel's warps: nb // 64 across, the rest down the rows
         warps_n = ph["nb"] // tfb.WARP_COLS
@@ -141,49 +139,85 @@ def test_launch_plan_fits_and_covers(shape):
         rows = tfb.WARPS // warps_n * tfb.WARP_ROWS
         assert rows * ph["nb"] // tfb.THREADS <= 64, name
         assert ph["m"] <= rows or ph["nb"] == tfb.WARP_COLS, name  # one pass if wider
-        assert ph["nb"] < 2 * max(ph["n"], tfb.WARP_COLS)   # no idle n-block half
-    m1, m2 = g * (th + 2) * (tw + 2), g * th * tw
+        assert ph["nb"] < 2 * max(ph["n_cta"], tfb.WARP_COLS)  # no idle n-block half
+        # rank r computes columns [r * n_cta, (r + 1) * n_cta)
+        halves = [set(range(r * ph["n_cta"], (r + 1) * ph["n_cta"]))
+                  for r in range(cl)]
+        assert set().union(*halves) == set(range(ph["n"]))
+        assert sum(map(len, halves)) == ph["n"] and ph["n_cta"] % 16 == 0
+        if whole:
+            m_tiles, slots = -(-ph["m"] // 16), rows // 16
+            idle = -(-m_tiles // slots) * slots - m_tiles
+            widest = ph["nb"] == 256 or 2 * ph["nb"] > ph["n_cta"]
+            assert 2 * idle < slots or widest, (name, m_tiles, slots)
+    m2 = g * th * tw
+    m1 = m2 if whole else g * (th + 2) * (tw + 2)
     assert (plan["phases"]["y1"]["m"], plan["phases"]["y3"]["m"]) == (m1, m2)
-    ring = max(ph["nb"] for ph in plan["phases"].values())
-    assert plan["smem_bytes"] == ((m1 + m2) * (b + tfb.PAD) * 2
-                                  + plan["stages"] * ring * tfb.ROW_STRIDE * 2)
+    assert plan["smem_bytes"] == _smem_sum(plan, h, w, b)
     two = 2 * (plan["smem_bytes"] + tfb.SMEM_PER_CTA) <= tfb.SMEM_PER_SM
-    assert plan["ctas_per_sm"] == (2 if two else 1)
+    assert plan["ctas_per_sm"] == (2 if two and not whole else 1)
 
 
-# where a 2-stage ring does not fit beside the tile of the rule before
-# it: the tile that the halving leaves (th, tw, g). The tile halves at
-# 9x9 x 512 -> 2048 and 20x13 x 256 -> 1024; the images packed halve at
-# 4x4 x 384 -> 1536 (4 to 2) and 4x4 x 768 -> 3072 (2 to 1).
-_SHRINK = {(256, 9, 9, 2048, 512, 2048): (5, 9, 1),
-           (256, 20, 13, 1024, 256, 1024): (7, 13, 1),
-           (256, 4, 4, 1536, 384, 1536): (4, 4, 2),
-           (256, 4, 4, 3072, 768, 3072): (4, 4, 1)}
+# shapes whose 2-stage ring does not fit beside the tile the plan would
+# otherwise take, with the (th, tw, g, cluster) that it takes: the tile
+# halves at 20x13 x 256 -> 1024 (14x13 -> 7x13); at 9x9 x 512 -> 2048
+# the whole image fits once y1 has no halo (the halo tile was 5x9); at
+# 4x4 x 384 -> 1536 and 4x4 x 768 -> 3072 fewer images fit than the
+# four of the 4x4 stage's plan
+_SHRINK = {(256, 9, 9, 2048, 512, 2048): (9, 9, 1, 2),
+           (256, 20, 13, 1024, 256, 1024): (7, 13, 1, 1),
+           (256, 4, 4, 1536, 384, 1536): (4, 4, 4, 2),
+           (256, 4, 4, 3072, 768, 3072): (4, 4, 2, 1)}
 
 
 @pytest.mark.parametrize("shape", _R50 + list(_SHRINK), ids=str)
 def test_launch_plan_keeps_the_tile_rule_where_the_ring_fits(shape):
-    """The ring shrinks the tile (or the images packed) only where it
-    does not fit beside y1s and y2s; then by the same halving."""
+    """The tile halves only where a 2-stage ring does not fit beside
+    one tile's y1s and y2s (maps up to 16 wide whole, else 14-wide
+    tiles); a smaller g is taken wherever its busiest SM streams no
+    more weight bytes; the shrink shapes take the plans listed."""
     n, h, w, cin, b, c = shape
-    th, tw, g = before = _tile_rule_before_the_ring(n, h, w, b)
     plan = tfb.launch_plan(*shape)
-    fits = tfb._plan_bytes(th, tw, g, b, c, 2) <= tfb.SMEM_MAX
-    assert fits == (shape not in _SHRINK)
-    assert (plan["th"], plan["tw"], plan["g"]) == (
-        before if fits else _SHRINK[shape])
+    th, tw = (h if h <= 16 else 14), (w if w <= 16 else 14)
+    whole = (th, tw) == (h, w)
+    fits = tfb._plan_bytes(th, tw, 1, b, c, 2, whole) <= tfb.SMEM_MAX
+    assert fits == ((plan["th"], plan["tw"]) == (th, tw))
+    for g in range(1, plan["g"]):
+        other = tfb.launch_plan(*shape, g=g, cluster=plan["cluster"])
+        assert other["stream_bytes"] > plan["stream_bytes"], g
+    if shape in _SHRINK:
+        assert (plan["th"], plan["tw"], plan["g"], plan["cluster"]) == _SHRINK[shape]
+
+
+@pytest.mark.parametrize("shape,g,cluster", [
+    ((256, 4, 4, 2048, 512, 2048), 4, 2), ((256, 4, 4, 2048, 512, 2048), 2, 1),
+    ((7, 7, 7, 1024, 256, 1024), 3, 2), ((2, 1, 1, 256, 64, 256), 2, 1),
+    ((256, 28, 28, 256, 64, 256), 1, 1), ((4, 20, 13, 64, 32, 128), 1, 1)],
+    ids=str)
+def test_launch_plan_smem_sum_both_modes(shape, g, cluster):
+    """Forced plans, whole images (lone and pair) and halo tiles: the
+    shared-memory sum is the formula's (the C side recomputes it and
+    refuses any other), and a pair halves every phase's columns."""
+    n, h, w, cin, b, c = shape
+    plan = tfb.launch_plan(*shape, g=g, cluster=cluster)
+    assert (plan["g"], plan["cluster"]) == (g, cluster)
+    assert plan["smem_bytes"] == _smem_sum(plan, h, w, b)
+    assert [ph["n_cta"] for ph in plan["phases"].values()] == [
+        b // cluster, b // cluster, c // cluster]
+    if (plan["th"], plan["tw"]) == (h, w):
+        assert plan["phases"]["y1"]["m"] == g * h * w
 
 
 def test_launch_plan_main_path():
-    """resnet_v1_50 at 256 images: the tiles, n-blocks, stages and CTAs
-    an SM of the four fused stages."""
+    """resnet_v1_50 at 256 images: the tiles, images a CTA, ring stages,
+    CTAs an SM, cluster and n-blocks of the four fused stages."""
     got = [(p["th"], p["tw"], p["g"], p["stages"], p["ctas_per_sm"],
-            tuple(p["phases"][k]["nb"] for k in ("y1", "y2", "y3")))
+            p["cluster"], tuple(p["phases"][k]["nb"] for k in ("y1", "y2", "y3")))
            for p in (tfb.launch_plan(*s) for s in _R50[1:5])]
-    assert got == [(14, 14, 1, 3, 2, (64, 64, 64)),
-                   (14, 14, 1, 3, 1, (64, 64, 64)),
-                   (7, 7, 2, 3, 1, (64, 128, 128)),
-                   (4, 4, 2, 3, 1, (128, 256, 256))]
+    assert got == [(14, 14, 1, 3, 2, 1, (64, 64, 64)),
+                   (14, 14, 1, 3, 1, 2, (64, 64, 64)),
+                   (7, 7, 4, 2, 1, 2, (64, 64, 64)),
+                   (4, 4, 4, 2, 1, 2, (256, 256, 256))]
 
 
 def test_launch_plan_refuses_what_does_not_fit():

@@ -73,17 +73,22 @@ def test_preprocess_kernel(cuda, out_dtype):
 
 
 # (n, h, w, cin, b, c, entry): an entry block on a ragged 14-wide tiling,
-# identity blocks packing several images per CTA with a ragged last CTA
-# (four 9x9 halos: two passes over y1's rows), a wide bottleneck whose
-# tile must shrink to fit shared memory with a 2-stage ring; then the
-# ring's edges: K (cin 80, b 48) not a multiple of the 64-wide chunk,
-# n-blocks that overhang b and c (80 in a 128-wide block, 208 in 256),
-# M not a multiple of 16 (25 halo and 9 tile rows), and the 4x4 x 2048
-# -> 512 stage's shape packing two images with the projection
+# identity blocks packing several images per CTA with a ragged last CTA,
+# a wide bottleneck whose tile must shrink to fit shared memory with a
+# 2-stage ring; then the ring's edges: K (cin 80, b 48) not a multiple
+# of the 64-wide chunk, n-blocks that overhang b and c (80 in a 128-wide
+# block, 208 in 256), M not a multiple of 16 (9 tile rows), and the 4x4
+# x 2048 -> 512 stage's shape with the projection; then the whole-image
+# taps: a 1x1 map (every tap but the centre reads the zero row), a
+# 16x16 whole image, 17x17 (tiled, with halos), n odd at 4x4 x 512 with
+# the projection, and a 5x5 map on a pair
 _BLOCKS = [(4, 20, 13, 64, 32, 128, True), (5, 7, 7, 256, 64, 256, False),
            (3, 4, 4, 512, 128, 512, False), (2, 14, 14, 512, 512, 512, False),
            (2, 9, 9, 80, 48, 96, True), (3, 5, 6, 208, 80, 208, False),
-           (1, 3, 3, 64, 64, 64, False), (3, 4, 4, 2048, 512, 2048, True)]
+           (1, 3, 3, 64, 64, 64, False), (3, 4, 4, 2048, 512, 2048, True),
+           (2, 1, 1, 256, 64, 256, False), (3, 16, 16, 128, 64, 128, False),
+           (2, 17, 17, 64, 32, 128, True), (5, 4, 4, 2048, 512, 2048, True),
+           (3, 5, 5, 256, 64, 256, False)]
 
 
 @pytest.mark.parametrize("shape", _BLOCKS, ids=str)
@@ -97,6 +102,40 @@ def test_fused_block_kernel(cuda, shape):
     torch.cuda.synchronize()
     assert tfb.fused_bottleneck_block.launches == before + 1
     _close(got, tfb.bottleneck_block_reference(x, blk))
+
+
+# (n, h, w, cin, b, c, entry, g) forced on lone CTAs and on a pair: a
+# ragged last group (5 images at g 4, 3 at g 2) at the 4x4 x 2048 -> 512
+# stage's shape with the projection, the 7x7 stage's widths at g 2, a
+# 5x5 and a 1x1 map
+_PAIRS = [(5, 4, 4, 2048, 512, 2048, True, 4), (3, 4, 4, 2048, 512, 2048, True, 2),
+          (2, 7, 7, 1024, 256, 1024, False, 2), (3, 5, 5, 256, 64, 256, False, 1),
+          (2, 1, 1, 256, 64, 256, True, 2)]
+
+
+@pytest.mark.parametrize("shape", _PAIRS, ids=str)
+def test_fused_block_pair_equals_lone(cuda, monkeypatch, shape):
+    """The same block with the plan forced onto lone CTAs and onto
+    clusters of two that split the columns: both against the plain
+    version, and bit-equal to each other (each output element is one
+    thread's mma.sync sequence in the same K order either way)."""
+    n, h, w, cin, b, c, entry, g = shape
+    blk = _block(cuda, cin, b, c, entry)
+    x = torch.relu(torch.randn(n, h, w, cin, generator=cuda, device="cuda")
+                   ).to(torch.bfloat16)
+    plan = tfb.launch_plan
+    outs = []
+    for cluster in (1, 2):
+        monkeypatch.setattr(tfb, "launch_plan", lambda *a, cl=cluster:
+                            plan(*a, g=g, cluster=cl))
+        before = tfb.fused_bottleneck_block.launches
+        outs.append(tfb.fused_bottleneck_block(x, blk))
+        torch.cuda.synchronize()
+        assert tfb.fused_bottleneck_block.launches == before + 1
+    want = tfb.bottleneck_block_reference(x, blk)
+    for got in outs:
+        _close(got, want)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_fused_block_kernel_refuses_f32(cuda):
@@ -123,6 +162,22 @@ def test_fused_block_kernel_refuses_a_plan_mismatch(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="out of step"):
         tfb.fused_bottleneck_block(x, blk)
     assert tfb.fused_bottleneck_block.launches == before
+
+
+def test_fused_block_kernel_refuses_a_pair_it_cannot_split(cuda, monkeypatch):
+    """A pair whose halves of B are not multiples of 16 (B 48), and a
+    pair on a halo tile: the C side refuses both, the wrapper raises,
+    nothing falls back to lone CTAs."""
+    plan = tfb.launch_plan
+    for shape in ((1, 4, 4, 64, 48, 64), (1, 20, 13, 64, 64, 64)):
+        blk = _block(cuda, *shape[3:], False)
+        x = torch.zeros(shape[:4], device="cuda", dtype=torch.bfloat16)
+        monkeypatch.setattr(tfb, "launch_plan", lambda *a: {
+            **plan(*a, cluster=1), "cluster": 2})
+        before = tfb.fused_bottleneck_block.launches
+        with pytest.raises(RuntimeError, match="cluster of 2"):
+            tfb.fused_bottleneck_block(x, blk)
+        assert tfb.fused_bottleneck_block.launches == before
 
 
 def test_fused_engine_matches_folded(cuda):

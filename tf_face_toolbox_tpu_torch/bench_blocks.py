@@ -1,7 +1,7 @@
 """Per-stage bench of the fused-block kernel on one GPU.
 
     python -m tf_face_toolbox_tpu_torch.bench_blocks [--batch 256]
-        [--rounds 2] [--ptxas]
+        [--rounds 2] [--ptxas] [--pairs]
 
 For each fused segment of ``resnet_v1_50`` (imagenet stem, bf16, seeded
 random weights, 112x112 input: 28x28, 14x14, 7x7 and 4x4 maps), on
@@ -14,15 +14,20 @@ Each is timed twice over: eagerly, where the host's gaps between
 launches count, and as replays of a CUDA graph, which leave only the
 device's time. Each stage's row carries a digest of the kernel's output
 (``out_sha256``), so that builds run from two copies of the package
-can be compared for bit-equality. ``--ptxas`` prints nvcc's
-``-Xptxas -v`` report (registers, spills) of ``csrc/fused_block.cu``.
-Prints one JSON line per stage. There is no CPU mode: a measurement
-that finds no card fails.
+can be compared for bit-equality, and the launch plan of each of its
+blocks (``plans``: tile, images a CTA, cluster, grid, ring stages,
+n-blocks). ``--pairs``: at each stage whose blocks run whole images,
+the kernel with its plans forced onto lone CTAs and onto clusters of
+two, timed in turns the same way (``lone_*`` / ``pair_*``, with both
+digests). ``--ptxas`` prints nvcc's ``-Xptxas -v`` report (registers,
+spills) of ``csrc/fused_block.cu``. Prints one JSON line per stage.
+There is no CPU mode: a measurement that finds no card fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -128,7 +133,47 @@ def in_turns(a, b, rounds: int, timer) -> tuple[list, list]:
     return ra, rb
 
 
-def stage_times(batch: int = 256, rounds: int = 2, seed: int = 0) -> list:
+def stage_plans(x: torch.Tensor, entry, tail, **force) -> list[dict]:
+    """The launch plan of each distinct block of a fused stage."""
+    from tf_face_toolbox_tpu_torch.serving import fused_block as tfb
+    n, h, w, cin = x.shape
+    shapes = []
+    if entry is not None:
+        shapes.append((cin, entry["w1"].shape[0], entry["w3"].shape[0]))
+    if tail is not None:
+        shapes.append((tail["w1s"].shape[2], tail["w1s"].shape[1],
+                       tail["w3s"].shape[1]))
+    out = []
+    for cin_, b, c in shapes:
+        p = tfb.launch_plan(n, h, w, cin_, b, c, tfb._n_sms(x.device), **force)
+        row = {k: p[k] for k in ("th", "tw", "g", "cluster", "grid", "stages",
+                                 "ctas_per_sm")}
+        row["nb"] = [p["phases"][k]["nb"] for k in ("y1", "y2", "y3")]
+        if row not in out:
+            out.append(row)
+    return out
+
+
+@contextlib.contextmanager
+def forced_plan(**force):
+    """Run the fused-block wrapper with ``launch_plan``'s choice forced
+    (``cluster=1`` or ``2``)."""
+    from tf_face_toolbox_tpu_torch.serving import fused_block as tfb
+    plan = tfb.launch_plan
+    tfb.launch_plan = lambda *a: plan(*a, **force)
+    try:
+        yield
+    finally:
+        tfb.launch_plan = plan
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def stage_times(batch: int = 256, rounds: int = 2, seed: int = 0,
+                pairs: bool = False) -> list:
     """One dict per stage: the kernel's and the library route's ms, each
     reading of both taken in turns (kernel, route, route, kernel), once
     eagerly (CUDA events around the calls, so host gaps count) and once
@@ -153,13 +198,28 @@ def stage_times(batch: int = 256, rounds: int = 2, seed: int = 0) -> list:
             return run_folded(x, folded)
 
         row = {"stage": name, "batch": batch, "gflop": ops / 1e9,
-               "out_sha256": hashlib.sha256(
-                   kernel().view(torch.int16).cpu().numpy().tobytes()
-               ).hexdigest()[:16]}
+               "out_sha256": digest(kernel()),
+               "plans": stage_plans(x, entry, tail)}
         for mode, timer in (("eager", time_ms), ("graph", graph_ms)):
             ks, ls = in_turns(kernel, library, rounds, timer)
             row[f"{mode}_ms"] = ks
             row[f"{mode}_library_ms"] = ls
+        if pairs and all((p["th"], p["tw"]) == (h, w) for p in row["plans"]):
+            def lone():
+                with forced_plan(cluster=1):
+                    return kernel()
+
+            def pair():
+                with forced_plan(cluster=2):
+                    return kernel()
+
+            for tag, cluster, fn in (("lone", 1, lone), ("pair", 2, pair)):
+                row[f"{tag}_plans"] = stage_plans(x, entry, tail,
+                                                  cluster=cluster)
+                row[f"{tag}_sha256"] = digest(fn())
+            for mode, timer in (("eager", time_ms), ("graph", graph_ms)):
+                row[f"lone_{mode}_ms"], row[f"pair_{mode}_ms"] = in_turns(
+                    lone, pair, rounds, timer)
         row["ms"] = sum(row["eager_ms"]) / len(row["eager_ms"])
         row["library_ms"] = (sum(row["eager_library_ms"])
                              / len(row["eager_library_ms"]))
@@ -175,6 +235,9 @@ def main(argv=None) -> None:
                    help="rounds of kernel, route, route, kernel")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v for csrc/fused_block.cu")
+    p.add_argument("--pairs", action="store_true",
+                   help="also time lone CTAs against pairs in turns at the "
+                        "whole-image stages")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("bench_blocks: torch sees no CUDA device; there is no CPU mode")
@@ -182,7 +245,7 @@ def main(argv=None) -> None:
     print(gpu_info(), flush=True)
     if args.ptxas:
         print(ptxas_report(), flush=True)
-    for row in stage_times(args.batch, args.rounds):
+    for row in stage_times(args.batch, args.rounds, pairs=args.pairs):
         print(json.dumps(row), flush=True)
 
 

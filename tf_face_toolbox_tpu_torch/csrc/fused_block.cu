@@ -1,7 +1,7 @@
 // One BN-folded stride-1 bottleneck block in one launch, bf16 in and
 // out, f32 accumulation:
 //
-//   y1  = bf16(relu(x . W1 + b1))                 1x1 reduce, on the halo
+//   y1  = bf16(relu(x . W1 + b1))                 1x1 reduce
 //   y2  = bf16(relu(sum_taps y1_shift . W2_tap + b2))   3x3 SAME
 //   y3  = y2 . W3 + b3                            1x1 expand
 //   out = bf16(relu(bf16(y3) + x))                identity block
@@ -23,8 +23,21 @@
 // the weights (up to 4.5 MB bf16 per block), which every CTA needs
 // whole, are read once per CTA and not once per warp.
 //
-// Design: y1 on the (th+2)x(tw+2) halo tile and y2 on the th x tw tile
-// live in shared memory. Each GEMM phase (y1; y2's nine taps; the
+// Design: y1 and y2 live in shared memory. On a tiled map (th x tw
+// tiles of a map wider than 16, or one whose whole image does not fit)
+// y1 is computed on the (th+2)x(tw+2) halo tile, whose rows outside the
+// image are 0. Where the tile is the whole image, y1 is computed on the
+// G*H*W image rows only, beside one zero row that the kernel clears,
+// and for each of y2's taps a lane addresses the y1 row of its shifted
+// pixel, or the zero row where that pixel is outside the image (an
+// out-of-image tap multiplies zeros either way, so the sums are the
+// same). Whole images may run on a cluster of two CTAs on neighbouring
+// SMs that share the same G images: CTA rank r computes columns
+// [r N/2, (r+1) N/2) of y1, y2, the projection and y3, streams only
+// those weight rows, and stores its y1 and y2 values into both CTAs'
+// shared memory (the peer's through the cluster's distributed shared
+// memory), with a cluster barrier where a lone CTA has __syncthreads.
+// Each GEMM phase (y1; y2's nine taps; the
 // projection; y3) walks its [M x N] output in n-blocks of NB columns,
 // and for each n-block the CTA walks K in 64-element chunks (y2: tap by
 // tap, k ascending in each). Each (NB x 64) weight slab is copied once
@@ -34,25 +47,29 @@
 // slab with mma.sync m16n8k16 (f32 accumulators, at most 64 a thread):
 // B fragments come from ldmatrix on the slab, the A fragments of y1 and
 // y2 from ldmatrix on y1s / y2s (for y2's taps each lane addresses its
-// own shifted halo row, so the shift costs nothing), and x, the A
+// own shifted row, so the shift costs nothing), and x, the A
 // operand of y1 and of the projection, from device memory once per
 // n-block. Two instances: where two CTAs' shared memory fits an SM (the
 // 28x28 stage), one capped at 128 registers a thread, whose warps load
 // x per 16-wide step and leave its latency to the other CTA; else one
 // CTA an SM, whose warps load x's next chunk while they multiply the
 // current one. The projection's bf16 result waits in the output tensor
-// until y3's epilogue adds it. Halo
-// pixels outside the image are 0 in y1 (SAME zero-pads y1, it does not
-// pad x). The K order (taps ascending, k ascending in 16-steps) and the
-// rounding points do not depend on the staging, so the result does not
-// either. The host plan (launch_plan in serving/fused_block.py) decides
-// the tiles, NBs, stages and instance; tfft_bottleneck_block checks that
-// they fit and that the shared-memory sum is theirs. wgmma, TMA,
-// halo-free tiles and several blocks per launch are later work.
+// until y3's epilogue adds it (the same thread, in a pair too: the
+// projection and y3 of a column stay in one CTA). SAME zero-pads y1,
+// not x. The K order (taps ascending, k ascending in 16-steps) and the
+// rounding points do not depend on the staging, the tiling or the
+// column split, so the result does not either. The host plan
+// (launch_plan in serving/fused_block.py) decides the tiles, images a
+// CTA, cluster, NBs, stages and instance; tfft_bottleneck_block checks
+// that they fit and that the shared-memory sum is theirs. wgmma, TMA
+// and several blocks per launch are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,6 +104,7 @@ struct BlockParams {
   int nb[3];      // n-block columns: y1, y2, y3 and the projection
   int stages;     // ring stages
   int ring_rows;  // rows of a ring stage: the largest n-block
+  int cluster;    // CTAs sharing a tile's images, each half the columns: 1 or 2
 };
 
 __device__ __forceinline__ uint32_t ldg32(const bf16* p) {
@@ -190,8 +208,9 @@ __device__ __forceinline__ void fill_stage(const Gemm& G, bf16* stage, int t, in
   }
 }
 
-// A in device memory: x rows (y1 on the halo tile, the projection on
-// the output tile). Each lane reads its rows grp and grp + 8 of an m
+// A in device memory: x rows (y1 on the halo tile, or on the output
+// tile where it is the whole image; the projection on the output
+// tile). Each lane reads its rows grp and grp + 8 of an m
 // tile. kPrefetch (one CTA an SM, registers to spare): a chunk's
 // fragments are issued together while the chunk before it is
 // multiplied. Otherwise (two CTAs an SM, 128 registers a thread, the
@@ -265,36 +284,61 @@ struct GlobalA {
   }
 };
 
-// A in shared memory by ldmatrix: y1s for y2's taps (conv), y2s for y3.
+// A in shared memory by ldmatrix: y1s for y2's taps, y2s for y3.
 // Lane l addresses row (l & 15), columns 8 * (l >> 4), of each m tile.
+enum ARows { kRows, kHaloTaps, kWholeTaps };
+
+template <int kMode>  // kRows (y3), y2's taps on the halo tile or on whole images
 struct SharedA {
   const bf16* base;
   int ld, m;
-  bool conv;
   int th, tw;
-  int row[kMI];  // this lane's ldmatrix row of each m tile, at tap (0, 0)
+  int zero_row;  // kWholeTaps: the y1s row of zeros
+  int row[kMI];  // this lane's ldmatrix row of each m tile (halo: at tap (0, 0))
+  int yx[kMI];   // kWholeTaps: its pixel, y << 16 | x
+  int tap[kMI];  // kWholeTaps: its row at the current tap
   const bf16* at;
 
   __device__ __forceinline__ void rows(int i, int mtile) {
     const int r = min(mtile * 16 + (threadIdx.x & 15), m - 1);
-    if (conv) {
+    if constexpr (kMode == kHaloTaps) {
       const int hw = tw + 2, per = th * tw;
       const int g = r / per, rem = r % per;
       row[i] = g * (th + 2) * hw + (rem / tw) * hw + rem % tw;
     } else {
       row[i] = r;
+      if constexpr (kMode == kWholeTaps) {
+        const int rem = r % (th * tw);
+        yx[i] = (rem / tw) << 16 | (rem % tw);
+      }
     }
   }
 
   __device__ __forceinline__ void prefetch(int, int, const bool (&)[kMI]) {}
 
   __device__ __forceinline__ void begin(int seg, int k0, int, const bool (&)[kMI], bool) {
-    const int shift = conv ? (seg / 3) * (tw + 2) + seg % 3 : 0;
-    at = base + (size_t)shift * ld + k0 + ((threadIdx.x >> 4) & 1) * 8;
+    if constexpr (kMode == kWholeTaps) {
+      at = base + k0 + ((threadIdx.x >> 4) & 1) * 8;
+      const int dy = seg / 3 - 1, dx = seg % 3 - 1;
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        // the shifted pixel's row, or the zero row outside the image
+        const int y = (yx[i] >> 16) + dy, x = (yx[i] & 0xffff) + dx;
+        tap[i] = (unsigned)y < (unsigned)th && (unsigned)x < (unsigned)tw
+                     ? row[i] + dy * tw + dx : zero_row;
+      }
+    } else {
+      const int shift = kMode == kHaloTaps ? (seg / 3) * (tw + 2) + seg % 3 : 0;
+      at = base + (size_t)shift * ld + k0 + ((threadIdx.x >> 4) & 1) * 8;
+    }
   }
 
   __device__ __forceinline__ void frag(int kk, int i, uint32_t (&a)[4]) const {
-    ldmatrix_x4(a, at + (size_t)row[i] * ld + kk * 16);
+    if constexpr (kMode == kWholeTaps) {
+      ldmatrix_x4(a, at + (size_t)tap[i] * ld + kk * 16);
+    } else {
+      ldmatrix_x4(a, at + (size_t)row[i] * ld + kk * 16);
+    }
   }
 };
 
@@ -428,71 +472,109 @@ __device__ __forceinline__ void gemm_phase(const Gemm& G, Src& src, bf16* ring,
   }
 }
 
-// kCtasPerSm: 2 where two CTAs' shared memory fits an SM (the compiler
-// then keeps a thread to 128 registers), else 1.
-template <int kCtasPerSm>
+// kCtasPerSm: 2 where two halo tiles' shared memory fits an SM (the
+// compiler then keeps a thread to 128 registers), else 1. kWhole: the
+// tile is the whole image (halo-free y1, per-tap rows, pairs allowed;
+// one CTA an SM, since its addressing does not fit 128 registers
+// without spills); else a halo tile, whose code carries none of that.
+template <int kCtasPerSm, bool kWhole>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) bottleneck_kernel(const BlockParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = p.b + kPad;
   const int hh = p.th + 2, hw = p.tw + 2;
-  const int m1 = p.g * hh * hw;     // halo rows (y1)
-  const int m2 = p.g * p.th * p.tw;  // tile rows (y2, output)
+  constexpr bool whole = kWhole;
+  const int m2 = p.g * p.th * p.tw;             // tile rows (y2, output)
+  const int m1 = whole ? m2 : p.g * hh * hw;    // y1's rows: the image's, or the halo's
   bf16* y1s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* y2s = y1s + (size_t)m1 * ld;
+  bf16* y2s = y1s + (size_t)(whole ? m1 + 1 : m1) * ld;  // whole: + the zero row
   bf16* ring = y2s + (size_t)m2 * ld;
   const int stage_elems = p.ring_rows * kRowStride;
 
-  int blk = blockIdx.x;
+  const bool pair = kWhole && p.cluster == 2;
+  const int rank = pair ? (int)cg::this_cluster().block_rank() : 0;
+  int blk = pair ? blockIdx.x / 2 : blockIdx.x;
   const int tx0 = (blk % p.tiles_x) * p.tw;
   blk /= p.tiles_x;
   const int ty0 = (blk % p.tiles_y) * p.th;
   const int n0 = (blk / p.tiles_y) * p.g;
   const int t2 = (threadIdx.x & 3) * 2;
+  // this CTA's columns: [c1, c1 + n1) of y1 and y2, [c3, c3 + n3) of the
+  // projection and y3
+  const int n1 = pair ? p.b / 2 : p.b, c1 = rank * n1;
+  const int n3 = pair ? p.c / 2 : p.c, c3 = rank * n3;
+  bf16* peer_y1s = nullptr;
+  bf16* peer_y2s = nullptr;
+  if (pair) {
+    cg::cluster_group cluster = cg::this_cluster();
+    peer_y1s = cluster.map_shared_rank(y1s, rank ^ 1);
+    peer_y2s = cluster.map_shared_rank(y2s, rank ^ 1);
+    // the peer has started (its shared memory is live) before any store to it
+    cluster.sync();
+  }
+  // between phases: every y1 (y2) value of both CTAs stored, and the
+  // ring free for the next phase's fill
+  auto phase_sync = [&]() {
+    if (pair) cg::this_cluster().sync();
+    else __syncthreads();
+  };
+  if (whole)
+    for (int e = threadIdx.x; e < ld; e += kThreads)
+      y1s[(size_t)m1 * ld + e] = __float2bfloat16(0.f);
 
-  // ---- y1 = bf16(relu(x . W1 + b1)) on the halo tile, 0 outside the image
+  // ---- y1 = bf16(relu(x . W1 + b1)): on the halo tile (0 outside the
+  // image), or on the whole images' rows
   {
-    GlobalA<kCtasPerSm == 1> src{&p, n0, ty0, tx0, m1, true};
-    const Gemm G{p.w1, p.cin, p.b, p.cin, 1, m1, p.nb[0]};
+    GlobalA<kCtasPerSm == 1> src{&p, n0, ty0, tx0, m1, !whole};
+    const Gemm G{p.w1 + (size_t)c1 * p.cin, p.cin, n1, p.cin, 1, m1, p.nb[0]};
     gemm_phase<kCtasPerSm == 2>(G, src, ring, stage_elems, p.stages,
                [&](int r, int col0, const float (&a)[kNT][4], int hf) {
-                 const int g = r / (hh * hw), rem = r % (hh * hw);
-                 const int y = ty0 - 1 + rem / hw, x = tx0 - 1 + rem % hw;
-                 const bool inside =
-                     n0 + g < p.n && y >= 0 && y < p.h && x >= 0 && x < p.w;
+                 bool inside;
+                 if (whole) {
+                   inside = n0 + r / (p.h * p.w) < p.n;
+                 } else {
+                   const int g = r / (hh * hw), rem = r % (hh * hw);
+                   const int y = ty0 - 1 + rem / hw, x = tx0 - 1 + rem % hw;
+                   inside = n0 + g < p.n && y >= 0 && y < p.h && x >= 0 && x < p.w;
+                 }
 #pragma unroll
                  for (int j = 0; j < kNT; ++j) {
-                   const int col = col0 + j * 8 + t2;
-                   if (col >= p.b) continue;
+                   const int lc = col0 + j * 8 + t2;
+                   if (lc >= n1) continue;
+                   const int col = c1 + lc;
                    const float v0 = inside ? fmaxf(a[j][2 * hf] + p.b1[col], 0.f) : 0.f;
                    const float v1 = inside ? fmaxf(a[j][2 * hf + 1] + p.b1[col + 1], 0.f) : 0.f;
                    store2(y1s + (size_t)r * ld + col, v0, v1);
+                   if (pair) store2(peer_y1s + (size_t)r * ld + col, v0, v1);
                  }
                });
   }
-  __syncthreads();
+  phase_sync();
 
   // ---- y2 = bf16(relu(conv3x3(y1) + b2)) on the tile: nine tap GEMMs
   {
-    SharedA src{y1s, ld, m2, true, p.th, p.tw};
-    const Gemm G{p.w2, 9 * p.b, p.b, p.b, 9, m2, p.nb[1]};
+    SharedA<whole ? kWholeTaps : kHaloTaps> src{y1s, ld, m2, p.th, p.tw, m1};
+    const Gemm G{p.w2 + (size_t)c1 * 9 * p.b, 9 * p.b, n1, p.b, 9, m2, p.nb[1]};
     gemm_phase<kCtasPerSm == 2>(G, src, ring, stage_elems, p.stages,
                [&](int r, int col0, const float (&a)[kNT][4], int hf) {
 #pragma unroll
                  for (int j = 0; j < kNT; ++j) {
-                   const int col = col0 + j * 8 + t2;
-                   if (col >= p.b) continue;
-                   store2(y2s + (size_t)r * ld + col, fmaxf(a[j][2 * hf] + p.b2[col], 0.f),
-                          fmaxf(a[j][2 * hf + 1] + p.b2[col + 1], 0.f));
+                   const int lc = col0 + j * 8 + t2;
+                   if (lc >= n1) continue;
+                   const int col = c1 + lc;
+                   const float v0 = fmaxf(a[j][2 * hf] + p.b2[col], 0.f);
+                   const float v1 = fmaxf(a[j][2 * hf + 1] + p.b2[col + 1], 0.f);
+                   store2(y2s + (size_t)r * ld + col, v0, v1);
+                   if (pair) store2(peer_y2s + (size_t)r * ld + col, v0, v1);
                  }
                });
   }
-  __syncthreads();
+  phase_sync();
 
   // ---- entry block: bf16(x . Wp + bp) into out, where y3's epilogue
   // reads it back (the same thread, the same element)
   if (p.wp != nullptr) {
     GlobalA<kCtasPerSm == 1> src{&p, n0, ty0, tx0, m2, false};
-    const Gemm G{p.wp, p.cin, p.c, p.cin, 1, m2, p.nb[2]};
+    const Gemm G{p.wp + (size_t)c3 * p.cin, p.cin, n3, p.cin, 1, m2, p.nb[2]};
     gemm_phase<kCtasPerSm == 2>(G, src, ring, stage_elems, p.stages,
                [&](int r, int col0, const float (&a)[kNT][4], int hf) {
                  const Pix q = tile_pixel(p, r, n0, ty0, tx0);
@@ -500,8 +582,9 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bottleneck_kernel(const 
                  bf16* o = p.out + ((size_t)(q.img * p.h + q.y) * p.w + q.x) * p.c;
 #pragma unroll
                  for (int j = 0; j < kNT; ++j) {
-                   const int col = col0 + j * 8 + t2;
-                   if (col >= p.c) continue;
+                   const int lc = col0 + j * 8 + t2;
+                   if (lc >= n3) continue;
+                   const int col = c3 + lc;
                    store2(o + col, a[j][2 * hf] + p.bp[col], a[j][2 * hf + 1] + p.bp[col + 1]);
                  }
                });
@@ -510,8 +593,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bottleneck_kernel(const 
 
   // ---- out = bf16(relu(bf16(y2 . W3 + b3) + shortcut)), straight to device memory
   {
-    SharedA src{y2s, ld, m2, false, p.th, p.tw};
-    const Gemm G{p.w3, p.b, p.c, p.b, 1, m2, p.nb[2]};
+    SharedA<kRows> src{y2s, ld, m2, p.th, p.tw, 0};
+    const Gemm G{p.w3 + (size_t)c3 * p.b, p.b, n3, p.b, 1, m2, p.nb[2]};
     gemm_phase<kCtasPerSm == 2>(G, src, ring, stage_elems, p.stages,
                [&](int r, int col0, const float (&a)[kNT][4], int hf) {
                  const Pix q = tile_pixel(p, r, n0, ty0, tx0);
@@ -520,8 +603,9 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bottleneck_kernel(const 
                  const bf16* s = p.wp != nullptr ? p.out + pix * p.c : p.x + pix * p.cin;
 #pragma unroll
                  for (int j = 0; j < kNT; ++j) {
-                   const int col = col0 + j * 8 + t2;
-                   if (col >= p.c) continue;
+                   const int lc = col0 + j * 8 + t2;
+                   if (lc >= n3) continue;
+                   const int col = c3 + lc;
                    const float t0 = round_bf16(a[j][2 * hf] + p.b3[col]);
                    const float t1 = round_bf16(a[j][2 * hf + 1] + p.b3[col + 1]);
                    const __nv_bfloat162 sv = *reinterpret_cast<const __nv_bfloat162*>(s + col);
@@ -530,11 +614,17 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bottleneck_kernel(const 
                  }
                });
   }
+  // no CTA of a pair leaves while its peer may still address its
+  // shared memory
+  if (pair) cg::this_cluster().sync();
 }
 
-// y1s and y2s
-size_t tile_bytes(int th, int tw, int g, int b) {
-  return (size_t)g * ((th + 2) * (tw + 2) + th * tw) * (b + kPad) * sizeof(bf16);
+// y1s and y2s: whole images hold y1's image rows and one zero row,
+// tiles y1's halo
+size_t tile_bytes(int th, int tw, int g, int b, bool whole) {
+  const size_t rows = whole ? (size_t)2 * g * th * tw + 1
+                            : (size_t)g * ((th + 2) * (tw + 2) + th * tw);
+  return rows * (b + kPad) * sizeof(bf16);
 }
 
 // an n-block the warps can tile: warps_n = nb / 64 shares a row of the grid
@@ -544,31 +634,36 @@ bool valid_nb(int nb) {
 
 }  // namespace
 
-// The plan (th, tw, g, nb1..nb3, stages, ctas_per_sm, smem_bytes) comes
-// from launch_plan in serving/fused_block.py, which decides it; this
-// side only checks it. -1: arguments the kernel does not take; -2: a
-// plan that does not fit in shared memory, whose shared-memory sum is
-// not the one its tiles, n-blocks and stages need, or whose two CTAs an
-// SM do not fit.
+// The plan (th, tw, g, nb1..nb3, stages, ctas_per_sm, cluster,
+// smem_bytes) comes from launch_plan in serving/fused_block.py, which
+// decides it; this side only checks it. -1: arguments the kernel does
+// not take; -2: a plan that does not fit in shared memory, whose
+// shared-memory sum is not the one its tiles, n-blocks and stages need,
+// whose two CTAs an SM do not fit or run whole images, or whose pair is
+// not on whole images, does not split B and C into halves of a multiple
+// of 16, or cannot be resident (the grid, groups x cluster, is a whole
+// number of pairs by construction).
 extern "C" int tfft_bottleneck_block(const void* x, void* out, const void* w1, const void* b1,
                                      const void* w2, const void* b2, const void* w3,
                                      const void* b3, const void* wp, const void* bp, int n,
                                      int h, int w, int cin, int b, int c, int th, int tw, int g,
                                      int nb1, int nb2, int nb3, int stages, int ctas_per_sm,
-                                     int smem_bytes, int device, void* stream) {
+                                     int cluster, int smem_bytes, int device, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || cin % 16 || b % 16 || c % 16 || cin <= 0 || b <= 0 ||
       c <= 0)
     return -1;
   if (wp == nullptr && cin != c) return -1;
   if (th < 1 || th > h || tw < 1 || tw > w || g < 1 || g > n || !valid_nb(nb1) ||
       !valid_nb(nb2) || !valid_nb(nb3) || stages < 2 || stages > 3 || ctas_per_sm < 1 ||
-      ctas_per_sm > 2)
+      ctas_per_sm > 2 || cluster < 1 || cluster > 2)
     return -1;
+  const bool whole = th == h && tw == w;
+  if (cluster == 2 && (!whole || (b / 2) % 16 || (c / 2) % 16)) return -2;
   const int ring_rows = nb1 > nb2 ? (nb1 > nb3 ? nb1 : nb3) : (nb2 > nb3 ? nb2 : nb3);
-  const size_t smem =
-      tile_bytes(th, tw, g, b) + (size_t)stages * ring_rows * kRowStride * sizeof(bf16);
+  const size_t smem = tile_bytes(th, tw, g, b, whole) +
+                      (size_t)stages * ring_rows * kRowStride * sizeof(bf16);
   if (smem > (size_t)kSmemMax || smem != (size_t)smem_bytes ||
-      (ctas_per_sm == 2 && 2 * (smem + kSmemPerCta) > (size_t)kSmemPerSm))
+      (ctas_per_sm == 2 && (whole || 2 * (smem + kSmemPerCta) > (size_t)kSmemPerSm)))
     return -2;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -598,17 +693,41 @@ extern "C" int tfft_bottleneck_block(const void* x, void* out, const void* w1, c
   p.nb[2] = nb3;
   p.stages = stages;
   p.ring_rows = ring_rows;
+  p.cluster = cluster;
   p.tiles_y = (h + th - 1) / th;
   p.tiles_x = (w + tw - 1) / tw;
-  const long long grid = (long long)((n + g - 1) / g) * p.tiles_y * p.tiles_x;
+  const long long grid = (long long)((n + g - 1) / g) * p.tiles_y * p.tiles_x * cluster;
   if (grid > 0x7fffffffLL) return -1;
 
-  void (*kernel)(BlockParams) = ctas_per_sm == 2 ? bottleneck_kernel<2> : bottleneck_kernel<1>;
+  void (*kernel)(BlockParams) =
+      whole ? bottleneck_kernel<1, true>
+            : (ctas_per_sm == 2 ? bottleneck_kernel<2, false> : bottleneck_kernel<1, false>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  if (cluster == 1) {
+    kernel<<<(unsigned)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return -2;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

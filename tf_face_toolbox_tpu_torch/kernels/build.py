@@ -39,9 +39,9 @@ SIGNATURES = {
     "tfft_preprocess": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _F, _I, _P]),
     # x, out, w1, b1, w2, b2, w3, b3, wp, bp, n, h, w, cin, b, c, then
-    # the plan (th, tw, g, nb1, nb2, nb3, stages, ctas_per_sm,
+    # the plan (th, tw, g, nb1, nb2, nb3, stages, ctas_per_sm, cluster,
     # smem_bytes), device, stream
-    "tfft_bottleneck_block": (_I, [_P] * 10 + [_I] * 6 + [_I] * 9
+    "tfft_bottleneck_block": (_I, [_P] * 10 + [_I] * 6 + [_I] * 10
                               + [_I, _P]),
     # store, probes, bias, n_valid, cap, d, b, k, store_bf16, then the
     # plan (per_cta, slots, stages, slice_rows, slices, smem_bytes,

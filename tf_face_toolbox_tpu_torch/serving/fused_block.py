@@ -35,22 +35,37 @@ _BIASES = ("b1", "b2", "b3", "bp")
 THREADS = 256
 WARPS = THREADS // 32
 WARP_ROWS, WARP_COLS = 32, 64   # a warp's share of an n-block
+M_SLOTS = WARPS * WARP_ROWS // 16  # 16-row m tiles a pass covers at nb 64
 PAD = 8                         # y1s / y2s row padding (bf16)
 CHUNK = 64                      # K elements of a ring stage
 ROW_STRIDE = CHUNK + 8          # bf16 elements of a ring row: 144 bytes
-SMEM_BUDGET = 160 * 1024        # y1s + y2s when packing several images
+MAX_IMAGES = 8                  # whole images a CTA packs at most
 SMEM_MAX = 232448               # a CTA's most shared memory on an H100
 SMEM_PER_SM = 228 * 1024        # an SM's, of which the system takes
 SMEM_PER_CTA = 1024             # 1 KB per resident CTA
+N_SMS = 132                     # an H100 SXM's SMs, where no card is asked
 
 
-def _tile_bytes(th: int, tw: int, g: int, b: int) -> int:
-    return g * ((th + 2) * (tw + 2) + th * tw) * (b + PAD) * 2
+def _whole(th: int, tw: int, h: int, w: int) -> bool:
+    return th == h and tw == w
+
+
+def _tile_rows(th: int, tw: int, g: int, whole: bool) -> int:
+    """Rows of y1s + y2s: on whole images y1 holds the image rows and
+    one zero row (the 3x3's padding), else the (th+2) x (tw+2) halo."""
+    if whole:
+        return 2 * g * th * tw + 1
+    return g * ((th + 2) * (tw + 2) + th * tw)
+
+
+def _tile_bytes(th: int, tw: int, g: int, b: int, whole: bool) -> int:
+    return _tile_rows(th, tw, g, whole) * (b + PAD) * 2
 
 
 def _pick_nb(m: int, n: int) -> int:
-    """n-block columns for m output rows: as wide as 64 accumulators a
-    thread allow while one pass covers m, no wider than n needs."""
+    """n-block columns for m output rows: the widest (at most 64
+    accumulators a thread) whose m-tile slots (``M_SLOTS * 64 // nb`` a
+    pass) the rows more than half fill, no wider than n needs."""
     mt = -(-m // 16)
     nb = 256 if mt <= 4 else 128 if mt <= 8 else 64
     while nb > WARP_COLS and nb // 2 >= n:
@@ -58,58 +73,113 @@ def _pick_nb(m: int, n: int) -> int:
     return nb
 
 
-def _phases(th: int, tw: int, g: int, b: int, c: int) -> dict:
-    m1, m2 = g * (th + 2) * (tw + 2), g * th * tw
-    return {"y1": (m1, b, _pick_nb(m1, b)), "y2": (m2, b, _pick_nb(m2, b)),
-            "y3": (m2, c, _pick_nb(m2, c))}
+def _phases(th: int, tw: int, g: int, b: int, c: int, whole: bool,
+            cluster: int) -> dict:
+    """name -> (m rows, n columns, columns a CTA computes, nb)."""
+    m2 = g * th * tw
+    m1 = m2 if whole else g * (th + 2) * (tw + 2)
+    out = {}
+    for name, m, n in (("y1", m1, b), ("y2", m2, b), ("y3", m2, c)):
+        out[name] = (m, n, n // cluster, _pick_nb(m, n // cluster))
+    return out
 
 
-def _plan_bytes(th: int, tw: int, g: int, b: int, c: int, stages: int) -> int:
-    ring_rows = max(nb for _, _, nb in _phases(th, tw, g, b, c).values())
-    return _tile_bytes(th, tw, g, b) + stages * ring_rows * ROW_STRIDE * 2
+def _plan_bytes(th: int, tw: int, g: int, b: int, c: int, stages: int,
+                whole: bool, cluster: int = 1) -> int:
+    ring_rows = max(ph[3] for ph in
+                    _phases(th, tw, g, b, c, whole, cluster).values())
+    return (_tile_bytes(th, tw, g, b, whole)
+            + stages * ring_rows * ROW_STRIDE * 2)
 
 
-def launch_plan(n: int, h: int, w: int, cin: int, b: int, c: int) -> dict:
+def _streamed(phases: dict, cin: int, b: int) -> int:
+    """Weight elements a CTA streams through its ring: every pass over
+    its rows walks every n-block's slabs (K x nb columns each). The
+    projection, where there is one, scales as y3 does."""
+    k = {"y1": cin, "y2": 9 * b, "y3": b}
+    total = 0
+    for name, (m, _, cols, nb) in phases.items():
+        m_tiles = -(-m // 16)
+        passes = -(-m_tiles // (M_SLOTS * WARP_COLS // nb))
+        total += passes * -(-cols // nb) * nb * k[name]
+    return total
+
+
+def _plan(n, h, w, cin, b, c, th, tw, g, cluster, n_sms) -> dict | None:
+    whole = _whole(th, tw, h, w)
+    if _plan_bytes(th, tw, g, b, c, 2, whole, cluster) > SMEM_MAX:
+        return None
+    stages = 3 if _plan_bytes(th, tw, g, b, c, 3, whole, cluster) <= SMEM_MAX else 2
+    smem = _plan_bytes(th, tw, g, b, c, stages, whole, cluster)
+    phases = _phases(th, tw, g, b, c, whole, cluster)
+    two = not whole and 2 * (smem + SMEM_PER_CTA) <= SMEM_PER_SM
+    ctas_per_sm = 2 if two else 1
+    grid = -(-n // g) * -(-h // th) * -(-w // tw) * cluster
+    return {"th": th, "tw": tw, "g": g, "cluster": cluster, "stages": stages,
+            "smem_bytes": smem, "ctas_per_sm": ctas_per_sm, "grid": grid,
+            "stream_bytes": -(-grid // n_sms) * 2 * _streamed(phases, cin, b),
+            "phases": {name: {"m": m, "n": cols, "n_cta": nc, "nb": nb}
+                       for name, (m, cols, nc, nb) in phases.items()}}
+
+
+def launch_plan(n: int, h: int, w: int, cin: int, b: int, c: int,
+                n_sms: int = N_SMS, *, g: int | None = None,
+                cluster: int | None = None) -> dict:
     """How the fused-block kernel cuts one block over N x H x W pixels.
 
     - Tiles: maps up to 16 wide are one tile, larger ones 14-wide tiles;
       the tile halves while y1s, y2s and a 2-stage weight ring do not fit
-      in ``SMEM_MAX``. Whole-image tiles pack up to 8 images while y1s
-      and y2s fit ``SMEM_BUDGET``, halving that count while the ring
-      does not fit beside them.
-    - Per phase (y1 on the halo; y2; y3 and the projection on the tile):
-      ``m`` output rows, ``n`` columns, ``nb`` columns per n-block, which
-      the kernel's 8 warps cover in 32 x 64 shares (``nb // 64`` warps
-      across, the rest down the rows).
+      in ``SMEM_MAX``. A tiled map computes y1 on a (th+2) x (tw+2) halo.
+      A whole-image tile computes y1 on its image rows only, beside one
+      zero row that the 3x3's out-of-image taps read.
+    - Whole-image tiles pack ``g`` images (up to ``MAX_IMAGES``), on
+      lone CTAs or on clusters of two (``cluster``) that share the same
+      images, each CTA computing half of every phase's columns and
+      streaming only those weight rows. Of the (g, cluster) that fit,
+      the plan takes the one whose busiest SM streams the fewest weight
+      bytes (``stream_bytes``: the CTAs an SM runs, ceil(grid / SMs),
+      x a CTA's ring traffic), then pairs (on an H100 at equal bytes, a
+      pair ran the 14x14 stage about 1% faster than lone CTAs), then the
+      smaller g: a smaller g, and so a fuller card, wins wherever it
+      costs no more.
+      ``g`` and ``cluster`` force either (bench and tests).
+    - Per phase (y1; y2; y3 and the projection): ``m`` output rows, ``n``
+      columns, ``n_cta`` of them a CTA computes, ``nb`` columns per
+      n-block, which the kernel's 8 warps cover in 32 x 64 shares
+      (``nb // 64`` warps across, the rest down the rows).
     - A third ring stage where it fits; two CTAs an SM (``ctas_per_sm``,
-      the kernel's instance capped at 128 registers a thread) where
-      their shared memory fits one.
+      the kernel's instance capped at 128 registers a thread) where two
+      halo tiles' shared memory fits one (whole images run one CTA an
+      SM: their per-tap addressing spills at 128). ``n_sms``: the
+      card's SMs.
     """
     th = h if h <= 16 else 14
     tw = w if w <= 16 else 14
-    while _plan_bytes(th, tw, 1, b, c, 2) > SMEM_MAX and (th > 1 or tw > 1):
+    while (_plan_bytes(th, tw, 1, b, c, 2, _whole(th, tw, h, w)) > SMEM_MAX
+           and (th > 1 or tw > 1)):
         if th >= tw:
             th = (th + 1) // 2
         else:
             tw = (tw + 1) // 2
-    g = 1
-    if th == h and tw == w:
-        while g * 2 <= min(8, n) and _tile_bytes(th, tw, g * 2, b) <= SMEM_BUDGET:
-            g *= 2
-        while g > 1 and _plan_bytes(th, tw, g, b, c, 2) > SMEM_MAX:
-            g //= 2
-    stages = 3 if _plan_bytes(th, tw, g, b, c, 3) <= SMEM_MAX else 2
-    smem = _plan_bytes(th, tw, g, b, c, stages)
-    if smem > SMEM_MAX:
+    pair_ok = b % 32 == 0 and c % 32 == 0   # each half a multiple of 16
+    whole = _whole(th, tw, h, w)
+    if g is not None:
+        gs = (g,)
+    else:
+        gs = range(1, min(MAX_IMAGES, n) + 1) if whole else (1,)
+    if cluster is not None:
+        clusters = (cluster,)
+    else:
+        clusters = (1, 2) if whole and pair_ok else (1,)
+    if 2 in clusters and not pair_ok:
+        raise ValueError(f"a pair splits B={b} and C={c} in halves that "
+                         "must be multiples of 16")
+    plans = [p for p in (_plan(n, h, w, cin, b, c, th, tw, gg, cl, n_sms)
+                         for cl in clusters for gg in gs) if p is not None]
+    if not plans:
         raise ValueError(f"a fused block with B={b} does not fit in shared "
-                         f"memory even at a 1x1 tile ({smem} bytes)")
-    phases = {name: {"m": m, "n": cols, "nb": nb}
-              for name, (m, cols, nb) in _phases(th, tw, g, b, c).items()}
-    tiles = -(-h // th) * -(-w // tw)
-    ctas_per_sm = 2 if 2 * (smem + SMEM_PER_CTA) <= SMEM_PER_SM else 1
-    return {"th": th, "tw": tw, "g": g, "stages": stages, "smem_bytes": smem,
-            "ctas_per_sm": ctas_per_sm, "grid": -(-n // g) * tiles,
-            "phases": phases}
+                         f"memory at a {th}x{tw} tile, g={g}, cluster={cluster}")
+    return min(plans, key=lambda p: (p["stream_bytes"], -p["cluster"], p["g"]))
 
 
 def bottleneck_block_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
@@ -187,7 +257,7 @@ def fused_bottleneck_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
     x = x.contiguous()
     n, h, w, cin = x.shape
     b, c = blk["w1"].shape[0], blk["w3"].shape[0]
-    plan = launch_plan(n, h, w, cin, b, c)
+    plan = launch_plan(n, h, w, cin, b, c, _n_sms(x.device))
     out = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
     ptr = lambda name: blk[name].data_ptr() if name in blk else None  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -196,19 +266,24 @@ def fused_bottleneck_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), ptr("w1"), ptr("b1"), ptr("w2"),
         ptr("b2"), ptr("w3"), ptr("b3"), ptr("wp"), ptr("bp"),
         n, h, w, cin, b, c, plan["th"], plan["tw"], plan["g"], *nbs,
-        plan["stages"], plan["ctas_per_sm"], plan["smem_bytes"],
-        x.device.index or 0, stream)
+        plan["stages"], plan["ctas_per_sm"], plan["cluster"],
+        plan["smem_bytes"], x.device.index or 0, stream)
     if status == -2:
         raise RuntimeError(
             f"tfft_bottleneck_block refused the plan {plan}: it does not fit "
-            f"in shared memory, or its fields are out of step with its "
-            f"shared-memory sum of {plan['smem_bytes']} bytes")
+            f"in shared memory, its fields are out of step with its "
+            f"shared-memory sum of {plan['smem_bytes']} bytes, or its "
+            f"cluster of {plan['cluster']} cannot be resident")
     check(lib, status, "tfft_bottleneck_block")
     fused_bottleneck_block.launches += 1
     return out
 
 
 fused_bottleneck_block.launches = 0
+
+
+def _n_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _blocks(entry: dict | None, tail: dict | None) -> list[dict]:
