@@ -13,13 +13,16 @@ eval_identification CLIs. Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
 2. build: every CUDA kernel from tf_face_toolbox_tpu_torch/csrc
-3. kernel vs plain PyTorch version at the main path's shapes
+3. kernel vs plain PyTorch version at the main path's shapes (the
+   preprocess kernel also on a constant image and on 512x512 frames)
 4. slice: the e2e chain, its launch counts, and its embeddings held
    against the f32 module path (no kernels) on the same card
 5. CLIs: extract (--engine fused) and eval_lfw as subprocesses
-6. times: kernels vs plain versions, the fused blocks' library route
-   (the folded engine's cuDNN/cuBLAS convs for the same blocks, per
-   stage), and the port bench (informational)
+6. times: kernels vs plain versions; the preprocess kernel warm and
+   cold (inputs past the L2), eagerly and as CUDA-graph replays, and its
+   library route (F.interpolate and the standardization); the fused
+   blocks' library route (the folded engine's cuDNN/cuBLAS convs for the
+   same blocks, per stage); the port bench (informational)
 7. top-k kernels vs plain versions: 2^20-row stores, 10^6 valid, 1%
    tombstoned, B 1/64/300, k 5/20/100 and k 1100; k 12,000 (lists in
    the workspace) at 2^16 rows; galleries of 100-d (and 5-d f32) rows
@@ -617,17 +620,31 @@ def main() -> None:
                        device="cuda", dtype=torch.uint8)
     flips = torch.randint(0, 2, (256,), generator=g, device="cuda")
     # a constant image at its own size: no resize, zero variance, so the
-    # std floor 1/sqrt(N) must give exact zeros (not NaN)
+    # std floor 1/sqrt(N) must give exact zeros (not NaN); a large frame,
+    # whose bands stage only the source rows their taps read
     const = torch.full((4, 112, 112, 3), 77, dtype=torch.uint8, device="cuda")
+    frames = torch.randint(0, 256, (16, 512, 512, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
     pre_err = 0.0
+    # no mask: the eval path (fused_eval_preprocess, no image flipped)
     for images, fl, label in ((u8, flips, "random flips"),
-                              (const, flips[:4], "constant image")):
+                              (u8, None, "eval path"),
+                              (const, flips[:4], "constant image"),
+                              (frames, flips[:16], "large frames")):
+        if fl is None:
+            def run(dtype, images=images):
+                return fp.fused_eval_preprocess(images, 112, 112,
+                                                out_dtype=dtype)
+            fl = torch.zeros(images.shape[0], device="cuda")
+        else:
+            def run(dtype, images=images, fl=fl):
+                return fp.fused_preprocess(images, fl, out_h=112, out_w=112,
+                                           out_dtype=dtype)
         want = fp.fused_preprocess_reference(images, fl, out_h=112, out_w=112)
-        got = fp.fused_preprocess(images, fl, out_h=112, out_w=112)
+        got = run(torch.float32)
         torch.cuda.synchronize()
         err32 = (got - want).abs().max().item()
-        got16 = fp.fused_preprocess(images, fl, out_h=112, out_w=112,
-                                    out_dtype=torch.bfloat16)
+        got16 = run(torch.bfloat16)
         torch.cuda.synchronize()
         # bf16: within one bf16 step of the plain version's rounded
         # value, beyond the f32 tolerance (near zero, (y - mean)
@@ -635,16 +652,23 @@ def main() -> None:
         want16 = want.to(torch.bfloat16).float()
         excess = ((got16.float() - want16).abs() - 1e-4).clamp_min(0)
         ulps = (excess / bf16_ulp(want16)).max().item()
+        plan = fp.launch_plan(*images.shape, 112, 112)
         say(f"  preprocess {label} {tuple(images.shape)} -> 112: f32 "
-            f"max_abs={err32:.3g}, bf16 max {ulps:.2f} ulp beyond 1e-4")
+            f"max_abs={err32:.3g}, bf16 max {ulps:.2f} ulp beyond 1e-4; plan "
+            f"cluster {plan['cluster']}, band {plan['band_rows']} rows, "
+            f"{plan['threads']} threads ({plan['tr']} rows of {plan['tc']} "
+            f"columns) x {plan['vals']} values, {plan['ctas_an_sm']} CTAs an "
+            f"SM, copy {plan['copy']}, persist {plan['persist']}, "
+            f"{len(plan['chunks'])} "
+            f"chunks, {len(plan['segs'])} runs, {plan['smem_bytes']} B smem")
         expect(err32 <= 1e-4, f"preprocess f32 max_abs {err32} > 1e-4")
         expect(ulps <= 1.0, f"preprocess bf16 {ulps} ulp > 1 beyond 1e-4")
         if label == "constant image":
             expect(got.abs().max().item() == 0 and
                    got16.float().abs().max().item() == 0,
                    "constant image: std floor did not give zeros")
-        if label == "random flips":
-            pre_err = err32
+        pre_err = max(pre_err, err32)
+    del frames
 
     block_stats: list = []
     for (shape, entry, tail, folded), name in zip(
@@ -746,19 +770,34 @@ def main() -> None:
         f"{time.time() - t0:.1f} s")
 
     # ---- 6. times (informational)
-    pre_ms = bench.time_ms(lambda: fp.fused_eval_preprocess(
-        u8, 112, 112, out_dtype=torch.bfloat16))
+    from tf_face_toolbox_tpu_torch import bench_preprocess as bp
+
+    # kernel 1, eval path: warm (one input) and cold (rotating over 7
+    # batches, 77 MB of u8, past the 50 MB L2), eager and graph replays
+    batches = [u8] + bp.make_batches(256, bp.COLD_BATCHES - 1, seed=1)
+    pre = bp.readings(lambda x: fp.fused_eval_preprocess(
+        x, 112, 112, out_dtype=torch.bfloat16), batches)
     zeros = torch.zeros(256, device="cuda")
     pre_plain = bench.time_ms(lambda: fp.fused_preprocess_reference(
         u8, zeros, out_h=112, out_w=112))
+    route_err = (bp.library_route(u8, None, dtype=torch.float32)
+                 - fp.fused_preprocess_reference(u8, zeros, out_h=112,
+                                                 out_w=112)).abs().max().item()
+    route = bp.library_readings(u8)
+    del batches
     # u8 in, bf16 out, the flip flags; per output value 2 taps on each
     # axis (6 flops) and the standardization (5)
     pre_bound = bound(u8.numel() + u8.shape[0] * (112 * 112 * 3 * 2 + 4),
                       11 * u8.shape[0] * 112 * 112 * 3, "float32")
     say(f"[6 times] {gpu}")
-    say(f"  preprocess (256,120,120,3) u8 -> bf16 112: kernel "
-        f"{pre_ms:.3f} ms, plain (f32) {pre_plain:.3f} ms, bound "
-        f"{pre_bound[0]:.4f} ms ({pre_bound[1]})")
+    say(f"  preprocess (256,120,120,3) u8 -> bf16 112, eval path: kernel "
+        f"eager warm {pre['ms']:.4f} / cold {pre['cold_ms']:.4f} ms, graph "
+        f"replays warm {pre['graph_ms']:.4f} / cold {pre['cold_graph_ms']:.4f} "
+        f"ms; plain (f32) {pre_plain:.3f} ms; bound {pre_bound[0]:.4f} ms "
+        f"({pre_bound[1]}), {pre_bound[0] / pre['cold_graph_ms']:.1%} of it "
+        f"(cold graph); library route (F.interpolate + standardize, bf16) "
+        f"eager {route['ms']:.4f} / graph {route['graph_ms']:.4f} ms, max "
+        f"|route - plain| {route_err:.3g} (f32)")
     for s in block_stats:
         lo, hi = s["library_route_range"]
         say(f"  fused_block stage {s['stage']} b256: kernel {s['ms']:.3f} ms "
@@ -805,9 +844,15 @@ def main() -> None:
          "source": "tf_face_toolbox_tpu_torch/csrc/preprocess.cu",
          "replaces": "tf_face_toolbox_tpu/ops/pallas_preprocess.py:64",
          "launches": launches["preprocess"], "max_abs_err": pre_err,
-         "ms": pre_ms, "plain_ms": pre_plain, "bound_ms": pre_bound[0],
-         "bound_by": pre_bound[1], "bound_share": pre_bound[0] / pre_ms,
-         "library_ms": None},
+         "ms": pre["ms"], "plain_ms": pre_plain, "bound_ms": pre_bound[0],
+         "bound_by": pre_bound[1],
+         "bound_share": pre_bound[0] / pre["cold_graph_ms"],
+         "bound_share_of": "cold_graph_ms",
+         "library_ms": None, "graph_ms": pre["graph_ms"],
+         "cold_ms": pre["cold_ms"], "cold_graph_ms": pre["cold_graph_ms"],
+         "library_route_ms": route["ms"],
+         "library_route_graph_ms": route["graph_ms"],
+         "library_route_max_abs": route_err},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

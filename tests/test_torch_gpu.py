@@ -8,6 +8,9 @@ Imports nothing of JAX, so it runs where the card is:
 device every test skips.
 """
 
+import copy
+import ctypes
+
 import pytest
 import torch
 
@@ -56,20 +59,108 @@ def _close(got, want):
     assert (got - want).abs().max().item() <= 2 * want.abs().max().item() / 128
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_preprocess_kernel(cuda, out_dtype):
-    x = torch.randint(0, 256, (16, 120, 120, 3), generator=cuda,
-                      device="cuda", dtype=torch.uint8)
-    flips = torch.randint(0, 2, (16,), generator=cuda, device="cuda")
+# (images shape, out_h, out_w, launch_plan overrides): the main path
+# at 256 images with random flips; unaligned 14x14 images (588 bytes,
+# 4-byte copies) and 5x5 ones (byte loads); an upscale; a large frame;
+# clusters 1, 2 and 4 forced; each kernel
+# instance forced; four-channel images (a column a value); more images
+# than the card holds CTAs at once (each CTA walks several, the next
+# one's band copied while this one's is computed) and the main path
+# without that; a frame whose bands stage in several chunks; a tall
+# one-channel upscale; 224-wide outputs; output rows wider than a CTA
+# (several columns a thread)
+_PRE_CASES = {
+    "main_256": ((256, 120, 120, 3), 112, 112, {}),
+    "unaligned_14": ((5, 14, 14, 3), 14, 14, {}),
+    "unaligned_5x5_bytes": ((3, 5, 5, 3), 4, 4, {}),
+    "upscale_10x8_to_16x12": ((4, 10, 8, 3), 16, 12, {}),
+    "frame_512": ((8, 512, 512, 3), 112, 112, {}),
+    "cluster_1": ((32, 120, 120, 3), 112, 112, {"cluster": 1}),
+    "cluster_2": ((32, 120, 120, 3), 112, 112, {"cluster": 2}),
+    "cluster_4": ((32, 120, 120, 3), 112, 112, {"cluster": 4}),
+    "c1_vals84": ((32, 120, 120, 3), 112, 112, {"cluster": 1, "vals": 84}),
+    "c2_vals84": ((32, 120, 120, 3), 112, 112, {"cluster": 2, "vals": 84}),
+    "c4_vals42_t448": ((32, 120, 120, 3), 112, 112,
+                       {"cluster": 4, "vals": 42, "threads": 448}),
+    "rgba_value_columns": ((4, 20, 16, 4), 12, 12, {}),
+    "persist_loop_c1": ((600, 120, 120, 3), 112, 112, {"cluster": 1}),
+    "persist_loop_c4": ((1100, 120, 120, 3), 112, 112, {"cluster": 4}),
+    "no_persist": ((256, 120, 120, 3), 112, 112, {"persist": False}),
+    "out_224": ((4, 120, 120, 3), 224, 224, {}),
+    "frame_2048_chunked": ((2, 2048, 2048, 3), 112, 112, {}),
+    "gray_tall_upscale": ((3, 30, 20, 1), 200, 24, {}),
+    "wide_rows": ((3, 4, 300, 3), 4, 1000, {}),
+}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(_PRE_CASES))
+def test_preprocess_kernel(cuda, case, out_dtype):
+    """One launch, within the smoke's tolerance of the plain version:
+    f32 1e-4 absolute, bf16 one step beyond 1e-4."""
+    shape, out_h, out_w, force = _PRE_CASES[case]
+    x = torch.randint(0, 256, shape, generator=cuda, device="cuda",
+                      dtype=torch.uint8)
+    flips = torch.randint(0, 2, (shape[0],), generator=cuda, device="cuda")
     before = tpp.fused_preprocess.launches
-    got = tpp.fused_preprocess(x, flips, out_h=112, out_w=112,
-                               out_dtype=out_dtype)
+    got = tpp.fused_preprocess(x, flips, out_h=out_h, out_w=out_w,
+                               out_dtype=out_dtype, **force)
     torch.cuda.synchronize()
     assert tpp.fused_preprocess.launches == before + 1
-    assert got.dtype == out_dtype
-    want = tpp.fused_preprocess_reference(x, flips, out_h=112, out_w=112)
+    assert got.dtype == out_dtype and tuple(got.shape) == (shape[0], out_h, out_w, shape[3])
+    want = tpp.fused_preprocess_reference(x, flips, out_h=out_h, out_w=out_w)
     tol = 1e-4 if out_dtype == torch.float32 else 1e-4 + want.abs() / 128
     assert ((got.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(4, 112, 112, 3), (5, 14, 14, 3)], ids=str)
+def test_preprocess_kernel_constant_image(cuda, shape, out_dtype):
+    """No resize and zero variance: the std floor gives exact zeros."""
+    x = torch.full(shape, 77, dtype=torch.uint8, device="cuda")
+    got = tpp.fused_eval_preprocess(x, shape[1], shape[2], out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.float().abs().max().item() == 0
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(256, 120, 120, 3), (5, 14, 14, 3)], ids=str)
+def test_preprocess_eval_path_takes_no_mask(cuda, shape, out_dtype):
+    """The eval path launches the kernel alone, with no flip mask, and
+    equals the zero-mask launch bit for bit."""
+    x = torch.randint(0, 256, shape, generator=cuda, device="cuda",
+                      dtype=torch.uint8)
+    zeros = torch.zeros(shape[0], dtype=torch.int32, device="cuda")
+    size = 112 if shape[1] == 120 else shape[1]
+    want = tpp.fused_preprocess(x, zeros, out_h=size, out_w=size,
+                                out_dtype=out_dtype)
+    before = tpp.fused_preprocess.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = tpp.fused_eval_preprocess(x, size, size, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+    assert tpp.fused_preprocess.launches == before + 1
+    assert torch.equal(got, want)
+    names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    kernels = {k for k in names if "Memcpy" not in k and "Memset" not in k}
+    assert all("preprocess_kernel" in k for k in kernels), kernels
+
+
+def test_preprocess_kernel_refuses_a_plan_mismatch(cuda, monkeypatch):
+    """A plan whose shared-memory sum is not its own is refused (-2)
+    and the wrapper raises; nothing falls back."""
+    x = torch.zeros((2, 120, 120, 3), dtype=torch.uint8, device="cuda")
+    prep = copy.copy(tpp._prepared(
+        (2, 120, 120, 3, 112, 112, False, None, None, None, None, None),
+        x.device))
+    prep.launch = tpp._Launch.from_buffer_copy(prep.launch)
+    prep.launch.smem_bytes += 16
+    prep.ref = ctypes.addressof(prep.launch)
+    monkeypatch.setattr(tpp, "_prepared", lambda key, device: prep)
+    before = tpp.fused_preprocess.launches
+    with pytest.raises(RuntimeError, match="refused the plan"):
+        tpp.fused_eval_preprocess(x, 112, 112)
+    assert tpp.fused_preprocess.launches == before
 
 
 # (n, h, w, cin, b, c, entry): an entry block on a ragged 14-wide tiling,

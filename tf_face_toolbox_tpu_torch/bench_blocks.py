@@ -89,11 +89,11 @@ def _nvcc_flags() -> list[str]:
     return [build._nvcc(), *build.NVCC_FLAGS]
 
 
-def ptxas_report() -> str:
-    """nvcc's -Xptxas -v report for csrc/fused_block.cu (no output file
+def ptxas_report(source: str = "fused_block.cu") -> str:
+    """nvcc's -Xptxas -v report for csrc/``source`` (no output file
     kept)."""
     from tf_face_toolbox_tpu_torch.kernels import build
-    src = os.path.join(build.CSRC_DIR, "fused_block.cu")
+    src = os.path.join(build.CSRC_DIR, source)
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     obj = os.path.join(build.BUILD_DIR, f"ptxas_{os.getpid()}.o")
     proc = subprocess.run([*_nvcc_flags(), "-Xptxas", "-v", "-c", "-o", obj,

@@ -34,10 +34,9 @@ _F = ctypes.c_float
 # C entry points: name -> (restype, argtypes). Every pointer and the
 # stream are c_void_p; ctypes would otherwise pass them as 32-bit ints.
 SIGNATURES = {
-    # images, flips, h_idx, h_wt, w_idx, w_wt, out, n, in_h, in_w, c,
-    # out_h, out_w, out_bf16, inv_sqrt_n, device, stream
-    "tfft_preprocess": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _I, _P]),
+    # the plan's launch structure (PreLaunch; ops/fused_preprocess.py's
+    # _Launch), images, flips (null: none flipped), out, device, stream
+    "tfft_preprocess": (_I, [_P, _P, _P, _P, _I, _P]),
     # x, out, w1, b1, w2, b2, w3, b3, wp, bp, n, h, w, cin, b, c, then
     # the plan (th, tw, g, nb1, nb2, nb3, stages, ctas_per_sm, cluster,
     # smem_bytes), device, stream
