@@ -9,7 +9,10 @@ flip-averaged fused-block engine -> L2-normalized embeddings, then the
 extract and eval_lfw CLIs. 1:N search: those embeddings among 10^6
 seeded distractors in DeviceGallery (f32, bf16, int8 stores) through
 the two top-k kernels, then the cluster, search and
-eval_identification CLIs. Phases:
+eval_identification CLIs. Training (BASELINE config 4): resnet_v1_50
+(face stem, bf16, f32 master weights), CosFace over 10,572 classes,
+batch 256, synthetic faces augmented through the preprocess kernel,
+by cli.train. Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
 2. build: every CUDA kernel from tf_face_toolbox_tpu_torch/csrc
@@ -34,6 +37,16 @@ eval_identification CLIs. Phases:
     and the f32 and int8 galleries' search latency at 2^20 rows
     (tf_face_toolbox_tpu_torch.bench_search gallery gives the
     10^7-row galleries' latency and device time by kernel)
+11. training: the preprocess kernel at the train shape ((256, 112,
+    112, 3) u8 crops, identity resize, random flips -> bf16) vs its
+    plain version and its bound; one full-width step through the
+    kernel and through the plain augment chain from the same variables
+    and draws (loss within 1%, every leaf's update cosine >= 0.999);
+    cli.train for 30 config-4 steps (one kernel launch a step, finite
+    losses); a packed shard through the python loader and, where
+    native/faceshard builds (it links libjpeg), the native one;
+    training faces/sec (bench_train: CUDA events over 20 steps after 5,
+    peak memory, idle share from torch.profiler, share of the bf16 peak)
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -589,6 +602,174 @@ def phase_gallery_times(g) -> list:
     return rows
 
 
+def run_train_cli(args: list, timeout: int) -> tuple[int, list, int]:
+    """cli.train as a subprocess: (final step, logged losses, kernel 1
+    launches it counted)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
+         "--device", "cuda", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    expect(proc.returncode == 0, f"cli.train {' '.join(args)} failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    out = proc.stdout.strip().splitlines()
+    expect(out and out[-1].startswith("done: step="),
+           f"cli.train printed {out[-3:]}")
+    step = int(out[-1].split("step=")[1].split()[0])
+    launches = next(int(line.split("preprocess=")[1]) for line in out
+                    if line.startswith("kernel launches:"))
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in proc.stderr.splitlines()
+              if line.startswith("step ") and "loss=" in line]
+    return step, losses, launches
+
+
+def phase_train(g, work: str) -> dict:
+    """Phase 11: training, BASELINE config 4, on the card."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.format import pack_arrays
+    from tf_face_toolbox_tpu_torch.ops import fused_preprocess as fp
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    # kernel 1 at the train shape: the crop at the output size
+    crops = torch.randint(0, 256, (256, 112, 112, 3), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    # int32, as the trainer passes them (the wrapper's dtype)
+    flips = torch.randint(0, 2, (256,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    want = fp.fused_preprocess_reference(crops, flips, out_h=112, out_w=112)
+    got = fp.fused_preprocess(crops, flips, out_h=112, out_w=112)
+    torch.cuda.synchronize()
+    err32 = (got - want).abs().max().item()
+    got16 = fp.fused_preprocess(crops, flips, out_h=112, out_w=112,
+                                out_dtype=torch.bfloat16)
+    want16 = want.to(torch.bfloat16).float()
+    excess = ((got16.float() - want16).abs() - 1e-4).clamp_min(0)
+    ulps = (excess / bf16_ulp(want16)).max().item()
+    expect(err32 <= 1e-4, f"train-shape preprocess f32 max_abs {err32} > 1e-4")
+    expect(ulps <= 1.0, f"train-shape preprocess bf16 {ulps} ulp > 1 beyond "
+                        "1e-4")
+
+    def kernel():
+        return fp.fused_preprocess(crops, flips, out_h=112, out_w=112,
+                                   out_dtype=torch.bfloat16)
+
+    def plain():
+        return fp.fused_preprocess_reference(crops, flips, out_h=112,
+                                             out_w=112,
+                                             out_dtype=torch.bfloat16)
+
+    k_ms = bench.time_ms(kernel, iters=50)
+    p_ms = bench.time_ms(plain)
+    k_ms2 = bench.time_ms(kernel, iters=50)
+    # u8 in, bf16 out, int32 flags; per value the standardization (5
+    # operations; the identity resize needs none)
+    b_ms, b_by = bound(crops.numel() * 3 + 256 * 4, 5 * crops.numel(),
+                       "float32")
+    plan = fp.launch_plan(256, 112, 112, 3, 112, 112)
+    k_mean = (k_ms + k_ms2) / 2
+    say(f"[11 train] {bench.gpu_info()}")
+    say(f"  preprocess train shape (256,112,112,3) u8 -> bf16 112, random "
+        f"flips: f32 max_abs={err32:.3g}, bf16 max {ulps:.2f} ulp beyond "
+        f"1e-4; kernel {k_ms:.4f} / {k_ms2:.4f} ms (eager, warm), plain "
+        f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / k_mean:.1%} "
+        f"of it; plan cluster {plan['cluster']}, {plan['threads']} threads "
+        f"x {plan['vals']} values, copy {plan['copy']}, persist "
+        f"{plan['persist']}")
+    del crops, got, got16, want, want16
+
+    # one full-width step, kernel route vs the plain augment chain
+    cfg = bt.config4()
+    images = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, cfg.num_classes, (256,), generator=g,
+                           device="cuda")
+    routes = bt.step_routes(cfg, images, labels)
+    say(f"  one step, kernel vs plain route: loss {routes['loss']['kernel']:.5f}"
+        f" / {routes['loss']['plain']:.5f} (rel {routes['loss_rel']:.2e}), "
+        f"update cosine min {routes['min_cos']:.6f} ({routes['worst_leaf']})"
+        f" over {routes['compared_leaves']} leaves, "
+        f"{routes['unmoved_leaves']} unmoved in both (the plain route run "
+        f"twice: cosine min {routes['repeat_min_cos']:.6f}; cuDNN "
+        f"deterministic); launches {routes['launches']}")
+    expect(routes["loss_rel"] <= 0.01, f"routes' losses {routes['loss']}")
+    expect(routes["min_cos"] >= 0.999,
+           f"update cosine {routes['min_cos']} < 0.999 at "
+           f"{routes['worst_leaf']}")
+    expect(routes["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0},
+           f"route launches {routes['launches']}")
+    del images, labels
+    torch.cuda.empty_cache()
+
+    # the main path: cli.train, config 4, 30 steps
+    t1 = time.time()
+    step, losses, launches = run_train_cli(
+        ["--network", "resnet_v1_50", "--stem", "face", "--data",
+         "synthetic", "--num_classes", "10572", "--global_batch", "256",
+         "--bf16", "--pallas_input", "--num_steps", "30", "--log_every",
+         "10"], timeout=900)
+    say(f"  cli.train config 4, 30 steps: done step={step}, losses "
+        f"{[round(v, 4) for v in losses]}, preprocess launches {launches}; "
+        f"{time.time() - t1:.1f} s")
+    expect(step == 30, f"cli.train stopped at step {step}")
+    expect(len(losses) == 3 and all(np.isfinite(losses)),
+           f"cli.train logged losses {losses}")
+    expect(launches == 30, f"kernel 1 launched {launches} times in 30 steps")
+
+    # training faces/sec/GPU
+    torch.cuda.empty_cache()
+    t = bt.time_training(cfg, steps=20, warmup=5)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        t["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+    say(f"  training faces/sec/GPU (config 4, batch 256, bf16, kernel 1, "
+        f"device prefetch): {t['faces_per_sec']:.1f} ({t['ms_per_step']:.2f}"
+        f" ms/step, CUDA events over 20 steps after 5; first step "
+        f"{t['first_step_s']:.1f} s); peak memory {t['peak_memory_gb']:.2f} "
+        f"GB; profiled {t['profiled_wall_ms_per_step']:.2f} ms/step wall, "
+        f"{t['device_ms_per_step']:.2f} device, idle "
+        f"{t['idle_share']:.1%}; {t['step_tflop']:.2f} TFLOP a step, "
+        f"{t['peak_share']:.1%} of 989 TFLOP/s bf16; device ms by kind: "
+        f"{kinds}; {bench.gpu_info()}")
+    say("  top kernels (ms/step): " + "; ".join(
+        f"{ms:.2f} {name[:60]}" for ms, name in t["top_kernels_ms"]))
+    expect(np.isfinite(t["loss"]), f"timed run's loss {t['loss']}")
+
+    # a packed shard through both loaders; the native one where its
+    # library builds (native/faceshard links libjpeg)
+    from tf_face_toolbox_tpu_torch.data import native
+
+    shard = os.path.join(work, "train.faceshard")
+    faces = torch.randint(0, 256, (512, 120, 120, 3), generator=g,
+                          device="cuda", dtype=torch.uint8).cpu().numpy()
+    pack_arrays(shard, faces, [i % 64 for i in range(512)])
+    loaders = ["python"]
+    try:
+        native._load_library()
+        loaders.append("native")
+    except OSError as e:
+        say(f"  --loader native not run: the native loader does not build "
+            f"on this machine ({e}); the CPU tests run it")
+    for loader in loaders:
+        t1 = time.time()
+        step_s, losses_s, launches_s = run_train_cli(
+            ["--network", "resnet_v1_50", "--stem", "face", "--data", shard,
+             "--loader", loader, "--global_batch", "128", "--bf16",
+             "--pallas_input", "--num_steps", "3", "--log_every", "1"],
+            timeout=600)
+        say(f"  cli.train packed shard (512 faces, 64 ids), --loader "
+            f"{loader}, batch 128: done step={step_s}, losses "
+            f"{[round(v, 4) for v in losses_s]}, launches {launches_s}; "
+            f"{time.time() - t1:.1f} s")
+        expect(step_s == 3 and launches_s == 3 and len(losses_s) == 3
+               and all(np.isfinite(losses_s)), f"--loader {loader} run")
+
+    say(f"  phase 11: {time.time() - t0:.1f} s")
+    return {"max_abs_err": err32, "ms": k_mean, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "launches": launches,
+            "routes": routes, "time": t}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; there is no CPU path")
@@ -826,6 +1007,9 @@ def main() -> None:
         say(f"  DeviceGallery({r['dtype']}).search {r['rows']} rows B={r['batch']} "
             f"k=5: host p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms over "
             f"50 searches")
+    # ---- 11. training
+    train = phase_train(g, work)
+
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
     t_topk_f32 = next(r for r in topk_times if r["dtype"] == "float32"
@@ -852,7 +1036,15 @@ def main() -> None:
          "cold_ms": pre["cold_ms"], "cold_graph_ms": pre["cold_graph_ms"],
          "library_route_ms": route["ms"],
          "library_route_graph_ms": route["graph_ms"],
-         "library_route_max_abs": route_err},
+         "library_route_max_abs": route_err,
+         # the training path: (256, 112, 112, 3) crops, identity resize,
+         # random flips -> bf16; launches in cli.train's 30 steps
+         "train_launches": train["launches"],
+         "train_max_abs_err": train["max_abs_err"], "train_ms": train["ms"],
+         "train_plain_ms": train["plain_ms"],
+         "train_bound_ms": train["bound_ms"],
+         "train_bound_by": train["bound_by"],
+         "train_bound_share": train["bound_ms"] / train["ms"]},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

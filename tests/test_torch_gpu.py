@@ -71,6 +71,8 @@ def _close(got, want):
 # (several columns a thread)
 _PRE_CASES = {
     "main_256": ((256, 120, 120, 3), 112, 112, {}),
+    # the trainer's call: 112 x 112 crops, identity resize
+    "train_identity_256": ((256, 112, 112, 3), 112, 112, {}),
     "unaligned_14": ((5, 14, 14, 3), 14, 14, {}),
     "unaligned_5x5_bytes": ((3, 5, 5, 3), 4, 4, {}),
     "upscale_10x8_to_16x12": ((4, 10, 8, 3), 16, 12, {}),
@@ -559,3 +561,46 @@ def test_cuda_gallery_any_width(cuda, dtype, dim):
         assert (lk == lp[:, :10])[~near].all()
         np.testing.assert_allclose(sk, sp[:, :10], atol=1e-5)
     assert 11 not in lk
+
+
+def test_train_step_kernel_route_matches_plain(cuda):
+    """One training step (resnet_v1_50 face stem, bf16, CosFace over
+    1,000 classes, batch 64) through kernel 1 and through the plain
+    augment chain, from the same variables and draws: one launch, the
+    losses within 1%, every leaf's update cosine >= 0.999 (the smoke's
+    phase 11 bars)."""
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+
+    cfg = bt.config4(num_classes=1000, global_batch=64)
+    images = torch.randint(0, 256, (64, 120, 120, 3), generator=cuda,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (64,), generator=cuda, device="cuda")
+    r = bt.step_routes(cfg, images, labels)
+    assert r["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0}
+    assert r["loss_rel"] <= 0.01, r["loss"]
+    assert r["min_cos"] >= 0.999, (r["worst_leaf"], r["min_cos"])
+
+
+def test_train_step_on_the_card_launches_or_raises(cuda):
+    """--pallas_input on a CUDA batch runs kernel 1 once a step; a batch
+    the kernel cannot take (float pixels) raises, never falling back."""
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    cfg = TrainConfig(network="resnet_tiny", num_classes=10,
+                      embedding_dim=16, image_size=16, crop_from=20,
+                      global_batch=8, dtype=torch.bfloat16,
+                      pallas_input=True)
+    state, net = create_train_state(cfg, 0)
+    assert state.classifier.device.type == "cuda"
+    step = make_train_step(net, cfg, state)
+    x = torch.randint(0, 256, (8, 20, 20, 3), generator=cuda, device="cuda",
+                      dtype=torch.uint8)
+    y = torch.randint(0, 10, (8,), generator=cuda, device="cuda")
+    before = tpp.fused_preprocess.launches
+    for _ in range(2):
+        state, m = step(state, x, y)
+    assert tpp.fused_preprocess.launches == before + 2
+    assert torch.isfinite(m["loss"])
+    with pytest.raises(ValueError, match="uint8"):
+        step(state, x.float(), y)

@@ -1,0 +1,251 @@
+"""The port's training entry points on the CPU: ``cli.train``, the loop,
+the training iterators and the metric logger.
+
+The trainer's numbers are held against the JAX package in
+tests/test_torch_trainer.py; here the command line and the loop around
+it run end to end with ``--device cpu`` and ``resnet_tiny``.
+"""
+
+import inspect
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tf_face_toolbox_tpu.data.pipeline import (
+    FaceShardSource as JaxSource,
+    batch_iterator as jax_batch_iterator,
+)
+from tf_face_toolbox_tpu_torch.cli import train as cli_train
+from tf_face_toolbox_tpu_torch.data.format import pack_arrays
+from tf_face_toolbox_tpu_torch.data.pipeline import (
+    FaceShardSource,
+    batch_iterator,
+    device_prefetch,
+    host_prefetch,
+    native_batch_iterator,
+)
+from tf_face_toolbox_tpu_torch.train.loop import train_loop
+from tf_face_toolbox_tpu_torch.train.trainer import (
+    TrainConfig,
+    create_train_state,
+)
+from tf_face_toolbox_tpu_torch.utils.metrics import MetricLogger
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--device=cpu", "--network=resnet_tiny", "--embedding_dim=16",
+        "--image_size=16", "--crop_from=20", "--global_batch=8",
+        "--num_steps=4", "--log_every=2", "--nobf16"]
+
+
+@pytest.fixture(scope="module")
+def shard(tmp_path_factory):
+    """24 raw 20x20 faces of 6 identities."""
+    path = tmp_path_factory.mktemp("train_cli") / "faces.faceshard"
+    faces = np.random.default_rng(0).integers(0, 256, (24, 20, 20, 3),
+                                              dtype=np.uint8)
+    pack_arrays(str(path), faces, [i % 6 for i in range(24)])
+    return str(path)
+
+
+def test_cli_trains_on_synthetic_data_in_a_subprocess():
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train", *TINY,
+         "--data=synthetic", "--num_classes=10", "--pallas_input"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1].startswith("done: step=4 loss=")
+    # on the CPU the kernel's plain version runs: no launch
+    assert "kernel launches: preprocess=0" in lines
+    assert "step 2: loss=" in proc.stderr and "step 4: loss=" in proc.stderr
+
+
+@pytest.mark.parametrize("loader", ["native", "python"])
+def test_cli_trains_on_a_packed_shard(shard, loader, capsys):
+    cli_train.main([*TINY, f"--data={shard}", f"--loader={loader}",
+                    "--margin=arcface", "--ema_decay=0.9"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("done: step=4 loss=")
+    loss = float(out[-1].split("loss=")[1])
+    assert np.isfinite(loss)
+
+
+# every flag of the JAX CLI whose path is not ported: (argv, item)
+def _set(name, default):
+    if isinstance(default, bool):
+        return [f"--{name}"]
+    if isinstance(default, str):
+        return [f"--{name}=x"]
+    return [f"--{name}={default + (1 if isinstance(default, int) else 0.25)}"]
+
+
+_REFUSED = [(_set(name, d), item)
+            for name, (d, item) in cli_train._NOT_PORTED.items()]
+_REFUSED += [(["--data=a.faceshard,b.faceshard"], "10b/11"),
+             (["--margin=adaface"], "9"), (["--margin=magface"], "9"),
+             (["--margin=curricular"], "9"), (["--loader=native_dct"], "17"),
+             (["--optimizer=lars"], "10c"), (["--stem=space2depth"], "4")]
+
+
+@pytest.mark.parametrize("argv,item", _REFUSED,
+                         ids=[a[0].split("=")[0] for a, _ in _REFUSED])
+def test_unported_flags_raise_naming_their_item(argv, item):
+    with pytest.raises(SystemExit, match=f"item {item}"):
+        cli_train.main([*TINY, *argv])
+
+
+def test_flags_keep_the_jax_defaults():
+    from tf_face_toolbox_tpu.cli import train as jax_cli   # noqa: F401
+    from absl import flags
+
+    args = vars(cli_train.parse_args([]))
+    for name, value in args.items():
+        if name == "device":
+            continue
+        want = flags.FLAGS[name].default
+        if name == "lr_boundaries":
+            want = ",".join(want)
+        assert value == want, name
+
+
+def test_entry_points_default_to_the_card():
+    for fn in (create_train_state, train_loop):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert cli_train.parse_args([]).device == "cuda"
+
+
+def _tiny_cfg(**kw):
+    return TrainConfig(network="resnet_tiny", num_classes=6,
+                       embedding_dim=16, image_size=16, crop_from=20,
+                       global_batch=8, **kw)
+
+
+def test_loop_logs_and_counts_skips():
+    rng = np.random.default_rng(0)
+
+    def batches(nan_at):
+        i = 0
+        while True:
+            x = rng.standard_normal((8, 16, 16, 3)).astype(np.float32)
+            if nan_at(i):
+                x[0, 0, 0, 0] = np.nan
+            i += 1
+            yield {"image": x, "label": rng.integers(0, 6, 8)}
+
+    logged = []
+
+    class Logger(MetricLogger):
+        def log(self, step, scalars):
+            logged.append((step, super().log(step, scalars)))
+
+    cfg = _tiny_cfg(augment=False, skip_nonfinite=True)
+    result = train_loop(cfg, batches(lambda i: i in (1, 2)), num_steps=5,
+                        log_every=2,
+                        logger=Logger(batch_size=8), device="cpu")
+    assert result.state.step == 5
+    assert result.state.opt_state["count"] == 3
+    assert [s for s, _ in logged] == [2, 4, 5]
+    assert logged[0][1]["skipped_nonfinite_total"] == 1.0
+    assert result.last_metrics["skipped_nonfinite_total"] == 2.0
+    assert "faces_per_sec" in logged[1][1]
+    with pytest.raises(FloatingPointError, match="consecutive"):
+        train_loop(cfg, batches(lambda i: i >= 1), num_steps=5, log_every=0,
+                   max_consecutive_skips=2, device="cpu")
+
+
+def test_loop_raises_on_an_unguarded_nonfinite_loss():
+    def batches():
+        while True:
+            yield {"image": np.full((8, 16, 16, 3), np.nan, np.float32),
+                   "label": np.zeros(8, np.int64)}
+
+    with pytest.raises(FloatingPointError, match="non-finite loss"):
+        train_loop(_tiny_cfg(augment=False), batches(), num_steps=2,
+                   log_every=1, device="cpu")
+
+
+def test_loop_refuses_checkpoint_arguments():
+    for kw in (dict(train_dir="/tmp/run"), dict(eval_fn=lambda s: {}),
+               dict(keep_best="lfw_accuracy"),
+               dict(warm_start=lambda s: s), dict(teacher=(None, {}))):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            train_loop(_tiny_cfg(), iter(()), num_steps=1, device="cpu",
+                       **kw)
+
+
+def test_loop_stops_when_asked():
+    rng = np.random.default_rng(0)
+    batches = ({"image": rng.integers(0, 256, (8, 20, 20, 3), np.uint8),
+                "label": rng.integers(0, 6, 8)} for _ in range(10))
+    calls = iter([False, False, True])
+    result = train_loop(_tiny_cfg(), batches, num_steps=10, log_every=0,
+                        should_stop=lambda: next(calls), device="cpu")
+    assert result.state.step == 2 and result.last_metrics["preempted"] == 1.0
+
+
+def test_batch_iterator_matches_jax_and_resumes(shard):
+    """Same shuffled order, images and labels as the JAX iterator; a
+    resumed iterator continues the same stream (4 batches an epoch)."""
+    ours = batch_iterator(FaceShardSource(shard, seed=3), 6, num_threads=2)
+    theirs = jax_batch_iterator(JaxSource(shard, seed=3), 6, num_threads=2)
+    got = [next(ours) for _ in range(6)]
+    want = [next(theirs) for _ in range(6)]
+    for g, w in zip(got, want):
+        assert (g["epoch"], g["step"]) == (w["epoch"], w["step"])
+        np.testing.assert_array_equal(g["image"], w["image"])
+        np.testing.assert_array_equal(g["label"], w["label"])
+    resumed = batch_iterator(FaceShardSource(shard, seed=3), 6,
+                             start_epoch=1, start_step=1, num_threads=1)
+    b = next(resumed)
+    assert (b["epoch"], b["step"]) == (1, 1)
+    np.testing.assert_array_equal(b["image"], got[5]["image"])
+    with pytest.raises(ValueError, match="smaller than one batch"):
+        next(batch_iterator(FaceShardSource(shard), 100))
+
+
+def test_native_iterator_follows_the_same_order(shard):
+    nat = native_batch_iterator(FaceShardSource(shard, seed=3), 6,
+                                out_h=20, out_w=20, num_threads=2)
+    py = batch_iterator(FaceShardSource(shard, seed=3), 6, num_threads=1)
+    for _ in range(5):
+        a, b = next(nat), next(py)
+        assert (a["epoch"], a["step"]) == (b["epoch"], b["step"])
+        np.testing.assert_array_equal(a["label"], b["label"])
+        np.testing.assert_array_equal(a["image"], b["image"])
+    nat.close()
+
+
+def test_host_and_device_prefetch():
+    def gen():
+        for i in range(5):
+            yield {"image": np.full((2, 3), i, np.uint8), "step": i}
+
+    out = list(device_prefetch(host_prefetch(gen()), device="cpu"))
+    assert [o["step"] for o in out] == list(range(5))
+    assert all(isinstance(o["image"], torch.Tensor) for o in out)
+    assert out[3]["image"].tolist() == [[3] * 3] * 2
+
+    def broken():
+        yield {"image": np.zeros(1)}
+        raise RuntimeError("corrupt record")
+
+    it = host_prefetch(broken())
+    next(it)
+    with pytest.raises(RuntimeError, match="corrupt record"):
+        next(it)
+
+
+def test_metric_logger_rates():
+    log = MetricLogger(batch_size=256)
+    first = log.log(10, {"loss": 1.0})
+    assert "faces_per_sec" not in first
+    second = log.log(20, {"loss": 0.5})
+    assert second["faces_per_sec"] == pytest.approx(
+        second["steps_per_sec"] * 256)

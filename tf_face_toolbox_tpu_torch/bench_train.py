@@ -1,0 +1,242 @@
+"""Training on one card: faces/sec/GPU of margin-softmax training, and
+the step's two augment routes held against each other.
+
+    python -m tf_face_toolbox_tpu_torch.bench_train [--batch 256]
+        [--steps 20] [--warmup 5]
+
+BASELINE config 4 at full width: ``resnet_v1_50`` (face stem, 512-d,
+bf16 compute, f32 master weights), CosFace over 10,572 classes, SGD,
+synthetic uint8 faces (120 x 120, cropped to 112) through the host and
+device prefetch. ``time_training`` times ``steps`` steps with CUDA events
+after ``warmup``, then traces 5 more with torch.profiler (device time
+by kernel, idle share), and counts the step's operations from the conv
+and Dense shapes. Prints one JSON line. There is no CPU mode: a
+measurement that finds no card fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from tf_face_toolbox_tpu_torch.train.trainer import (
+    TrainConfig,
+    create_train_state,
+    make_train_step,
+)
+
+CONFIG4 = dict(network="resnet_v1_50", stem="face", embedding_dim=512,
+               num_classes=10572, image_size=112, crop_from=120,
+               global_batch=256, dtype=torch.bfloat16, pallas_input=True)
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
+# a Dense feeding a BatchNorm: its bias has no gradient in exact
+# arithmetic (the BN removes the mean), so its update is rounding noise
+NOISE_ONLY = "EmbeddingHead_0.Dense_0.bias"
+
+
+def config4(**overrides) -> TrainConfig:
+    return TrainConfig(**{**CONFIG4, **overrides})
+
+
+def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device) -> float:
+    """Operations (2 per multiply-add) of one image's forward: every conv
+    and Dense from its shapes, and the classifier GEMM."""
+    from tf_face_toolbox_tpu_torch.models.layers import ConvBN
+
+    total = [2.0 * cfg.embedding_dim * cfg.num_classes * cfg.subcenters]
+
+    def conv_hook(mod, _inp, out):
+        o, i, kh, kw = mod.weight.shape
+        total.append(2.0 * out.shape[1] * out.shape[2] * o * i * kh * kw)
+
+    def dense_hook(mod, _inp, _out):
+        total.append(2.0 * mod.in_features * mod.out_features)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in net.modules()
+             if isinstance(m, ConvBN)]
+    hooks += [m.register_forward_hook(dense_hook) for m in net.modules()
+              if isinstance(m, torch.nn.Linear)]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1, cfg.image_size, cfg.image_size, 3),
+                            device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def _kind(name: str) -> str:
+    n = name.lower()
+    if "preprocess" in n:
+        return "kernel 1 (preprocess)"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                            "implicit")):
+        return "convs (cuDNN)"
+    if any(k in n for k in ("gemm", "cutlass", "cublas", "sm90_xmma")):
+        return "GEMMs"
+    if "reduce" in n or "norm" in n:
+        return "reductions"
+    if any(k in n for k in ("elementwise", "vectorized", "unrolled",
+                            "copy", "fill", "where", "foreach")):
+        return "elementwise"
+    return "other"
+
+
+def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
+                  profile_steps: int = 5, seed: int = 0,
+                  device="cuda") -> dict:
+    """ms/step and faces/sec (CUDA events over ``steps`` after
+    ``warmup``), peak memory, and device time by kernel and the idle
+    share over ``profile_steps`` traced steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tf_face_toolbox_tpu_torch.cli.train import synthetic_batches
+    from tf_face_toolbox_tpu_torch.data.pipeline import (
+        device_prefetch, host_prefetch)
+
+    state, net = create_train_state(cfg, seed, device=device)
+    step_fn = make_train_step(net, cfg, state)
+    batches = device_prefetch(host_prefetch(synthetic_batches(cfg, seed)),
+                              device=device)
+
+    def run(n):
+        nonlocal state
+        metrics = None
+        for _ in range(n):
+            b = next(batches)
+            state, metrics = step_fn(state, b["image"], b["label"])
+        return metrics
+
+    t0 = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run(warmup - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = run(steps)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / steps
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(profile_steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / profile_steps
+    by_kind: dict[str, float] = {}
+    top = []
+    for e in prof.key_averages():
+        # device kernels only: an aten op's own device time is its
+        # kernels', which are listed too
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        us = e.self_device_time_total
+        top.append((us / 1e3 / profile_steps, e.key))
+        kind = _kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / profile_steps
+    device_ms = sum(by_kind.values())
+    flops = 3 * forward_flops(net, cfg, device) * cfg.global_batch
+    return {"batch": cfg.global_batch, "steps": steps, "warmup": warmup,
+            "pallas_input": cfg.pallas_input, "ms_per_step": ms,
+            "faces_per_sec": cfg.global_batch / ms * 1e3,
+            "first_step_s": first_s, "loss": loss,
+            "peak_memory_gb": peak / 1e9,
+            "profiled_wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "device_ms_by_kind": by_kind,
+            "top_kernels_ms": sorted(top, reverse=True)[:12],
+            "step_tflop": flops / 1e12,
+            "peak_share": flops / (ms / 1e3) / PEAK_BF16}
+
+
+def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
+                *, seed: int = 0, device="cuda") -> dict:
+    """One step from the same variables (``seed``) and generator state
+    through the kernel route (``pallas_input``) and the plain augment
+    chain, and the plain route once more: the losses, and each leaf's
+    update (new - old) cosine between the kernel and the plain route
+    (and between the two plain runs: the comparison's noise floor), in
+    float64. Leaves no gradient reaches stay put in both (counted, not
+    compared), as does ``NOISE_ONLY``'s noise. cuDNN runs its
+    deterministic algorithms meanwhile, so that only the routes differ.
+    """
+    from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
+        fused_preprocess)
+
+    updates, losses, launches = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route, pallas in (("kernel", True), ("plain", False),
+                              ("plain_again", False)):
+            c = dataclasses.replace(cfg, pallas_input=pallas)
+            state, net = create_train_state(c, seed, device=device)
+            leaves = {**state.params, "classifier": state.classifier}
+            before = {k: p.detach().clone() for k, p in leaves.items()}
+            step_fn = make_train_step(net, c, state)
+            n0 = fused_preprocess.launches
+            state, m = step_fn(state, images, labels)
+            torch.cuda.synchronize(device)
+            launches[route] = fused_preprocess.launches - n0
+            losses[route] = float(m["loss"])
+            updates[route] = {k: (p.detach() - before[k]).double().ravel()
+                              for k, p in leaves.items()}
+            del state, net, step_fn, before
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def cosines(a_route, b_route):
+        cos, zero = {}, 0
+        for k, a in updates[a_route].items():
+            b = updates[b_route][k]
+            if k == NOISE_ONLY:
+                continue
+            if not a.any() and not b.any():
+                zero += 1
+                continue
+            cos[k] = float(a @ b / (a.norm() * b.norm()))
+        return cos, zero
+
+    cos, zero = cosines("kernel", "plain")
+    again, _ = cosines("plain_again", "plain")
+    worst = min(cos, key=cos.get)
+    return {"loss": losses, "loss_rel": abs(losses["kernel"] - losses["plain"])
+            / abs(losses["plain"]), "min_cos": cos[worst],
+            "worst_leaf": worst, "compared_leaves": len(cos),
+            "unmoved_leaves": zero, "repeat_min_cos": min(again.values()),
+            "launches": launches}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--warmup", type=int, default=5)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_train: torch sees no CUDA device")
+    from tf_face_toolbox_tpu_torch.bench import gpu_info
+
+    cfg = config4(global_batch=args.batch)
+    r = time_training(cfg, steps=args.steps, warmup=args.warmup)
+    r["gpu"] = gpu_info()
+    print(json.dumps(r), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,24 @@
-"""Host-side input for extraction: record source, resize, decode pool.
+"""Host-side input: record source, resize, decode pool, the training
+iterators, and prefetch to the host and the device.
 
-The part of ``tf_face_toolbox_tpu/data/pipeline.py`` that extraction
-uses. Everything here runs on the host in numpy; the training
-iterators and the device prefetch come with the training slice.
+Counterpart of ``tf_face_toolbox_tpu/data/pipeline.py``: an epoch is a
+seeded permutation of record ids (exact resume from (epoch, step)),
+decode runs on host threads or in the native C++ loader, and
+augmentation is left to the train step on the device. The weighted
+shard mixture and the balanced P x K sampler are not ported yet
+(ROADMAP.md §1 items 10b/11 and 9).
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import queue
 import threading
+from typing import Iterator
 
 import numpy as np
+import torch
 
 from tf_face_toolbox_tpu_torch.data.format import (
     PAYLOAD_RAW,
@@ -122,3 +129,169 @@ class _DecodePool:
     def close(self):
         for _ in self._threads:
             self._in.put(None)
+
+
+def batch_iterator(source: FaceShardSource, batch_size: int, *,
+                   start_epoch: int = 0, start_step: int = 0,
+                   num_threads: int = 4,
+                   resize_to: tuple[int, int] | None = None
+                   ) -> Iterator[dict]:
+    """Infinite (epoch-cycling) iterator of {'image', 'label', 'epoch',
+    'step'} numpy batches; a partial last batch of an epoch is dropped.
+
+    Resume: pass the (epoch, step within the epoch) to continue where a
+    run left off. ``resize_to=(h, w)``: resize decodes to one geometry
+    (needed for mixed-size JPEG shards; the native loader's pixels).
+    """
+    steps_per_epoch = source.num_records // batch_size
+    if steps_per_epoch == 0:
+        raise ValueError(
+            f"dataset has {source.num_records} records (per host) — "
+            f"smaller than one batch of {batch_size}")
+    epoch, step = start_epoch, start_step
+    transform = ((lambda im: _resize_u8(im, *resize_to))
+                 if resize_to is not None else None)
+    pool = _DecodePool(source, num_threads) if num_threads > 1 else None
+    try:
+        while True:
+            order = source.epoch_order(epoch)
+            while step < steps_per_epoch:
+                ids = order[step * batch_size:(step + 1) * batch_size]
+                if pool is not None:
+                    records = pool.decode(ids, transform)
+                else:
+                    records = [source.record(int(i)) for i in ids]
+                    if transform is not None:
+                        records = [(transform(img), lab)
+                                   for img, lab in records]
+                yield {"image": np.stack([r[0] for r in records]),
+                       "label": np.asarray([r[1] for r in records],
+                                           np.int32),
+                       "epoch": epoch, "step": step}
+                step += 1
+            epoch, step = epoch + 1, 0
+    finally:
+        if pool is not None:
+            pool.close()
+
+
+def _native_epoch_batches(source: FaceShardSource, batch_size: int, *,
+                          start_epoch: int, start_step: int,
+                          num_threads: int, fetch) -> Iterator[dict]:
+    """The native-loader iterators' epoch, ordering and resume loop (the
+    same as ``batch_iterator``'s); ``fetch(reader, ids)`` makes the
+    batch's images. Pages in the next batch's records while this one
+    decodes."""
+    from tf_face_toolbox_tpu_torch.data.native import NativeShardReader
+
+    reader = NativeShardReader(source.index.path, num_threads=num_threads)
+    steps_per_epoch = source.num_records // batch_size
+    if steps_per_epoch == 0:
+        reader.close()
+        raise ValueError(
+            f"dataset has {source.num_records} records (per host) — "
+            f"smaller than one batch of {batch_size}")
+    epoch, step = start_epoch, start_step
+    try:
+        while True:
+            order = source.epoch_order(epoch)
+            while step < steps_per_epoch:
+                ids = order[step * batch_size:(step + 1) * batch_size]
+                if step + 1 < steps_per_epoch:
+                    reader.prefetch(order[(step + 1) * batch_size:
+                                          (step + 2) * batch_size])
+                yield {"image": fetch(reader, ids),
+                       "label": reader.labels[ids],
+                       "epoch": epoch, "step": step}
+                step += 1
+            epoch, step = epoch + 1, 0
+    finally:
+        reader.close()
+
+
+def native_batch_iterator(source: FaceShardSource, batch_size: int, *,
+                          out_h: int, out_w: int,
+                          start_epoch: int = 0, start_step: int = 0,
+                          num_threads: int = 4) -> Iterator[dict]:
+    """``batch_iterator`` with decode and resize in the native C++
+    loader: the same ordering, labels and resume; images are (batch,
+    out_h, out_w, 3) uint8."""
+    return _native_epoch_batches(
+        source, batch_size, start_epoch=start_epoch,
+        start_step=start_step, num_threads=num_threads,
+        fetch=lambda reader, ids: reader.decode_batch(ids, out_h, out_w))
+
+
+def host_prefetch(it: Iterator[dict], *, depth: int = 2) -> Iterator[dict]:
+    """Run ``it`` (decode and batch) in a background thread, keeping
+    ``depth`` batches ready. Exceptions reach the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+
+    def producer():
+        try:
+            for item in it:
+                q.put(item)
+        except Exception as e:  # noqa: BLE001 — reraised below
+            q.put(e)
+            return
+        q.put(end)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, Exception):
+            raise item
+        yield item
+
+
+def device_prefetch(it: Iterator[dict], *, depth: int = 2,
+                    device="cuda") -> Iterator[dict]:
+    """Keep ``depth`` batches on ``device`` ahead of the consumer.
+
+    On a CUDA device each batch's arrays go through pinned memory and
+    are copied on a side stream; the consumer's stream waits on the
+    copy's event before the batch is yielded. Elsewhere the arrays
+    become tensors on ``device``.
+    """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+    buf: collections.deque = collections.deque()
+
+    def put(item):
+        out = {}
+        for k, v in item.items():
+            if isinstance(v, np.ndarray):
+                t = torch.from_numpy(v)
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        t = t.pin_memory().to(device, non_blocking=True)
+                else:
+                    t = t.to(device)
+                v = t
+            out[k] = v
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def ready(entry):
+        out, event = entry
+        if event is not None:
+            main = torch.cuda.current_stream(device)
+            main.wait_event(event)
+            for v in out.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(main)
+        return out
+
+    for item in it:
+        buf.append(put(item))
+        if len(buf) >= depth:
+            yield ready(buf.popleft())
+    while buf:
+        yield ready(buf.popleft())

@@ -1,8 +1,10 @@
-"""Network factory: name -> backbone module, and seeded random weights.
+"""Network factory: name -> backbone module, seeded random weights, and
+a fresh training init.
 
     net = create_network("resnet_v1_50", dtype=torch.bfloat16)
     load_jax_variables(net, random_variables(net, seed=0))
     embeddings = net(images)                       # (N, 512) float32
+    init_parameters(net, seed=0)                   # before training
 
 Only the ResNet entries of the JAX registry are ported; the others
 raise NotImplementedError naming the ROADMAP.md item.
@@ -10,6 +12,7 @@ raise NotImplementedError naming the ROADMAP.md item.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -60,12 +63,12 @@ def random_variables(net: torch.nn.Module, seed: int = 0
     branches are small against the identity; with unit scales the
     random net's activations grow block by block.
     """
-    from tf_face_toolbox_tpu_torch.interop.port import jax_leaves, jax_shape
+    from tf_face_toolbox_tpu_torch.interop import port
 
     rng = np.random.default_rng(seed)
     flat = {}
-    for key, tensor, kind in jax_leaves(net):
-        shape = jax_shape(tensor, kind)
+    for key, tensor, kind in port.jax_leaves(net):
+        shape = port.jax_shape(tensor, kind)
         leaf = key.rsplit("/", 1)[1]
         if kind in ("conv", "dense"):
             fan_in = int(np.prod(shape[:-1]))
@@ -83,3 +86,53 @@ def random_variables(net: torch.nn.Module, seed: int = 0
             v = rng.normal(0.0, 0.1, shape)
         flat[key] = v.astype(np.float32)
     return flat
+
+
+def _truncated_normal(shape, std: float, generator: torch.Generator
+                      ) -> torch.Tensor:
+    """N(0, std^2) truncated to two standard deviations, by the inverse
+    CDF (jax.random.truncated_normal's support, times std)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    t = torch.empty(shape).uniform_(2 * lo - 1, 1 - 2 * lo,
+                                    generator=generator)
+    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
+def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Fresh training init, in place, with the JAX package's initialisers
+    (``tf_face_toolbox_tpu/models/layers.py:31-32``):
+
+    - conv kernels: variance_scaling(2.0, "fan_out", truncated normal),
+      fan_out = kh * kw * out;
+    - Dense kernels: variance_scaling(1.0, "fan_in", truncated normal);
+      Dense biases 0;
+    - BatchNorm: scale 1 (0 for each residual branch's last BN, so a
+      block starts as the identity), bias 0, running mean 0, var 1.
+
+    flax's truncated normal divides the standard deviation by
+    0.87962566 (the std of N(0, 1) truncated to +-2), so the kernels
+    keep the variance scale / fan. Draws come from a CPU generator
+    seeded with ``seed`` (not JAX's stream).
+    """
+    from tf_face_toolbox_tpu_torch.interop import port
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for key, tensor, kind in port.jax_leaves(net):
+            leaf = key.rsplit("/", 1)[1]
+            if kind == "conv":
+                o, _, kh, kw = tensor.shape
+                std = math.sqrt(2.0 / (kh * kw * o)) / 0.87962566103423978
+                v = _truncated_normal(tensor.shape, std, g)
+            elif kind == "dense":
+                std = math.sqrt(1.0 / tensor.shape[1]) / 0.87962566103423978
+                v = _truncated_normal(tensor.shape, std, g)
+            elif leaf == "scale":
+                v = torch.full(tensor.shape,
+                               0.0 if "/ConvBN_2/" in key else 1.0)
+            elif leaf == "var":
+                v = torch.ones(tensor.shape)
+            else:               # BN and Dense biases, running means
+                v = torch.zeros(tensor.shape)
+            tensor.copy_(v)
+    return net

@@ -1,4 +1,4 @@
-"""Shared layers, fp eval: ConvBN, BatchNorm, EmbeddingHead, l2_normalize.
+"""Shared layers: ConvBN, BatchNorm, EmbeddingHead, l2_normalize.
 
 Counterpart of ``tf_face_toolbox_tpu/models/layers.py``. Activations
 are NHWC, as in the JAX package, and stay physically NHWC: a conv runs
@@ -11,6 +11,12 @@ auto-names (``ConvBN_0``, ``BatchNorm_0``, ``Dense_0``) so the JAX
 ``dtype`` is the compute dtype; parameters and BN statistics stay f32.
 BatchNorm runs in f32 on the (possibly bf16) conv output and rounds to
 the compute dtype after, as flax's BatchNorm does.
+
+A forward given ``train=TrainContext(...)`` runs in train mode: BatchNorm
+normalizes with the batch's statistics and puts its updated running
+statistics into the context (the module's buffers stay as they were;
+the train step decides whether to keep them), and the flatten head's
+dropout draws from the context's generator. Without one it is eval.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+MOMENTUM = 0.9             # flax's convention: the running stats' weight
 
 
 def same_pad(h: int, w: int, k: int, s: int) -> tuple[int, int, int, int]:
@@ -61,8 +68,61 @@ def max_pool_same_nhwc(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+class TrainContext:
+    """What a train-mode forward threads through the modules.
+
+    ``stats``: BatchNorm module -> its updated (running_mean,
+    running_var), filled by the forward. A module already in it starts
+    from those values, not its buffers, so micro-batches that share one
+    context advance the statistics one after another.
+    ``generator``: what dropout draws from.
+    """
+
+    def __init__(self, generator: torch.Generator | None = None):
+        self.stats: dict[nn.Module, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.generator = generator
+
+
+class _TrainNorm(torch.autograd.Function):
+    """flax's train-mode normalization over every axis but the last.
+
+    Statistics in f32 over N*H*W: the mean and the biased variance in
+    flax's fast form, max(0, E[x^2] - E[x]^2). The output is (x - mean)
+    * (rsqrt(var + eps) * scale) + bias, rounded to ``out_dtype``.
+    Saves only the input and the per-channel statistics: backward
+    recomputes the normalized values (the f32 intermediates of a
+    bf16 net would otherwise stay alive until backward).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, out_dtype):
+        dims = tuple(range(x.ndim - 1))
+        xf = x.to(torch.float32)
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + BN_EPS)
+        y = (xf - mean) * (invstd * weight) + bias
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_y, _grad_mean, _grad_var):
+        x, mean, invstd, weight = ctx.saved_tensors
+        dims = tuple(range(x.ndim - 1))
+        n = x.numel() // x.shape[-1]
+        g = grad_y.to(torch.float32)
+        xhat = (x.to(torch.float32) - mean) * invstd
+        grad_bias = g.sum(dims)
+        grad_weight = (g * xhat).sum(dims)
+        grad_x = (weight * invstd / n) * (n * g - grad_bias
+                                          - xhat * grad_weight)
+        return grad_x.to(x.dtype), grad_weight, grad_bias, None
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis (flax ``nn.BatchNorm``)."""
+    """BatchNorm over the last axis (flax ``nn.BatchNorm``, momentum 0.9:
+    running = 0.9 * running + 0.1 * batch, with the biased variance)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -71,7 +131,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype,
+                train: TrainContext | None = None) -> torch.Tensor:
+        if train is not None:
+            y, mean, var = _TrainNorm.apply(x, self.weight, self.bias,
+                                            out_dtype)
+            old_mean, old_var = train.stats.get(
+                self, (self.running_mean, self.running_var))
+            train.stats[self] = (MOMENTUM * old_mean + (1 - MOMENTUM) * mean,
+                               MOMENTUM * old_var + (1 - MOMENTUM) * var)
+            return y
         # flax order: (x - mean) * (rsqrt(var + eps) * scale) + bias, in f32
         mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
         y = (x.to(torch.float32) - self.running_mean) * mul + self.bias
@@ -94,10 +163,11 @@ class ConvBN(nn.Module):
             * math.sqrt(2.0 / fan_in))
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                train: TrainContext | None = None) -> torch.Tensor:
         y = conv2d_same_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
                              self.strides)
-        y = self.BatchNorm_0(y, self.dtype)
+        y = self.BatchNorm_0(y, self.dtype, train)
         return torch.relu(y) if self.relu else y
 
 
@@ -105,16 +175,19 @@ class EmbeddingHead(nn.Module):
     """pool/flatten -> Dense(dim) -> BN, f32 output (flax EmbeddingHead).
 
     ``gap``: global average pool -> Dense -> BN.
-    ``flatten``: BN -> flatten (NHWC order) -> Dense -> BN; needs the
-    final map's ``spatial`` (h, w) to size the Dense.
+    ``flatten``: BN -> dropout (train mode) -> flatten (NHWC order) ->
+    Dense -> BN; needs the final map's ``spatial`` (h, w) to size the
+    Dense.
     """
 
     def __init__(self, in_features: int, embedding_dim: int = 512,
                  variant: str = "gap", spatial: tuple[int, int] = (1, 1),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.variant = variant
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         if variant == "gap":
             dense_in = in_features
             self.BatchNorm_0 = BatchNorm(embedding_dim)
@@ -126,18 +199,32 @@ class EmbeddingHead(nn.Module):
             raise ValueError(f"unknown head variant: {variant}")
         self.Dense_0 = nn.Linear(dense_in, embedding_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                train: TrainContext | None = None) -> torch.Tensor:
         if self.variant == "gap":
             # jnp.mean of a bf16 map sums in f32 and returns bf16
             x = x.to(torch.float32).mean(dim=(1, 2)).to(self.dtype)
             final_bn = self.BatchNorm_0
         else:
-            x = self.BatchNorm_0(x, self.dtype).reshape(x.shape[0], -1)
+            x = self.BatchNorm_0(x, self.dtype, train)
+            if train is not None and self.dropout_rate > 0:
+                x = dropout(x, self.dropout_rate, train.generator)
+            x = x.reshape(x.shape[0], -1)
             final_bn = self.BatchNorm_1
         x = F.linear(x.to(self.dtype), self.Dense_0.weight.to(self.dtype),
                      self.Dense_0.bias.to(self.dtype))
         # final BN and the embedding are f32 under any compute dtype
-        return final_bn(x, torch.float32)
+        return final_bn(x, torch.float32, train)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and divide the
+    kept values by it; the mask comes from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -1,8 +1,10 @@
-"""ResNet backbones (fp eval): bottleneck blocks, face and imagenet stems.
+"""ResNet backbones: bottleneck blocks, face and imagenet stems.
 
 Counterpart of ``tf_face_toolbox_tpu/models/resnet.py`` for groups=1,
 no squeeze-excite, no quantization and no remat. Anything else raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+NotImplementedError naming the ROADMAP.md item that ports it. Eval by
+default; ``net(images, train=TrainContext(...))`` runs train mode
+(models/layers.py).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 from tf_face_toolbox_tpu_torch.models.layers import (
     ConvBN,
     EmbeddingHead,
+    TrainContext,
     max_pool_same_nhwc,
 )
 
@@ -35,9 +38,12 @@ class BottleneckBlock(nn.Module):
             self.ConvBN_3 = ConvBN(in_features, out_features, 1, strides,
                                    relu=False, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x)))
-        residual = self.ConvBN_3(x) if hasattr(self, "ConvBN_3") else x
+    def forward(self, x: torch.Tensor,
+                train: TrainContext | None = None) -> torch.Tensor:
+        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x, train), train),
+                          train)
+        residual = (self.ConvBN_3(x, train) if hasattr(self, "ConvBN_3")
+                    else x)
         return torch.relu(residual + y)
 
 
@@ -78,7 +84,7 @@ class ResNet(nn.Module):
         if quantized:
             _unsupported("int8 serving", "18")
         if remat:
-            _unsupported("remat (training)", "10")
+            _unsupported("remat (training)", "10b")
         if stem in ("space2depth", "dct"):
             _unsupported(f"the {stem} stem", "4" if stem == "space2depth"
                          else "17")
@@ -88,7 +94,6 @@ class ResNet(nn.Module):
         self.stem = stem
         self.head_variant = head_variant
         self.dtype = dtype
-        self.dropout_rate = dropout_rate   # train-time only; eval ignores it
 
         size = input_size
         if stem == "face":
@@ -114,17 +119,18 @@ class ResNet(nn.Module):
         self.num_blocks = counter
         self.EmbeddingHead_0 = EmbeddingHead(
             channels, embedding_dim, head_variant, spatial=(size, size),
-            dtype=dtype)
+            dtype=dtype, dropout_rate=dropout_rate)
 
     def blocks(self) -> list[BottleneckBlock]:
         return [getattr(self, f"BottleneckBlock_{i}")
                 for i in range(self.num_blocks)]
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                train: TrainContext | None = None) -> torch.Tensor:
         """images: (N, H, W, 3) standardized pixels -> (N, D) f32."""
-        x = self.ConvBN_0(images.to(self.dtype))
+        x = self.ConvBN_0(images.to(self.dtype), train)
         if self.stem == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
         for block in self.blocks():
-            x = block(x)
-        return self.EmbeddingHead_0(x)
+            x = block(x, train)
+        return self.EmbeddingHead_0(x, train)

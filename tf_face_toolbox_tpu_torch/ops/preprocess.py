@@ -1,15 +1,22 @@
-"""Eval preprocessing: crop, resize, flip and tf.image standardization.
+"""Preprocessing: crop, resize, flip, tf.image standardization, and the
+train-time random ops.
 
-The fp eval half of ``tf_face_toolbox_tpu/ops/preprocess.py``. Images
-are NHWC at every function, as in the JAX package. Resize is the same
-pair of dense half-pixel bilinear matrices (``_bilinear_matrix``), so
-the two packages sample identically. The train-time random ops come
-with the training slice.
+Counterpart of ``tf_face_toolbox_tpu/ops/preprocess.py``. Images are
+NHWC at every function, as in the JAX package. Resize is the same pair
+of dense half-pixel bilinear matrices (``_bilinear_matrix``), so the
+two packages sample identically.
+
+The random ops draw from an explicit ``torch.Generator`` on the
+generator's device and move what they drew to the images' device. The
+JAX package draws from threefry keys, a stream the port does not
+reproduce: the parity tests inject the draws (``crop_at`` offsets,
+``apply_flip_mask`` masks, ``erase_with``'s values).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -48,6 +55,20 @@ def standardize(images: torch.Tensor, norm: str = "per_image"
 def flip_left_right(images: torch.Tensor) -> torch.Tensor:
     """Deterministic horizontal flip (width axis of NHWC)."""
     return images.flip(2)
+
+
+def random_flip_mask(generator: torch.Generator, n: int) -> torch.Tensor:
+    """(n,) bool, each True with probability 0.5, on the generator's
+    device."""
+    return torch.rand(n, generator=generator,
+                      device=generator.device) < 0.5
+
+
+def random_flip_left_right(generator: torch.Generator, images: torch.Tensor
+                           ) -> torch.Tensor:
+    """Per-image Bernoulli(0.5) horizontal flip (tf.image semantics)."""
+    return apply_flip_mask(images, random_flip_mask(generator,
+                                                    images.shape[0]))
 
 
 def apply_flip_mask(images: torch.Tensor, mask: torch.Tensor
@@ -122,6 +143,85 @@ def center_offsets(batch: int, in_h: int, in_w: int,
                    crop_h: int, crop_w: int) -> np.ndarray:
     off = np.array([(in_h - crop_h) // 2, (in_w - crop_w) // 2], np.int32)
     return np.broadcast_to(off, (batch, 2))
+
+
+def random_offsets(generator: torch.Generator, batch: int, in_h: int,
+                   in_w: int, crop_h: int, crop_w: int) -> torch.Tensor:
+    """(batch, 2) int32 crop offsets (y, x), uniform over the positions
+    that keep the window inside, on the generator's device."""
+    dev = generator.device
+    ys = torch.randint(0, in_h - crop_h + 1, (batch,), generator=generator,
+                       device=dev)
+    xs = torch.randint(0, in_w - crop_w + 1, (batch,), generator=generator,
+                       device=dev)
+    return torch.stack([ys, xs], dim=-1).to(torch.int32)
+
+
+def preprocess_train(generator: torch.Generator, images_u8: torch.Tensor,
+                     crop_h: int, crop_w: int, norm: str = "per_image"
+                     ) -> torch.Tensor:
+    """Training chain: random crop -> random flip -> standardize, f32.
+
+    Offsets and the flip mask come from ``generator`` in that order (a
+    CPU generator keeps the crop free of a device sync).
+    """
+    n, h, w, _ = images_u8.shape
+    offs = random_offsets(generator, n, h, w, crop_h, crop_w)
+    x = crop_at(images_u8, offs, crop_h, crop_w).to(torch.float32)
+    x = random_flip_left_right(generator, x)
+    return standardize(x, norm)
+
+
+def erase_with(images: torch.Tensor, active: torch.Tensor,
+               frac: torch.Tensor, log_aspect: torch.Tensor,
+               u_top: torch.Tensor, u_left: torch.Tensor,
+               fill: torch.Tensor) -> torch.Tensor:
+    """Random erasing given its draws (the deterministic part of
+    ``random_erase``): image i, where ``active[i]``, gets a rectangle of
+    area ``frac[i]`` * H * W and aspect exp(``log_aspect[i]``), at
+    floor(u * (free rows + 1)) / floor(u * (free columns + 1)), filled
+    from ``fill`` (the images' shape)."""
+    n, h, w, _ = images.shape
+    dev = images.device
+    a = torch.exp(log_aspect)
+    target = frac * h * w
+    eh = torch.clamp(torch.round(torch.sqrt(target * a)), 1, h)
+    ew = torch.clamp(torch.round(torch.sqrt(target / a)), 1, w)
+    top = torch.floor(u_top * (h - eh + 1))
+    left = torch.floor(u_left * (w - ew + 1))
+    rows = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, h, 1, 1)
+    cols = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, w, 1)
+
+    def col(v):
+        return v.to(dev).reshape(n, 1, 1, 1)
+
+    mask = ((rows >= col(top)) & (rows < col(top + eh))
+            & (cols >= col(left)) & (cols < col(left + ew))
+            & col(active).to(torch.bool))
+    return torch.where(mask, fill.to(device=dev, dtype=images.dtype), images)
+
+
+def random_erase(generator: torch.Generator, images: torch.Tensor,
+                 prob: float = 0.5, area: tuple[float, float] = (0.02, 0.33),
+                 aspect: float = 0.3) -> torch.Tensor:
+    """Random erasing (Zhong et al., AAAI 2020), RE-R: with probability
+    ``prob`` an image gets a rectangle of area fraction ~U(area) and
+    aspect ratio ~exp(U(log a, -log a)) filled with unit gaussian noise.
+    Applied after standardization. Draws (and the fill) come from
+    ``generator``; ``erase_with`` does the rest."""
+    n = images.shape[0]
+    dev = generator.device
+
+    def uniform(lo, hi):
+        return torch.rand(n, generator=generator, device=dev) * (hi - lo) + lo
+
+    active = torch.rand(n, generator=generator, device=dev) < prob
+    frac = uniform(area[0], area[1])
+    log_a = uniform(math.log(aspect), -math.log(aspect))
+    u_top = uniform(0.0, 1.0)
+    u_left = uniform(0.0, 1.0)
+    fill = torch.randn(images.shape, generator=generator, device=dev)
+    return erase_with(images, active, frac, log_a, u_top, u_left, fill)
 
 
 def preprocess_eval(images_u8: torch.Tensor, crop_h: int, crop_w: int,

@@ -1,0 +1,355 @@
+"""Train step on one device: augment, forward, margin loss, SGD.
+
+Counterpart of ``tf_face_toolbox_tpu/train/trainer.py`` at one device
+(a data and model mesh of 1 x 1, where its ``sharded_margin_softmax_
+loss`` is ``margin_softmax_loss``). A step:
+
+1. augments the uint8 batch (random crop, flip, per-image
+   standardization; with ``pallas_input``, the crop then the fused
+   input kernel, ``ops/fused_preprocess.py``), optional random erase;
+2. forwards in ``cfg.dtype`` in train mode (batch statistics; the
+   updated running statistics come back in a ``TrainContext``);
+3. takes the margin-softmax loss of the f32 embeddings against the f32
+   classifier, and backward;
+4. then, in order: the global gradient norm over params and classifier,
+   ``grad_clip_norm``, SGD (weight decay on conv and Dense kernels and
+   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, and
+   ``skip_nonfinite`` (where nothing but ``step`` changes).
+
+``accum_steps`` splits the batch into micro-batches whose forwards
+advance the BN statistics one after another; their gradients are summed
+and divided by the count. Augmentation and dropout draw from generators
+seeded from (state.rng, step, stream), not JAX's threefry stream.
+
+DDP, remat and the Partial-FC head (items 10b and 11), the adaptive
+margins (item 9), other optimizers and distillation (item 10c), and
+quantization-aware training (item 18) are not ported yet: their fields
+raise naming the item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from tf_face_toolbox_tpu_torch.models import create_network, init_parameters
+from tf_face_toolbox_tpu_torch.models.layers import BatchNorm, TrainContext
+from tf_face_toolbox_tpu_torch.ops import preprocess as pp
+from tf_face_toolbox_tpu_torch.ops.losses import (
+    MarginConfig,
+    init_classifier_weights,
+    margin_softmax_loss,
+)
+from tf_face_toolbox_tpu_torch.train.schedule import cosine, staircase
+from tf_face_toolbox_tpu_torch.train.state import TrainState
+
+# generator streams of a step (the JAX trainer's fold_in tags)
+_AUGMENT, _ERASE, _DROPOUT = 0, 0xE5A5E, 0x0D12
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
+                              f"item {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """All training hyperparameters: the JAX ``TrainConfig``'s fields and
+    defaults, with ``dtype`` a torch dtype. Fields of paths not ported
+    yet raise at construction, naming the ROADMAP.md item."""
+    network: str = "resnet_v1_50"
+    stem: str = "face"          # "face" | "imagenet"
+    head_variant: str = "gap"
+    dropout_rate: float = 0.0   # flatten head, train mode only
+    drop_path_rate: float = 0.0     # ViT family (item 17)
+    embedding_dim: int = 512
+    num_classes: int = 10572          # CASIA-WebFace identity count
+    image_size: int = 112
+    global_batch: int = 256
+    optimizer: str = "sgd"            # adam/adamw/lars: item 10c
+    base_lr: float = 0.1
+    lr_schedule: str = "staircase"    # or "cosine" (needs lr_total_steps)
+    lr_boundaries: tuple[int, ...] = (100_000, 160_000, 220_000)
+    lr_decay: float = 0.1
+    lr_total_steps: int = 0
+    warmup_steps: int = 0
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    grad_clip_norm: float = 0.0       # global L2 norm before SGD; 0 = off
+    margin_scale: float = 64.0
+    margin_m1: float = 1.0
+    margin_m2: float = 0.0
+    margin_m3: float = 0.35           # CosFace default
+    margin_mode: str = "fixed"        # magface/adaface/curricular: item 9
+    magface: Any = None               # MagFaceConfig (item 9)
+    adaface: Any = None               # AdaFaceConfig (item 9)
+    subcenters: int = 1
+    center_weight: float = 0.0        # item 9
+    center_alpha: float = 0.5
+    triplet_weight: float = 0.0       # item 9
+    triplet_margin: float = 0.3
+    pfc_sample_rate: float = 1.0      # sampled Partial-FC: item 11
+    dtype: Any = torch.float32        # torch.bfloat16 on the card
+    augment: bool = True              # crop/flip/standardize a u8 batch
+    crop_from: int = 120              # source size when augmenting
+    random_erase: float = 0.0         # per-image probability; 0 = off
+    accum_steps: int = 1
+    skip_nonfinite: bool = False
+    input_norm: str = "per_image"     # or "fixed": (x - 127.5) / 127.5
+    ema_decay: float = 0.0            # 0 = off
+    pallas_input: bool = False        # augment through the fused kernel
+    quantized: Any = False            # "qat": item 18
+    distill_alpha: float = 1.0        # with a teacher (item 10c)
+
+    def __post_init__(self):
+        if self.optimizer != "sgd":
+            if self.optimizer not in ("adam", "adamw", "lars"):
+                raise ValueError(f"unknown optimizer '{self.optimizer}'; "
+                                 "have sgd|adam|adamw|lars")
+            _not_ported(f"optimizer={self.optimizer!r}", "10c")
+        if self.pfc_sample_rate < 1.0:
+            _not_ported("sampled Partial-FC (pfc_sample_rate < 1)", "11")
+        if self.margin_mode != "fixed":
+            if self.margin_mode not in ("magface", "adaface", "curricular"):
+                raise ValueError(f"unknown margin_mode '{self.margin_mode}';"
+                                 " have fixed|magface|adaface|curricular")
+            _not_ported(f"margin_mode={self.margin_mode!r}", "9")
+        if self.center_weight > 0 or self.triplet_weight > 0:
+            _not_ported("center and triplet losses", "9")
+        if self.quantized:
+            _not_ported("quantization-aware training", "18")
+        if self.drop_path_rate > 0:
+            _not_ported("drop_path_rate (the ViT family)", "17")
+        if self.stem == "space2depth":
+            _not_ported("the space2depth stem", "4")
+        if self.stem == "dct" or self.network.startswith("dct_"):
+            _not_ported("DCT input", "17")
+        if self.subcenters < 1:
+            raise ValueError(f"subcenters must be >= 1 (got "
+                             f"{self.subcenters})")
+
+    @property
+    def margin(self) -> MarginConfig:
+        return MarginConfig(scale=self.margin_scale, m1=self.margin_m1,
+                            m2=self.margin_m2, m3=self.margin_m3)
+
+
+def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    if cfg.lr_schedule == "cosine":
+        return cosine(cfg.base_lr, cfg.lr_total_steps, cfg.warmup_steps)
+    if cfg.lr_schedule == "staircase":
+        return staircase(cfg.base_lr, cfg.lr_boundaries, cfg.lr_decay,
+                         cfg.warmup_steps)
+    raise ValueError(f"unknown lr_schedule '{cfg.lr_schedule}'; "
+                     "have staircase|cosine")
+
+
+def make_optimizer(cfg: TrainConfig, net: torch.nn.Module,
+                   classifier: torch.Tensor) -> torch.optim.SGD:
+    """Momentum SGD (dampening 0) in two groups: weight decay on every
+    conv and Dense kernel and on the classifier; none on BatchNorm
+    scales and biases or Dense biases. Its learning rate is set from
+    the schedule before each update (``make_train_step``)."""
+    from tf_face_toolbox_tpu_torch.interop import port
+
+    kernels = {id(t) for key, t, _ in port.jax_leaves(net)
+               if key.endswith("/kernel")}
+    decay = [p for p in net.parameters() if id(p) in kernels] + [classifier]
+    plain = [p for p in net.parameters() if id(p) not in kernels]
+    return torch.optim.SGD(
+        [{"params": decay, "weight_decay": cfg.weight_decay},
+         {"params": plain, "weight_decay": 0.0}],
+        lr=cfg.base_lr, momentum=cfg.momentum, dampening=0.0)
+
+
+def _seed(*parts: int) -> int:
+    return int(np.random.SeedSequence([int(p) for p in parts])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+def _generator(device, *parts: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(_seed(*parts))
+
+
+def create_train_state(cfg: TrainConfig, seed: int = 0, *,
+                       net: torch.nn.Module | None = None,
+                       variables: dict | None = None,
+                       classifier: np.ndarray | None = None,
+                       device="cuda") -> tuple[TrainState, torch.nn.Module]:
+    """Network, classifier and optimizer, ready to train on ``device``.
+
+    Fresh by default: the JAX initialisers' distributions
+    (``models.init_parameters``) and a N(0, 1) * 0.01 classifier, drawn
+    from generators seeded from ``seed``. ``variables`` (a flat JAX-key
+    dict or tree, the ``.npz`` hand-off) and ``classifier`` start from
+    given values instead. ``net`` injects a backbone. Returns (state,
+    net).
+    """
+    if net is None:
+        net = create_network(cfg.network, embedding_dim=cfg.embedding_dim,
+                             dtype=cfg.dtype, stem=cfg.stem,
+                             head_variant=cfg.head_variant,
+                             dropout_rate=cfg.dropout_rate,
+                             input_size=cfg.image_size)
+    if variables is not None:
+        from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+        load_jax_variables(net, variables)
+    else:
+        init_parameters(net, _seed(seed, 0))
+    net.to(device).train()
+    rows = cfg.num_classes * cfg.subcenters
+    if classifier is None:
+        w = init_classifier_weights(rows, cfg.embedding_dim,
+                                    generator=_generator("cpu", seed, 1))
+    else:
+        w = torch.tensor(np.asarray(classifier, np.float32))    # a copy
+        if tuple(w.shape) != (rows, cfg.embedding_dim):
+            raise ValueError(f"classifier {tuple(w.shape)} != "
+                             f"{(rows, cfg.embedding_dim)}")
+    w = w.to(device).requires_grad_(True)
+    opt = make_optimizer(cfg, net, w)
+    params = dict(net.named_parameters())
+    state = TrainState(
+        step=0, params=params, batch_stats=dict(net.named_buffers()),
+        classifier=w, opt_state={"optimizer": opt, "count": 0}, rng=seed,
+        ema_params=({k: p.detach().clone() for k, p in params.items()}
+                    if cfg.ema_decay > 0 else None))
+    return state, net
+
+
+def _augment(cfg: TrainConfig, images: torch.Tensor, step_gen: torch.Generator,
+             erase_gen: torch.Generator) -> torch.Tensor:
+    """Random crop, flip and standardization of a u8 batch; offsets and
+    the flip mask come from ``step_gen`` (on the host) in that order on
+    both routes, so the kernel route and the plain one see the same
+    draws."""
+    size = cfg.image_size
+    if cfg.pallas_input and cfg.input_norm == "per_image":
+        from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
+            fused_preprocess)
+
+        n, h, w, _ = images.shape
+        offs = pp.random_offsets(step_gen, n, h, w, size, size)
+        flips = pp.random_flip_mask(step_gen, n)
+        # a contiguous u8 crop: the kernel reads whole images
+        cropped = pp.crop_at(images, offs, size, size).contiguous()
+        x = fused_preprocess(cropped, flips.to(images.device, torch.int32),
+                             out_h=size, out_w=size, out_dtype=cfg.dtype)
+    else:
+        x = pp.preprocess_train(step_gen, images, size, size, cfg.input_norm)
+    if cfg.random_erase > 0:
+        x = pp.random_erase(erase_gen, x, cfg.random_erase)
+    return x
+
+
+def _grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
+                    state: TrainState, *, input_format: str = "u8",
+                    teacher=None) -> Callable:
+    """``step_fn(state, images, labels) -> (state, metrics)``.
+
+    ``images``: (B, crop_from, crop_from, 3) uint8 when ``cfg.augment``,
+    else (B, image_size, image_size, 3) standardized f32; ``labels``:
+    (B,) ints. Tensors on the state's device, or numpy arrays. The
+    state is updated in place and returned. Metrics: ``loss``,
+    ``grad_norm`` (before the clip) and, with ``skip_nonfinite``,
+    ``skipped_nonfinite`` as tensors or floats; ``learning_rate`` =
+    the schedule at ``state.step`` (the applied rate follows the
+    optimizer's count, which a skipped step holds).
+    """
+    if input_format != "u8":
+        _not_ported(f"input_format={input_format!r} (DCT input)", "17")
+    if teacher is not None:
+        _not_ported("distillation", "10c")
+    if cfg.accum_steps > 1 and cfg.global_batch % cfg.accum_steps:
+        raise ValueError(f"batch {cfg.global_batch} not divisible by "
+                         f"accum_steps {cfg.accum_steps}")
+    if cfg.pallas_input and cfg.input_norm != "per_image":
+        # the kernel bakes per-image standardization in; fixed norm
+        # takes the plain augment chain (the reference's own rule)
+        logging.warning("pallas_input: the fused kernel covers per_image "
+                        "standardization only; input_norm=%s uses the "
+                        "plain augment chain", cfg.input_norm)
+    sched = make_schedule(cfg)
+    margin = cfg.margin
+    device = state.classifier.device
+    bn_keys = {mod: name for name, mod in net.named_modules()
+               if isinstance(mod, BatchNorm)}
+
+    def loss_of(x, labels, classifier, ctx):
+        emb = net(x, train=ctx).to(torch.float32)
+        return margin_softmax_loss(emb, classifier, labels, margin,
+                                   subcenters=cfg.subcenters)
+
+    def step_fn(state: TrainState, images, labels):
+        images = torch.as_tensor(images).to(device)
+        labels = torch.as_tensor(labels).to(device=device, dtype=torch.long)
+        parts = (state.rng, state.step)
+        ctx = TrainContext(_generator(device, *parts, _DROPOUT))
+        if cfg.augment:
+            x = _augment(cfg, images, _generator("cpu", *parts, _AUGMENT),
+                         _generator(device, *parts, _ERASE))
+        else:
+            x = images
+        x = x.to(cfg.dtype)
+
+        params = list(state.params.values())
+        for p in params + [state.classifier]:
+            p.grad = None
+        k = cfg.accum_steps
+        if k == 1:
+            loss = loss_of(x, labels, state.classifier, ctx)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            losses = []
+            for xm, lm in zip(x.chunk(k), labels.chunk(k)):
+                micro = loss_of(xm, lm, state.classifier, ctx)
+                micro.backward()
+                losses.append(micro.detach())
+            loss = torch.stack(losses).mean()
+        grads = [p.grad for p in params] + [state.classifier.grad]
+        if k > 1:
+            torch._foreach_div_(grads, float(k))
+        grad_norm = _grad_norm(grads)
+        if cfg.grad_clip_norm > 0:
+            scale = torch.clamp_max(
+                cfg.grad_clip_norm / torch.clamp_min(grad_norm, 1e-12), 1.0)
+            torch._foreach_mul_(grads, scale)
+
+        metrics = {"loss": loss, "learning_rate": sched(state.step),
+                   "grad_norm": grad_norm}
+        ok = True
+        if cfg.skip_nonfinite:
+            # a host sync: the step applies or holds as a whole
+            ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+            metrics["skipped_nonfinite"] = 0.0 if ok else 1.0
+        if ok:
+            opt = state.opt_state["optimizer"]
+            lr = sched(state.opt_state["count"])
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            state.opt_state["count"] += 1
+            with torch.no_grad():
+                for mod, (mean, var) in ctx.stats.items():
+                    name = bn_keys[mod]
+                    state.batch_stats[f"{name}.running_mean"].copy_(mean)
+                    state.batch_stats[f"{name}.running_var"].copy_(var)
+                if state.ema_params is not None:
+                    d = cfg.ema_decay
+                    ema = list(state.ema_params.values())
+                    torch._foreach_mul_(ema, d)
+                    torch._foreach_add_(ema, [p.detach() for p in params],
+                                        alpha=1.0 - d)
+        state.step += 1
+        return state, metrics
+
+    return step_fn
