@@ -12,7 +12,8 @@ the two top-k kernels, then the cluster, search and
 eval_identification CLIs. Training (BASELINE config 4): resnet_v1_50
 (face stem, bf16, f32 master weights), CosFace over 10,572 classes,
 batch 256, synthetic faces augmented through the preprocess kernel,
-by cli.train. Phases:
+by cli.train; then train -> preempt (SIGTERM) -> resume -> serve the
+trained checkpoint through the fused-block engine. Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
 2. build: every CUDA kernel from tf_face_toolbox_tpu_torch/csrc
@@ -46,7 +47,21 @@ by cli.train. Phases:
     losses); a packed shard through the python loader and, where
     native/faceshard builds (it links libjpeg), the native one;
     training faces/sec (bench_train: CUDA events over 20 steps after 5,
-    peak memory, idle share from torch.profiler, share of the bf16 peak)
+    peak memory, idle share from torch.profiler, share of the bf16 peak);
+    kernel 1's library route at the train shape
+12. checkpoints (BASELINE config 4 on a packed shard of synthetic
+    faces, python loader): cli.train --train_dir --save_every 10 with
+    the LFW hook (--eval_every 5 --keep_best lfw_accuracy), SIGTERM past
+    step 10 (exit 0, a flush at the current step k), the same command
+    to 20 (resumes at k; kernel 1 launches = steps taken); exact resume
+    in-process (6 straight steps, twice, vs 3 + save + restore + 3,
+    cuDNN deterministic); one checkpoint's bytes, save and restore
+    times; cli.extract --checkpoint_dir --engine fused (24 kernel 2
+    launches at the face stem's 56/28/14/7 stages) and eval_lfw, held
+    against the folded engine and the f32 module path (cosine >=
+    0.999, batch-centered >= 0.99); kernel 2 on each trained stage's
+    stack (56x56x256, 28x28x512, 14x14x1024, 7x7x2048, each fed the
+    previous stage's output) vs its plain version, its time and bound
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -98,11 +113,13 @@ def per_image_cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a, b, dim=1)
 
 
-def check_block_stack(name, x, entry, tail, folded, stats: list) -> None:
+def check_block_stack(name, x, entry, tail, folded,
+                      stats: list) -> torch.Tensor:
     """Fused-block kernel vs its plain version on one stage's stack, and
     the library route (the folded engine's cuDNN / cuBLAS convs for the
     same blocks) timed in turns with the kernel: eagerly (host gaps
-    count) and as CUDA-graph replays (device time alone)."""
+    count) and as CUDA-graph replays (device time alone). Returns the
+    kernel's output."""
     from tf_face_toolbox_tpu_torch.bench import time_ms
     from tf_face_toolbox_tpu_torch.serving.fused_block import (
         fused_bottleneck_stack, fused_bottleneck_stack_reference)
@@ -150,6 +167,7 @@ def check_block_stack(name, x, entry, tail, folded, stats: list) -> None:
                   "graph_ms": sum(kg) / len(kg),
                   "library_route_graph_ms": sum(lg) / len(lg),
                   "bound_ms": b_ms, "bound_by": b_by})
+    return got
 
 
 GALLERY_DTYPES = ("float32", "bfloat16", "int8")
@@ -660,8 +678,18 @@ def phase_train(g, work: str) -> dict:
                                              out_w=112,
                                              out_dtype=torch.bfloat16)
 
+    from tf_face_toolbox_tpu_torch import bench_preprocess as bp
+
+    def library():
+        # the same function as library calls: F.interpolate at the crop's
+        # own size, the flip, the standardization
+        return bp.library_route(crops, flips, size=112)
+
+    route_err = (bp.library_route(crops, flips, size=112,
+                                  dtype=torch.float32) - want).abs().max().item()
     k_ms = bench.time_ms(kernel, iters=50)
     p_ms = bench.time_ms(plain)
+    r_ms = bench.time_ms(library, iters=50)
     k_ms2 = bench.time_ms(kernel, iters=50)
     # u8 in, bf16 out, int32 flags; per value the standardization (5
     # operations; the identity resize needs none)
@@ -673,8 +701,10 @@ def phase_train(g, work: str) -> dict:
     say(f"  preprocess train shape (256,112,112,3) u8 -> bf16 112, random "
         f"flips: f32 max_abs={err32:.3g}, bf16 max {ulps:.2f} ulp beyond "
         f"1e-4; kernel {k_ms:.4f} / {k_ms2:.4f} ms (eager, warm), plain "
-        f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / k_mean:.1%} "
-        f"of it; plan cluster {plan['cluster']}, {plan['threads']} threads "
+        f"{p_ms:.3f} ms, library route (F.interpolate, flip, standardize; "
+        f"bf16) {r_ms:.4f} ms (max |route - plain| {route_err:.3g}, f32), "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_mean:.1%} of it; plan "
+        f"cluster {plan['cluster']}, {plan['threads']} threads "
         f"x {plan['vals']} values, copy {plan['copy']}, persist "
         f"{plan['persist']}")
     del crops, got, got16, want, want16
@@ -766,8 +796,365 @@ def phase_train(g, work: str) -> dict:
 
     say(f"  phase 11: {time.time() - t0:.1f} s")
     return {"max_abs_err": err32, "ms": k_mean, "plain_ms": p_ms,
+            "library_route_ms": r_ms, "library_route_max_abs": route_err,
             "bound_ms": b_ms, "bound_by": b_by, "launches": launches,
             "routes": routes, "time": t}
+
+def _snapshot(state) -> dict:
+    """Host copies of every tensor of a train state, momentum buffers
+    included, and its counters."""
+    opt = state.opt_state["optimizer"]
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"batch_stats/{k}": v for k, v in state.batch_stats.items()})
+    out["classifier"] = state.classifier
+    for k, v in (state.ema_params or {}).items():
+        out[f"ema/{k}"] = v
+    for name, p in {**state.params, "classifier": state.classifier}.items():
+        buf = opt.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            out[f"momentum/{name}"] = buf
+    out = {k: v.detach().cpu().clone() for k, v in out.items()}
+    out["counters"] = torch.tensor([state.step, state.opt_state["count"],
+                                    state.rng])
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> tuple[float, str]:
+    expect(a.keys() == b.keys(), "snapshots hold different tensors")
+    worst, name = 0.0, ""
+    for k in a:
+        d = (a[k].double() - b[k].double()).abs().max().item()
+        if d > worst:
+            worst, name = d, k
+    return worst, name
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase_checkpoint(g, work: str) -> dict:
+    """Phase 12: BASELINE config 4 through train -> preempt -> resume ->
+    serve, on a packed shard; exact resume in-process; the checkpoint
+    served through kernel 2 and held against the folded and module
+    paths; kernel 2 at each of the face stem's four stages on the
+    trained weights."""
+    import re
+    import shutil
+    import signal
+    import threading
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.format import pack_arrays
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard, make_extract_fn
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import create_network
+    from tf_face_toolbox_tpu_torch.ops.preprocess import preprocess_eval
+    from tf_face_toolbox_tpu_torch.pretrained import load_variables
+    from tf_face_toolbox_tpu_torch.serving import make_serving_apply
+    from tf_face_toolbox_tpu_torch.serving.engine import (
+        _plan_stage_fusion, _to, build_plan)
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.loop import train_loop
+    from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[12 checkpoints] {gpu}")
+    run = os.path.join(work, "ckpt_run")
+    for d in (run, os.path.join(work, "ckpt_exact"),
+              os.path.join(work, "ckpt_timed")):
+        shutil.rmtree(d, ignore_errors=True)
+    # seeded synthetic u8 faces at 120x120: 1,024 to train on (4 steps an
+    # epoch at batch 256, so the resume lands mid-epoch), 512 to serve
+    train_shard = os.path.join(work, "ckpt_train.faceshard")
+    eval_shard = os.path.join(work, "ckpt_eval.faceshard")
+    pairs = os.path.join(work, "ckpt_pairs.txt")
+    faces = torch.randint(0, 256, (1536, 120, 120, 3), generator=g,
+                          device="cuda", dtype=torch.uint8).cpu().numpy()
+    pack_arrays(train_shard, faces[:1024], [i % 1000 for i in range(1024)])
+    pack_arrays(eval_shard, faces[1024:], list(range(512)))
+    with open(pairs, "w") as f:     # 200 pairs: 10 folds of 20
+        for i in range(200):
+            f.write(f"{i} {(i + 256) if i % 2 else i + 1} {1 - i % 2}\n")
+
+    # ---- the preemption flow: cli.train, SIGTERM past step 10, resume
+    cmd = [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
+           "--device", "cuda", "--network", "resnet_v1_50", "--stem", "face",
+           "--data", train_shard, "--loader", "python", "--num_classes",
+           "10572", "--global_batch", "256", "--bf16", "--pallas_input",
+           "--train_dir", run, "--save_every", "10", "--log_every", "1",
+           "--eval_data", eval_shard, "--eval_pairs", pairs,
+           "--eval_every", "5", "--keep_best", "lfw_accuracy"]
+    t1 = time.time()
+    proc = subprocess.Popen([*cmd, "--num_steps", "1000"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: list = []
+    past_10 = threading.Event()
+
+    def reader():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            m = re.match(r"step (\d+): loss=", line)
+            if m and int(m.group(1)) > 10:
+                past_10.set()
+
+    reading = threading.Thread(target=reader, daemon=True)
+    reading.start()
+    try:
+        deadline = time.time() + 400
+        while not past_10.wait(1) and proc.poll() is None \
+                and time.time() < deadline:
+            pass
+        ok = past_10.is_set()
+        if ok:
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    reading.join(timeout=30)
+    expect(ok, f"no logged step past 10: {lines[-10:]}")
+    expect(rc == 0, f"preempted cli.train exited {rc}: {lines[-10:]}")
+    flushed = [ln for ln in lines
+               if ln.startswith("preempted: checkpoint flushed at step=")]
+    expect(len(flushed) == 1, f"no flush line: {lines[-10:]}")
+    k = int(re.search(r"step=(\d+)", flushed[0]).group(1))
+    launches_1 = next(int(ln.split("preprocess=")[1]) for ln in lines
+                      if ln.startswith("kernel launches:"))
+    steps_1 = [int(m.group(1)) for m in (re.match(r"step (\d+): loss=", ln)
+                                         for ln in lines) if m]
+    evals_1 = [ln for ln in lines if "eval/lfw_accuracy=" in ln]
+    run1_s = time.time() - t1
+    mgr = CheckpointManager(run)
+    say(f"  cli.train config 4 (packed shard, python loader, --pallas_input, "
+        f"--save_every 10, --eval_every 5): SIGTERM after logged step "
+        f"{steps_1[-1]}; exit {rc}, "
+        f"'{flushed[0]}', checkpoints {mgr.all_steps()}, preprocess "
+        f"launches {launches_1} in {k} steps, {len(evals_1)} evals; "
+        f"{run1_s:.1f} s")
+    expect(k > 10 and mgr.all_steps() == [10, k],
+           f"flushed at {k}, checkpoints {mgr.all_steps()}")
+    expect(launches_1 == k, f"kernel 1 launched {launches_1} in {k} steps")
+    expect(len(evals_1) == k // 5, f"evals in run 1: {evals_1}")
+
+    t1 = time.time()
+    proc = subprocess.run([*cmd, "--num_steps", "20"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0, f"resumed cli.train failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    out = proc.stdout.strip().splitlines()
+    steps_2 = [int(m) for m in re.findall(r"^step (\d+): loss=",
+                                          proc.stderr, re.M)]
+    launches_2 = next(int(ln.split("preprocess=")[1]) for ln in out
+                      if ln.startswith("kernel launches:"))
+    losses_2 = [float(v) for v in re.findall(r"^step \d+: loss=(\S+)",
+                                             proc.stderr, re.M)]
+    evals_2 = re.findall(r"^step (\d+): eval/lfw_accuracy=(\S+)",
+                         proc.stderr, re.M)
+    best = mgr.best_info()
+    resumed_line = next((ln for ln in proc.stderr.splitlines()
+                         if ln.startswith("resumed from")), None)
+    say(f"  resumed: '{resumed_line}', first logged step {steps_2[:1]}, "
+        f"{out[-1]}, preprocess launches {launches_2} in {20 - k} steps, evals at {evals_2}, best "
+        f"{best}; checkpoints {mgr.all_steps()}; {time.time() - t1:.1f} s")
+    expect(f"resumed from step {k}" in proc.stderr, "no resume line")
+    expect(steps_2[:1] == [k + 1] and steps_2[-1] == 20,
+           f"resumed run logged steps {steps_2}")
+    expect(out[-1].startswith("done: step=20"), f"resumed run: {out[-1]}")
+    expect(launches_2 == 20 - k, f"kernel 1 launched {launches_2} times in "
+                                 f"{20 - k} steps")
+    expect(all(np.isfinite(losses_2)), f"losses {losses_2}")
+    expect([int(s) for s, _ in evals_2] == [s for s in range(k + 1, 21)
+                                            if s % 5 == 0],
+           f"evals {evals_2}")
+    expect(best is not None and best["name"] == "lfw_accuracy"
+           and os.path.isdir(os.path.join(run, "best", str(best["step"])))
+           and os.path.exists(os.path.join(run, "best_step.json")),
+           f"best checkpoint {best}")
+    expect(mgr.all_steps()[-1] == 20, f"checkpoints {mgr.all_steps()}")
+
+    # ---- exact resume in-process, deterministic cuDNN: 6 straight steps
+    # (twice: the noise floor) vs 3, a save, a restore into a fresh
+    # state, 3 more
+    cfg = bt.config4()
+    batches = [{"image": torch.randint(0, 256, (256, 120, 120, 3),
+                                       generator=g, device="cuda",
+                                       dtype=torch.uint8),
+                "label": torch.randint(0, cfg.num_classes, (256,),
+                                       generator=g, device="cuda")}
+               for _ in range(6)]
+    exact_dir = os.path.join(work, "ckpt_exact")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        snaps = []
+        for _ in range(2):
+            st = train_loop(cfg, iter(batches), num_steps=6, log_every=0,
+                            device="cuda").state
+            snaps.append(_snapshot(st))
+            del st
+            torch.cuda.empty_cache()
+        train_loop(cfg, iter(batches[:3]), num_steps=3, log_every=0,
+                   train_dir=exact_dir, save_every=3, device="cuda")
+        torch.cuda.empty_cache()
+        st = train_loop(cfg, iter(batches[3:]), num_steps=6, log_every=0,
+                        train_dir=exact_dir, save_every=3,
+                        device="cuda").state
+        resumed = _snapshot(st)
+        # one checkpoint's save and restore, timed apart
+        timed = CheckpointManager(os.path.join(work, "ckpt_timed"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        timed.maybe_save(st, force=True)
+        save_s = time.perf_counter() - t1
+        del st
+        torch.cuda.empty_cache()
+        fresh, _ = create_train_state(cfg, 1, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        timed.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        restored_ok = _max_diff(_snapshot(fresh), resumed)[0] == 0.0
+        del fresh
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del batches
+    torch.cuda.empty_cache()
+    floor, floor_at = _max_diff(snaps[0], snaps[1])
+    diff, diff_at = _max_diff(resumed, snaps[0])
+    nbytes = _dir_bytes(os.path.join(timed.directory, "6"))
+    n_mom = sum(k.startswith("momentum/") for k in resumed)
+    say(f"  exact resume (config 4, cuDNN deterministic, {len(resumed) - 1} "
+        f"tensors incl. {n_mom} momentum buffers; counters step/count/rng "
+        f"{resumed['counters'].tolist()}): 6 straight vs 3 + save + restore "
+        f"+ 3: max |diff| {diff:.3g}{f' at {diff_at}' if diff else ''}; "
+        f"straight run twice: {floor:.3g}{f' at {floor_at}' if floor else ''}")
+    say(f"  one checkpoint (step 6): {nbytes / 1e6:.1f} MB on disk, save "
+        f"{save_s:.3f} s, restore onto the card {restore_s:.3f} s "
+        f"(bit-equal: {restored_ok}); {gpu}")
+    expect(diff <= floor, f"resume differs by {diff} at {diff_at}, beyond "
+                          f"the straight run's own {floor}")
+    expect(restored_ok, "timed restore is not bit-equal")
+
+    # ---- serve the checkpoint: cli.extract --engine fused, eval_lfw
+    out_fused = os.path.join(work, "ckpt_emb_fused.npy")
+    t1 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--checkpoint_dir", run, "--engine", "fused", "--data", eval_shard,
+         "--output", out_fused, "--batch", "256", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0, f"cli.extract --checkpoint_dir failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    ext_launches = next(int(ln.split("fused_block=")[1])
+                        for ln in proc.stdout.splitlines()
+                        if ln.startswith("kernel launches:"))
+    emb = np.load(out_fused)
+    extract_s = time.time() - t1
+    expect(emb.shape == (512, 512) and np.isfinite(emb).all(),
+           f"cli.extract wrote {emb.shape}")
+    expect(np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-4,
+           "checkpoint embeddings not unit norm")
+    # 2 forwards of 512 images (256 faces and their flips), 12 fused
+    # launches each: 2 + 3 + 5 + 2 identity blocks at 56, 28, 14, 7
+    expect(ext_launches == 24, f"kernel 2 launched {ext_launches} times, "
+                               "want 24")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.eval_lfw",
+         "--embeddings", out_fused, "--pairs", pairs],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    expect(proc.returncode == 0, f"cli.eval_lfw failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    expect(len(report["fold_accuracies"]) == 10, "eval_lfw report")
+
+    # parity: the same checkpoint through the folded engine and the f32
+    # module path, in-process, from the loader the CLI uses
+    net, flat = load_variables(run, "resnet_v1_50", 512, 112,
+                               torch.bfloat16)
+    source = FaceShardSource(eval_shard)
+    folded = extract_shard(net, flat, source, image_size=112, batch=256,
+                           loader="python",
+                           extract_fn=make_extract_fn(make_serving_apply(
+                               net, flat, device="cuda")), device="cuda")
+    net32 = load_jax_variables(create_network("resnet_v1_50", stem="face"),
+                               flat).to("cuda").eval()
+    module = extract_shard(net32, flat, source, image_size=112, batch=256,
+                           loader="python", extract_fn=make_extract_fn(net32),
+                           device="cuda")
+    del net32
+    cos_folded = (emb * folded).sum(1)
+    cos_module = (emb * module).sum(1)
+    mean = module.mean(0, keepdims=True)
+    c = emb - mean
+    m = module - mean
+    centered = (c * m).sum(1) / (np.linalg.norm(c, axis=1)
+                                 * np.linalg.norm(m, axis=1))
+    say(f"  cli.extract --checkpoint_dir (step 20) --engine fused: "
+        f"{emb.shape} unit-norm, kernel 2 launches {ext_launches}; "
+        f"{extract_s:.1f} s; eval_lfw accuracy {report['accuracy_mean']:.4f} "
+        f"(20 steps on random faces: means nothing); per-face cosine vs "
+        f"folded min {cos_folded.min():.6f}, vs f32 module min "
+        f"{cos_module.min():.6f} (batch-centered {centered.min():.4f})")
+    expect(cos_folded.min() >= 0.999, "fused vs folded cosine < 0.999")
+    expect(cos_module.min() >= 0.999, "fused vs module cosine < 0.999")
+    # every face shares a large component, so the plain cosine is
+    # lenient; the centered one still catches a wrong stage (bf16
+    # rounding alone leaves it near 0.999 here)
+    expect(centered.min() >= 0.99, "fused vs module batch-centered "
+                                   "cosine < 0.99")
+
+    # kernel 2 alone at every stage of the face stem (56x56x256,
+    # 28x28x512, 14x14x1024, 7x7x2048): each trained stride-1 stack on
+    # the activations the main path gives it (256 faces and their flips
+    # after the stem, the previous stages and the stage's strided block)
+    plan = build_plan(net, flat)
+    stem = plan.stem.to("cuda")
+    u8 = torch.from_numpy(faces[1024:1280]).to("cuda")
+    with torch.inference_mode():
+        pix = preprocess_eval(u8, 112, 112).to(torch.bfloat16)
+        x = stem(torch.cat([pix, pix.flip(2)]))
+    del u8, pix, stem
+    stats: list = []
+    for blocks in plan.stages:
+        blocks = [blk.to("cuda") for blk in blocks]
+        n_folded, entry, tail = _plan_stage_fusion(blocks)
+        expect(tail is not None, "a face-stem stage with no fused stack")
+        with torch.inference_mode():
+            for blk in blocks[:n_folded]:
+                x = blk.apply_folded(x)
+        x = x.clone()
+        h, w, c = x.shape[1:]
+        x = check_block_stack(f"checkpoint face {h}x{w}", x,
+                              _to(entry, "cuda"), _to(tail, "cuda"),
+                              tuple(blocks[n_folded:]), stats)
+        s = stats[-1]
+        say(f"  kernel 2 at {h}x{w}x{c}, {x.shape[0]} images, "
+            f"{tail['w1s'].shape[0]} trained blocks: {s['ms']:.3f} ms eager "
+            f"(graph {s['graph_ms']:.3f}), plain {s['plain_ms']:.3f}, "
+            f"library route {s['library_route_ms']:.3f} (graph "
+            f"{s['library_route_graph_ms']:.3f}), bound {s['bound_ms']:.3f} "
+            f"ms ({s['bound_by']}), {s['bound_ms'] / s['graph_ms']:.1%} of "
+            f"it (graph); {gpu}")
+        del blocks, entry, tail
+    expect([s["stage"] for s in stats] == [
+        f"checkpoint face {n}x{n}" for n in (56, 28, 14, 7)],
+        f"face-stem stages {[s['stage'] for s in stats]}")
+    del x, net, plan
+    torch.cuda.empty_cache()
+    total = time.time() - t0
+    say(f"  phase 12: {total:.1f} s; {gpu}")
+    return {"k": k, "launches": [launches_1, launches_2],
+            "extract_launches": ext_launches, "resume_max_diff": diff,
+            "noise_floor": floor, "save_s": save_s, "restore_s": restore_s,
+            "bytes": nbytes, "face_stages": stats, "seconds": total}
 
 
 def main() -> None:
@@ -1009,6 +1396,8 @@ def main() -> None:
             f"50 searches")
     # ---- 11. training
     train = phase_train(g, work)
+    # ---- 12. checkpoints: train -> preempt -> resume -> serve
+    ckpt = phase_checkpoint(g, work)
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -1044,12 +1433,17 @@ def main() -> None:
          "train_plain_ms": train["plain_ms"],
          "train_bound_ms": train["bound_ms"],
          "train_bound_by": train["bound_by"],
-         "train_bound_share": train["bound_ms"] / train["ms"]},
+         "train_bound_share": train["bound_ms"] / train["ms"],
+         "train_library_route_ms": train["library_route_ms"],
+         # phase 12's cli.train runs (preempted at step k, resumed to 20)
+         "checkpoint_train_launches": ckpt["launches"],
+         "checkpoint_train_steps": [ckpt["k"], 20 - ckpt["k"]]},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",
          "launches": launches["fused_block"],
-         "max_abs_err": max(s["max_abs_err"] for s in block_stats),
+         "max_abs_err": max(s["max_abs_err"]
+                            for s in (*block_stats, *ckpt["face_stages"])),
          "ms": block_ms, "plain_ms": sum(s["plain_ms"] for s in block_stats),
          "bound_ms": block_bound,
          "bound_by": by.pop() if len(by) == 1 else "bytes and operations",
@@ -1057,7 +1451,14 @@ def main() -> None:
          "library_route_ms": sum(s["library_route_ms"] for s in block_stats),
          "graph_ms": sum(s["graph_ms"] for s in block_stats),
          "library_route_graph_ms": sum(s["library_route_graph_ms"]
-                                       for s in block_stats)},
+                                       for s in block_stats),
+         # phase 12: cli.extract --checkpoint_dir --engine fused (face
+         # stem), and each trained stage's stack (56, 28, 14, 7) on the
+         # activations the main path gives it
+         "checkpoint_launches": ckpt["extract_launches"],
+         "checkpoint_stages": [
+             {k: v for k, v in st.items() if k != "library_route_range"}
+             for st in ckpt["face_stages"]]},
     ]
     for name, row, replaces in (("topk", t_topk, 118), ("topk_q", t_topk_q, 194)):
         kernels.append({

@@ -1,0 +1,112 @@
+"""The port's presets (``configs.py``) against the JAX package's.
+
+Mirrors tests/test_configs.py: all eight presets exist; the eval-only
+dicts are the JAX ones; each train preset has the JAX TrainConfig's
+field values (bf16 compute); the single-GPU preset builds and trains a
+step at a cut size; the presets whose paths are not ported yet raise
+naming their ROADMAP.md item when asked for, never at import.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_face_toolbox_tpu import configs as jax_configs
+from tf_face_toolbox_tpu_torch import configs
+from tf_face_toolbox_tpu_torch.models import list_networks
+from tf_face_toolbox_tpu_torch.train.trainer import (
+    TrainConfig,
+    create_train_state,
+    make_train_step,
+)
+
+torch.set_num_threads(1)
+
+EVAL = ["extract_verify_cpu", "se_resnet_extract", "variant_backbones",
+        "accuracy_serving_bf16"]
+TRAIN = ["casia_single_chip", "v5e8_data_parallel", "large_id_pfc_v5e8",
+         "adaface_noisy_data"]
+# presets whose path is not ported yet -> the item their refusal names
+REFUSED = {"v5e8_data_parallel": "10b", "large_id_pfc_v5e8": "11",
+           "adaface_noisy_data": "9"}
+
+
+def test_all_presets_present():
+    assert configs.list_configs() == jax_configs.list_configs()
+    assert len(configs.list_configs()) == 8
+    assert sorted(EVAL + TRAIN) == configs.list_configs()
+
+
+@pytest.mark.parametrize("name", EVAL)
+def test_eval_presets_are_the_jax_dicts(name):
+    assert configs.get_config(name) == jax_configs.get_config(name)
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_train_presets_have_the_jax_field_values(name):
+    """Every field the preset sets, and every default it leaves, equals
+    the JAX preset's; the compute dtype is bf16 on both sides. (The
+    MagFace and AdaFace sub-configs are item 9's: the port's fields hold
+    None until then.)"""
+    want = jax_configs.get_config(name)
+    kwargs = configs.TRAIN_PRESETS[name]
+    for field in dataclasses.fields(TrainConfig):
+        if field.name in ("dtype", "magface", "adaface"):
+            continue
+        value = kwargs.get(field.name, field.default)
+        assert value == getattr(want, field.name), field.name
+    assert want.dtype == jnp.bfloat16
+    assert kwargs.get("network") in list_networks()
+
+
+def test_the_single_gpu_preset_builds_in_bf16():
+    cfg = configs.get_config("casia_single_chip")
+    assert isinstance(cfg, TrainConfig)
+    assert cfg.dtype == torch.bfloat16
+    assert (cfg.num_classes, cfg.global_batch, cfg.margin_m3,
+            cfg.warmup_steps) == (10_572, 256, 0.35, 2_000)
+
+
+def test_the_single_gpu_preset_trains_a_step():
+    """Its schedule, margin, decay and bf16 settings as they are; only
+    the extents that do not change the program (depth, widths of the
+    input, identity count, batch) cut for the CPU."""
+    preset = configs.get_config("casia_single_chip")
+    cfg = dataclasses.replace(preset, network="resnet_tiny",
+                              embedding_dim=16, num_classes=24,
+                              image_size=12, crop_from=16, global_batch=8)
+    state, net = create_train_state(cfg, 0, device="cpu")
+    step_fn = make_train_step(net, cfg, state)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (8, 16, 16, 3), np.uint8)
+    state, m = step_fn(state, images, np.arange(8) % 24)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    # warmup from 0: the first update's rate is base_lr * 0 / warmup
+    assert float(m["learning_rate"]) < preset.base_lr * 0.01
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_unported_presets_raise_naming_their_item(name):
+    with pytest.raises(NotImplementedError, match=f"item {REFUSED[name]}"):
+        configs.get_config(name)
+
+
+def test_unknown_config_raises():
+    with pytest.raises(ValueError, match="unknown config"):
+        configs.get_config("nope")
+
+
+def test_presets_import_without_raising_or_jax():
+    code = ("import sys\n"
+            "from tf_face_toolbox_tpu_torch import configs\n"
+            "assert len(configs.list_configs()) == 8\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'tf_face_toolbox_tpu')]\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -134,11 +134,64 @@ def test_cli_refuses_unported_inputs(tmp_path):
     shard = _shard(tmp_path / "faces.faceshard", n=2)
     proc = subprocess.run(
         [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
-         "--checkpoint_dir", str(tmp_path), "--data", shard,
+         "--bundle", str(tmp_path / "b.tfftb"), "--data", shard,
          "--output", str(tmp_path / "e.npy"), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "not yet ported" in proc.stderr
+    assert "not yet ported" in proc.stderr and "item 16" in proc.stderr
+
+
+def test_cli_weights_sources_are_exclusive(tmp_path):
+    from tf_face_toolbox_tpu_torch.cli import extract as cli_extract
+
+    with pytest.raises(SystemExit, match="exclusive"):
+        cli_extract.main(["--checkpoint_dir", str(tmp_path),
+                          "--variables_npz", str(tmp_path / "w.npz"),
+                          "--data", "x", "--output", "y", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("engine,use_ema", [("fused", False),
+                                            ("folded", True),
+                                            ("module", True)])
+def test_cli_extract_from_a_port_checkpoint(tmp_path, capsys, engine,
+                                            use_ema):
+    """--checkpoint_dir on a checkpoint the port trained serves the same
+    embeddings as --variables_npz of the same variables (its EMA set
+    and running statistics under --use_ema), through each engine."""
+    from tf_face_toolbox_tpu_torch.cli import extract as cli_extract
+    from tf_face_toolbox_tpu_torch.interop.port import (
+        named_to_flat, save_variables_npz as save_npz)
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.loop import train_loop
+    from tf_face_toolbox_tpu_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(network="resnet_tiny", stem="imagenet", num_classes=7,
+                      embedding_dim=16, image_size=16, crop_from=20,
+                      global_batch=8, ema_decay=0.5)
+    rng = np.random.default_rng(0)
+    batches = ({"image": rng.integers(0, 256, (8, 20, 20, 3), np.uint8),
+                "label": rng.integers(0, 7, 8)} for _ in range(3))
+    run = str(tmp_path / "run")
+    state = train_loop(cfg, batches, num_steps=3, train_dir=run,
+                       log_every=0, device="cpu").state
+    assert CheckpointManager(run).latest_step() == 3
+    params = state.ema_params if use_ema else state.params
+    npz = str(tmp_path / "w.npz")
+    save_npz(npz, named_to_flat({**params, **state.batch_stats}))
+    shard = _shard(tmp_path / "faces.faceshard", n=10)
+    common = ["--data", shard, "--network", "resnet_tiny", "--stem",
+              "imagenet", "--embedding_dim", "16", "--image_size", "16",
+              "--crop_from", "20", "--batch", "4", "--nobf16", "--engine",
+              engine, "--loader", "python", "--device", "cpu"]
+    out_ckpt, out_npz = str(tmp_path / "c.npy"), str(tmp_path / "n.npy")
+    cli_extract.main([*common, "--checkpoint_dir", run, "--output", out_ckpt,
+                      *(["--use_ema"] if use_ema else [])])
+    cli_extract.main([*common, "--variables_npz", npz, "--output", out_npz])
+    out = capsys.readouterr().out
+    assert out.count("kernel launches: fused_block=0") == 2
+    got, want = np.load(out_ckpt), np.load(out_npz)
+    assert got.shape == (10, 16)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pairs_formats_match_jax(tmp_path):

@@ -231,6 +231,48 @@ def test_fused_block_pair_equals_lone(cuda, monkeypatch, shape):
     assert torch.equal(outs[0], outs[1])
 
 
+# the face stem's stride-1 stages at 112 (BASELINE config 4 served by
+# --engine fused): 56x56x256 at 256 images (14x14 halo tiles, grid 4,096)
+# and at 512 (a batch of 256 faces and their flips), then 28x28x512,
+# 14x14x1024 and 7x7x2048, each an identity block
+_FACE_STAGES = [(256, 56, 56, 256, 64, 256), (512, 56, 56, 256, 64, 256),
+                (256, 28, 28, 512, 128, 512), (256, 14, 14, 1024, 256, 1024),
+                (256, 7, 7, 2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("shape", _FACE_STAGES, ids=str)
+def test_fused_block_kernel_face_stem_stages(cuda, shape):
+    n, h, w, cin, b, c = shape
+    blk = _block(cuda, cin, b, c, False)
+    x = torch.relu(torch.randn(n, h, w, cin, generator=cuda, device="cuda")
+                   ).to(torch.bfloat16)
+    before = tfb.fused_bottleneck_block.launches
+    got = tfb.fused_bottleneck_block(x, blk)
+    torch.cuda.synchronize()
+    assert tfb.fused_bottleneck_block.launches == before + 1
+    _close(got, tfb.bottleneck_block_reference(x, blk))
+
+
+def test_fused_engine_face_stem_matches_folded(cuda):
+    """resnet_v1_50 with the face stem at 112: 12 fused launches a
+    forward (2 + 3 + 5 + 2: each stage's strided entry block stays
+    folded), embeddings within bf16 rounding of the folded engine."""
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+    from tf_face_toolbox_tpu_torch.serving import make_serving_apply
+
+    net = create_network("resnet_v1_50", stem="face", dtype=torch.bfloat16)
+    flat = random_variables(net, seed=0)
+    x = torch.randn(16, 112, 112, 3, generator=cuda, device="cuda")
+    folded = make_serving_apply(net, flat, device="cuda")(x)
+    before = tfb.fused_bottleneck_block.launches
+    fused = make_serving_apply(net, flat, device="cuda", use_kernels=True)(x)
+    torch.cuda.synchronize()
+    assert tfb.fused_bottleneck_block.launches == before + 12
+    cos = torch.nn.functional.cosine_similarity(fused.double(),
+                                                folded.double())
+    assert cos.min().item() >= 0.999
+
+
 def test_fused_block_kernel_refuses_f32(cuda):
     blk = {k: (v.float() if v.dtype == torch.bfloat16 else v)
            for k, v in _block(cuda, 64, 32, 64, False).items()}
@@ -604,3 +646,51 @@ def test_train_step_on_the_card_launches_or_raises(cuda):
     assert torch.isfinite(m["loss"])
     with pytest.raises(ValueError, match="uint8"):
         step(state, x.float(), y)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A CUDA training state (momentum and EMA after two steps) saved and
+    restored onto the card (map_location) into a fresh state: every
+    tensor and momentum buffer bit-equal and on the card; the next step
+    from both states is bit-equal too (deterministic cuDNN)."""
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    cfg = TrainConfig(network="resnet_tiny", num_classes=10,
+                      embedding_dim=16, image_size=16, crop_from=20,
+                      global_batch=8, ema_decay=0.9)
+    x = torch.randint(0, 256, (3, 8, 20, 20, 3), generator=cuda,
+                      device="cuda", dtype=torch.uint8)
+    y = torch.randint(0, 10, (3, 8), generator=cuda, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, net = create_train_state(cfg, 0)
+        step = make_train_step(net, cfg, state)
+        for i in range(2):
+            state, _ = step(state, x[i], y[i])
+        mgr = CheckpointManager(str(tmp_path / "c"))
+        assert mgr.maybe_save(state, force=True)
+        fresh, net2 = create_train_state(cfg, 5)
+        fresh = mgr.restore(fresh)
+        opt, opt2 = (s.opt_state["optimizer"] for s in (state, fresh))
+        for name, p in {**state.params, "classifier": state.classifier}.items():
+            q = {**fresh.params, "classifier": fresh.classifier}[name]
+            assert q.device.type == "cuda" and torch.equal(p, q), name
+            b, b2 = (o.state[t]["momentum_buffer"] for o, t in
+                     ((opt, p), (opt2, q)))
+            assert b2.device.type == "cuda" and torch.equal(b, b2), name
+        for a, b in ((state.batch_stats, fresh.batch_stats),
+                     (state.ema_params, fresh.ema_params)):
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+        assert (fresh.step, fresh.opt_state["count"]) == (2, 2)
+        state, _ = step(state, x[2], y[2])
+        fresh, _ = make_train_step(net2, cfg, fresh)(fresh, x[2], y[2])
+        for k in state.params:
+            assert torch.equal(state.params[k], fresh.params[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    raw = mgr.restore_raw()
+    assert raw["classifier"].device.type == "cpu"

@@ -2,14 +2,22 @@
 the training iterators and the metric logger.
 
 The trainer's numbers are held against the JAX package in
-tests/test_torch_trainer.py; here the command line and the loop around
-it run end to end with ``--device cpu`` and ``resnet_tiny``.
+tests/test_torch_trainer.py, checkpoints in tests/test_torch_checkpoint.py;
+here the command line and the loop around it run end to end with
+``--device cpu`` and ``resnet_tiny``: SIGTERM and resume, the data
+stream's alignment on resume, and the in-training LFW hook (against
+the JAX package's extraction and verification).
 """
 
 import inspect
+import logging
 import os
+import re
+import signal
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,6 +28,7 @@ from tf_face_toolbox_tpu.data.pipeline import (
     batch_iterator as jax_batch_iterator,
 )
 from tf_face_toolbox_tpu_torch.cli import train as cli_train
+from tf_face_toolbox_tpu_torch.cli.eval_lfw import load_pairs
 from tf_face_toolbox_tpu_torch.data.format import pack_arrays
 from tf_face_toolbox_tpu_torch.data.pipeline import (
     FaceShardSource,
@@ -28,6 +37,7 @@ from tf_face_toolbox_tpu_torch.data.pipeline import (
     host_prefetch,
     native_batch_iterator,
 )
+from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
 from tf_face_toolbox_tpu_torch.train.loop import train_loop
 from tf_face_toolbox_tpu_torch.train.trainer import (
     TrainConfig,
@@ -171,13 +181,171 @@ def test_loop_raises_on_an_unguarded_nonfinite_loss():
                    log_every=1, device="cpu")
 
 
-def test_loop_refuses_checkpoint_arguments():
-    for kw in (dict(train_dir="/tmp/run"), dict(eval_fn=lambda s: {}),
-               dict(keep_best="lfw_accuracy"),
-               dict(warm_start=lambda s: s), dict(teacher=(None, {}))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train_loop(_tiny_cfg(), iter(()), num_steps=1, device="cpu",
-                       **kw)
+def test_loop_refuses_a_teacher_naming_item_10c():
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        train_loop(_tiny_cfg(), iter(()), num_steps=1, device="cpu",
+                   teacher=(None, {}))
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--keep_best=lfw_accuracy", "--train_dir=run"], "needs --eval_data"),
+    (["--keep_best=lfw_accuracy", "--eval_data=a", "--eval_pairs=b",
+      "--eval_every=1"], "pass --train_dir")], ids=["no_eval", "no_train_dir"])
+def test_keep_best_refusals(argv, why):
+    with pytest.raises(SystemExit, match=why):
+        cli_train.main([*TINY, *argv])
+
+
+def test_cli_train_preemption_flush(tmp_path):
+    """SIGTERM mid-training flushes a checkpoint at the CURRENT step and
+    exits 0; the same command then continues from it."""
+    run = str(tmp_path / "run")
+    args = [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
+            *TINY, "--data=synthetic", "--num_classes=10",
+            f"--train_dir={run}", "--num_steps=100000",
+            "--save_every=100000", "--log_every=1"]
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    captured = []
+    stepped = threading.Event()
+
+    def reader():
+        for line in proc.stdout:
+            captured.append(line)
+            if re.match(r"step [3-9]:", line):
+                stepped.set()
+
+    threading.Thread(target=reader, daemon=True).start()
+    try:
+        assert stepped.wait(timeout=240), captured[-8:]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0, captured[-8:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    deadline = time.time() + 5    # the reader drains the pipe
+    while time.time() < deadline and not any("preempted:" in ln
+                                             for ln in captured):
+        time.sleep(0.1)
+    flushed = [ln for ln in captured
+               if ln.startswith("preempted: checkpoint flushed at step=")]
+    assert flushed, captured[-8:]
+    assert "resume with the same command" in flushed[0]
+    step = int(re.search(r"step=(\d+)", flushed[0]).group(1))
+    assert step >= 3
+    assert CheckpointManager(run).all_steps() == [step]
+    launches = [ln for ln in captured if ln.startswith("kernel launches:")]
+    assert launches == ["kernel launches: preprocess=0\n"]
+
+    again = subprocess.run([*args[:-3], f"--num_steps={step + 2}",
+                            "--save_every=100000", "--log_every=1"],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300, env=env)
+    assert again.returncode == 0, again.stderr[-2000:]
+    assert f"resumed from step {step}" in again.stderr
+    logged = [int(m) for m in re.findall(r"^step (\d+):", again.stderr,
+                                         re.M)]
+    assert logged == [step + 1, step + 2]
+    assert again.stdout.strip().splitlines()[-1].startswith(
+        f"done: step={step + 2} loss=")
+    assert CheckpointManager(run).all_steps() == [step, step + 2]
+
+
+@pytest.mark.parametrize("loader", ["python", "native"])
+def test_cli_resume_continues_the_data_stream(shard, tmp_path, loader):
+    """2 steps, then a resumed run to 5 (across the 3-step epoch's end),
+    on a packed shard: the checkpoint equals a straight 5-step run's,
+    bit for bit; the data stream resumes at (epoch, step) = divmod(2, 3)
+    and the augment draws at step 2."""
+    common = [*TINY, f"--data={shard}", f"--loader={loader}",
+              "--save_every=100", "--ema_decay=0.5"]
+    straight, resumed = str(tmp_path / "a"), str(tmp_path / "b")
+    cli_train.main([*common, f"--train_dir={straight}", "--num_steps=5"])
+    cli_train.main([*common, f"--train_dir={resumed}", "--num_steps=2"])
+    cli_train.main([*common, f"--train_dir={resumed}", "--num_steps=5"])
+    want = CheckpointManager(straight).restore_raw(5)
+    got = CheckpointManager(resumed).restore_raw(5)
+    assert CheckpointManager(resumed).all_steps() == [2, 5]
+    for part in ("params", "batch_stats", "momentum", "ema_params"):
+        assert got[part].keys() == want[part].keys()
+        for k in want[part]:
+            assert torch.equal(got[part][k], want[part][k]), (part, k)
+    assert torch.equal(got["classifier"], want["classifier"])
+    assert (got["step"], got["count"]) == (want["step"], want["count"])
+
+
+def _pairs_file(path, n_faces, n_pairs=20):
+    with open(path, "w") as f:
+        f.write("# idx1 idx2 label\n")
+        for i in range(n_pairs):
+            f.write(f"{i % n_faces} {(i + 7) % n_faces} {i % 2}\n")
+    return str(path)
+
+
+def test_eval_hook_matches_jax_and_leaves_the_module(shard, tmp_path):
+    """build_eval_fn on a tiny EMA state: the EMA weights (here the JAX
+    variables, while the trained params drift away from them) give the
+    JAX package's extract_shard + verify_pairs report on the same shard
+    and pairs; the training module keeps its mode, values and autograd
+    flags."""
+    import jax
+
+    from tests.test_serving import _warm_variables
+    from tf_face_toolbox_tpu.extract import extract_shard as jax_extract
+    from tf_face_toolbox_tpu.interop.port import flatten_variables
+    from tf_face_toolbox_tpu.models import create_network as jax_network
+    from tf_face_toolbox_tpu.ops.verification import verify_pairs as jax_vp
+
+    jnet = jax_network("resnet_tiny", embedding_dim=16)
+    variables = _warm_variables(jnet, jax.random.key(0), (4, 16, 16, 3))
+    pairs = _pairs_file(tmp_path / "pairs.txt", 24)
+    i1, i2, labels = load_pairs(pairs)
+    emb = jax_extract(jnet, variables, JaxSource(shard), image_size=16,
+                      crop_from=20, batch=8)
+    want = jax_vp(emb[i1], emb[i2], labels)
+
+    cfg = _tiny_cfg(ema_decay=0.5)
+    state, net = create_train_state(cfg, 0,
+                                    variables=flatten_variables(variables),
+                                    device="cpu")
+    with torch.no_grad():
+        for p in state.params.values():
+            p.add_(0.05)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    args = cli_train.parse_args([f"--eval_data={shard}",
+                                 f"--eval_pairs={pairs}", "--eval_every=1",
+                                 "--eval_batch=8"])
+    got = cli_train.build_eval_fn(cfg, args, "cpu")(state)
+    assert got["lfw_accuracy"] == pytest.approx(want["accuracy_mean"],
+                                                abs=1e-9)
+    assert got["lfw_std"] == pytest.approx(want["accuracy_std"], abs=1e-9)
+    assert np.isnan(got["tar_at_far_1e2"]) == np.isnan(
+        want.get("tar@far=0.01", np.nan))
+    assert net.training
+    assert all(p.requires_grad for p in net.parameters())
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert cli_train.build_eval_fn(cfg, cli_train.parse_args([]),
+                                   "cpu") is None
+
+
+def test_cli_eval_hook_keeps_the_best(shard, tmp_path, caplog):
+    run = str(tmp_path / "run")
+    pairs = _pairs_file(tmp_path / "pairs.txt", 24)
+    caplog.set_level(logging.INFO)
+    cli_train.main([*TINY, f"--data={shard}", "--loader=python",
+                    f"--train_dir={run}", f"--eval_data={shard}",
+                    f"--eval_pairs={pairs}", "--eval_every=2",
+                    "--eval_batch=8", "--keep_best=lfw_accuracy"])
+    evals = [r.getMessage() for r in caplog.records
+             if "eval/lfw_accuracy=" in r.getMessage()]
+    assert [m.split(":")[0] for m in evals] == ["step 2", "step 4"]
+    info = CheckpointManager(run).best_info()
+    assert info["name"] == "lfw_accuracy" and info["step"] in (2, 4)
+    assert CheckpointManager(os.path.join(run, "best")).all_steps() == [
+        info["step"]]
 
 
 def test_loop_stops_when_asked():

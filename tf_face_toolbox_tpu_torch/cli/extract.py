@@ -1,13 +1,18 @@
 """Feature-extraction CLI: weights + FaceShard -> embeddings file.
 
 Counterpart of ``tf_face_toolbox_tpu/cli/extract.py``: stream faces,
-write flip-averaged L2-normalized embeddings to disk. Weights arrive
-as the JAX package's ``.npz`` hand-off (``--variables_npz``); without
-it the network gets seeded random weights.
+write flip-averaged L2-normalized embeddings to disk. Weights come from
+a port train directory (``--checkpoint_dir``, its latest step;
+``--use_ema`` for the EMA set) or the JAX package's ``.npz`` hand-off
+(``--variables_npz``); with neither, the network gets seeded random
+weights. Prints the kernel launches it made.
 
     python -m tf_face_toolbox_tpu_torch.cli.extract \\
         --variables_npz=/tmp/r50.npz --data=/data/lfw.faceshard \\
         --output=/tmp/lfw_embeddings.npy --stem=imagenet --engine=fused
+
+    python -m tf_face_toolbox_tpu_torch.cli.extract --checkpoint_dir=/tmp/run \\
+        --data=/data/lfw.faceshard --output=/tmp/lfw.npy --engine=fused
 """
 
 from __future__ import annotations
@@ -19,7 +24,11 @@ import logging
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint_dir", default="",
-                   help="train dir with orbax checkpoints (not yet ported)")
+                   help="port train dir: serve its latest checkpoint")
+    p.add_argument("--use_ema", dest="use_ema", action="store_true",
+                   default=False,
+                   help="with --checkpoint_dir: serve the EMA weights")
+    p.add_argument("--nouse_ema", dest="use_ema", action="store_false")
     p.add_argument("--variables_npz", default="",
                    help="serve from a .npz variables file in the JAX key "
                         "space ('' = random init, seed 0)")
@@ -72,11 +81,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.checkpoint_dir:
-        raise SystemExit("--checkpoint_dir (orbax train checkpoints) is not "
-                         "yet ported (ROADMAP.md §1 item 12); export the "
-                         "weights with the JAX package and pass "
-                         "--variables_npz")
+    if args.checkpoint_dir and args.variables_npz:
+        raise SystemExit("--variables_npz and --checkpoint_dir are exclusive")
     if args.bundle:
         raise SystemExit("--bundle is not yet ported (ROADMAP.md §1 "
                          "item 16); pass --variables_npz")
@@ -100,22 +106,30 @@ def main(argv=None) -> None:
         flatten_variables, load_jax_variables, load_variables_npz)
     from tf_face_toolbox_tpu_torch.io import save_embeddings
     from tf_face_toolbox_tpu_torch.models import create_network, random_variables
-    from tf_face_toolbox_tpu_torch.serving import make_serving_apply
+    from tf_face_toolbox_tpu_torch.pretrained import load_variables
+    from tf_face_toolbox_tpu_torch.serving import fused_block, make_serving_apply
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
                          "pass --device cpu to run on the host")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    net = create_network(args.network, embedding_dim=args.embedding_dim,
-                         dtype=dtype, stem=args.stem, head_variant=args.head,
-                         input_size=args.image_size)
-    if args.variables_npz:
-        flat = flatten_variables(load_variables_npz(args.variables_npz))
-        logging.info("serving variables from %s", args.variables_npz)
+    if args.checkpoint_dir:
+        net, flat = load_variables(
+            args.checkpoint_dir, args.network, args.embedding_dim,
+            args.image_size, dtype, use_ema=args.use_ema, stem=args.stem,
+            head=args.head)
     else:
-        flat = random_variables(net, seed=0)
-        logging.info("no --variables_npz: seeded random weights")
+        net = create_network(args.network, embedding_dim=args.embedding_dim,
+                             dtype=dtype, stem=args.stem,
+                             head_variant=args.head,
+                             input_size=args.image_size)
+        if args.variables_npz:
+            flat = flatten_variables(load_variables_npz(args.variables_npz))
+            logging.info("serving variables from %s", args.variables_npz)
+        else:
+            flat = random_variables(net, seed=0)
+            logging.info("no --variables_npz: seeded random weights")
 
     engine = "folded" if args.engine == "auto" else args.engine
     if engine == "module":
@@ -123,6 +137,7 @@ def main(argv=None) -> None:
     else:
         apply_fn = make_serving_apply(net, flat, device=device,
                                       use_kernels=engine == "fused")
+    before = fused_block.fused_bottleneck_block.launches
     emb = extract_shard(
         net, flat, FaceShardSource(args.data), image_size=args.image_size,
         crop_from=args.crop_from, batch=args.batch, loader=args.loader,
@@ -132,6 +147,9 @@ def main(argv=None) -> None:
     if args.output_dtype == "float16":
         emb = emb.astype(np.float16)
     save_embeddings(args.output, emb)
+    print("kernel launches: fused_block="
+          f"{fused_block.fused_bottleneck_block.launches - before}",
+          flush=True)
     print(f"wrote {emb.shape} {emb.dtype} embeddings to {args.output}")
 
 

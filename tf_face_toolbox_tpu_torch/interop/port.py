@@ -83,21 +83,39 @@ def load_variables_npz(path: str) -> dict:
         return unflatten_variables({k: data[k] for k in data.files})
 
 
+# state_dict leaf name -> (collection, JAX leaf) for the rank-free ones
+_JAX_LEAF = {"bias": ("params", "bias"),
+             "running_mean": ("batch_stats", "mean"),
+             "running_var": ("batch_stats", "var")}
+
+
+def jax_key(name: str, tensor: torch.Tensor) -> tuple[str, str]:
+    """(JAX key, kind) of a port network's ``state_dict`` entry, from its
+    name and rank alone: a 4-d ``weight`` is a conv kernel, a 2-d one a
+    Dense kernel, a 1-d one a BN scale. The one name -> key mapping:
+    ``jax_leaves`` names a network's tensors through it, and a saved
+    state (no network at hand) is named through it too."""
+    path, leaf = name.rsplit(".", 1)
+    path = path.replace(".", "/")
+    if leaf == "weight":
+        kind = {4: "conv", 2: "dense"}.get(tensor.dim(), "plain")
+        jleaf = "scale" if kind == "plain" else "kernel"
+        return f"params/{path}/{jleaf}", kind
+    collection, jleaf = _JAX_LEAF[leaf]
+    return f"{collection}/{path}/{jleaf}", "plain"
+
+
 def jax_leaves(net: nn.Module) -> Iterator[tuple[str, torch.Tensor, str]]:
-    """(JAX key, torch tensor, kind) for every tensor of ``net``; kind
-    is "conv" (HWIO<->OIHW), "dense" ((in,out)<->(out,in)) or "plain"."""
+    """(JAX key, torch tensor, kind) for every tensor of ``net``'s
+    ConvBN, Dense and BatchNorm modules, in module order; kind is "conv"
+    (HWIO<->OIHW), "dense" ((in,out)<->(out,in)) or "plain"."""
     for name, mod in net.named_modules():
-        path = name.replace(".", "/")
-        if isinstance(mod, ConvBN):
-            yield f"params/{path}/kernel", mod.weight, "conv"
-        elif isinstance(mod, nn.Linear):
-            yield f"params/{path}/kernel", mod.weight, "dense"
-            yield f"params/{path}/bias", mod.bias, "plain"
-        elif isinstance(mod, BatchNorm):
-            yield f"params/{path}/scale", mod.weight, "plain"
-            yield f"params/{path}/bias", mod.bias, "plain"
-            yield f"batch_stats/{path}/mean", mod.running_mean, "plain"
-            yield f"batch_stats/{path}/var", mod.running_var, "plain"
+        if isinstance(mod, (ConvBN, nn.Linear, BatchNorm)):
+            prefix = f"{name}." if name else ""
+            for leaf, t in (*mod.named_parameters(recurse=False),
+                            *mod.named_buffers(recurse=False)):
+                key, kind = jax_key(prefix + leaf, t)
+                yield key, t, kind
 
 
 def jax_shape(tensor: torch.Tensor, kind: str) -> tuple[int, ...]:
@@ -116,6 +134,31 @@ def _to_torch_layout(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense":
         return arr.T
     return arr
+
+
+def to_jax_layout(tensor: torch.Tensor, kind: str) -> np.ndarray:
+    """A host f32 copy of ``tensor`` in the JAX layout."""
+    arr = tensor.detach().to("cpu", torch.float32).numpy()
+    if kind == "conv":
+        arr = np.transpose(arr, (2, 3, 1, 0))
+    elif kind == "dense":
+        arr = arr.T
+    return np.ascontiguousarray(arr)
+
+
+def from_jax_layout(arr, kind: str) -> torch.Tensor:
+    """A JAX-layout array as a torch-layout f32 tensor (a copy)."""
+    return torch.tensor(_to_torch_layout(np.asarray(arr, np.float32), kind))
+
+
+def named_to_flat(named: dict) -> dict[str, np.ndarray]:
+    """``{state_dict name: tensor}`` -> the flat JAX-key dict in JAX
+    layouts (the ``.npz`` key space)."""
+    out = {}
+    for name, t in named.items():
+        key, kind = jax_key(name, t)
+        out[key] = to_jax_layout(t, kind)
+    return out
 
 
 def load_jax_variables(net: nn.Module, flat: dict) -> nn.Module:
@@ -139,7 +182,7 @@ def load_jax_variables(net: nn.Module, flat: dict) -> nn.Module:
             if arr.shape != jax_shape(tensor, kind):
                 raise ValueError(f"{key}: variables have {arr.shape}, the "
                                  f"network wants {jax_shape(tensor, kind)}")
-            tensor.copy_(torch.tensor(_to_torch_layout(arr, kind)))
+            tensor.copy_(from_jax_layout(arr, kind))
             written.add(id(tensor))
     unset = [name for name, t in (*net.named_parameters(),
                                   *net.named_buffers())

@@ -1,0 +1,57 @@
+"""Backbone variables from a port train checkpoint (flag-free).
+
+Counterpart of ``tf_face_toolbox_tpu/pretrained.py``: the logic behind
+every consumer of trained weights (``cli.extract --checkpoint_dir``,
+the daemon) lives here rather than in a CLI module.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+
+def load_variables(checkpoint_dir: str, network: str, embedding_dim: int,
+                   image_size: int, dtype: torch.dtype,
+                   use_ema: bool = False, stem: str = "face",
+                   head: str = "gap", step: int | None = None):
+    """Backbone variables from a train checkpoint.
+
+    Returns ``(net, flat)``: the network (eval mode, on the host,
+    holding ``flat``) and its variables as a flat dict in the JAX key
+    space and layouts (``params/BottleneckBlock_0/ConvBN_0/kernel``,
+    ...), which ``serving.make_serving_apply`` and
+    ``interop.port.load_jax_variables`` take. The port's checkpoint
+    names every tensor, so it is read raw, with no template: the
+    classifier is not needed to serve. ``use_ema`` selects the EMA
+    weight set (with the running BN statistics); ``step`` pins a
+    retained checkpoint (None = the latest).
+    """
+    from tf_face_toolbox_tpu_torch.interop.port import (
+        load_jax_variables, named_to_flat)
+    from tf_face_toolbox_tpu_torch.models import create_network
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(checkpoint_dir)
+    meta = mgr.metadata(step)
+    if meta is None:
+        raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
+    heads = mgr.head_state_children(meta)
+    if heads:
+        raise NotImplementedError(
+            f"checkpoint with loss-head state {sorted(heads)}: the adaptive "
+            "heads are not ported yet (ROADMAP.md §1 item 9)")
+    raw = mgr.restore_raw(meta["step"])
+    params = raw["params"]
+    if use_ema:
+        if "ema_params" not in raw:
+            raise ValueError("--use_ema set but checkpoint has no EMA")
+        params = raw["ema_params"]
+    flat = named_to_flat({**params, **raw["batch_stats"]})
+    net = create_network(network, embedding_dim=embedding_dim, dtype=dtype,
+                         stem=stem, head_variant=head, input_size=image_size)
+    logging.info("restored step %d from %s (%d identities, ema=%s)",
+                 raw["step"], checkpoint_dir, raw["classifier"].shape[0],
+                 use_ema)
+    return load_jax_variables(net, flat).eval(), flat

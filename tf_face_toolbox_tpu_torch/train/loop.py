@@ -1,24 +1,29 @@
-"""The training loop: batches -> step_fn -> metrics.
+"""The training loop: batches -> step_fn -> metrics -> checkpoints ->
+resume.
 
-Counterpart of ``tf_face_toolbox_tpu/train/loop.py`` without
-checkpoints: ``train_dir``, ``eval_fn``, ``keep_best``, ``warm_start``
-and ``teacher`` raise naming ROADMAP.md §1 item 12. Metrics stay on the
-device between log points (``log_every``); the ``skip_nonfinite``
-flags settle every min(log_every, 100, max_consecutive_skips) steps and
-at log points, and ``max_consecutive_skips`` skips in a row raise
-``FloatingPointError``.
+Counterpart of ``tf_face_toolbox_tpu/train/loop.py`` on one device. A
+``train_dir`` holding a checkpoint resumes from its latest step (the
+caller aligns the data iterator); ``warm_start`` applies only to a fresh
+start. Metrics stay on the device between log points (``log_every``);
+the ``skip_nonfinite`` flags settle every min(log_every, 100,
+max_consecutive_skips) steps and at log points, and
+``max_consecutive_skips`` skips in a row raise ``FloatingPointError``.
+Distillation (``teacher``) raises naming ROADMAP.md §1 item 10c.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Iterator
 
 import numpy as np
 
+from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 from tf_face_toolbox_tpu_torch.train.trainer import (
     TrainConfig,
+    _not_ported,
     create_train_state,
     make_train_step,
 )
@@ -34,36 +39,54 @@ class LoopResult:
 def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                num_steps: int,
                train_dir: str | None = None,
+               save_every: int = 1000,
                log_every: int = 100,
                net=None,
                rng_seed: int = 0,
                logger: MetricLogger | None = None,
                eval_fn=None,
+               eval_every: int = 0,
                keep_best: str = "",
                should_stop: Callable[[], bool] | None = None,
                warm_start=None,
                teacher=None,
                max_consecutive_skips: int = 100,
                device="cuda") -> LoopResult:
-    """Train a fresh state for ``num_steps`` steps on ``device``.
+    """Run (or resume) training to ``num_steps`` total steps on ``device``.
 
     ``batches`` yields {'image', 'label'} (numpy or tensors on
-    ``device``). ``should_stop``: polled before each step; a True ends
-    the loop early (``last_metrics["preempted"]`` = 1).
+    ``device``). ``train_dir``: checkpoints every ``save_every`` steps
+    and at the end; a checkpoint there is resumed from, with the
+    optimizer, BN statistics, step and rng as saved. ``warm_start``:
+    ``state -> state`` (``train.finetune``), applied only when the run
+    starts fresh. ``eval_fn(state) -> {name: value}`` every
+    ``eval_every`` steps, logged as ``eval/<name>``; ``keep_best`` names
+    one of its metrics (higher is better) whose improvements are saved
+    to ``<train_dir>/best``. ``should_stop``: polled before each step; a
+    True ends the loop early and flushes a checkpoint at the current
+    step (``last_metrics["preempted"]`` = 1).
     """
-    for name, value in (("train_dir (checkpoints, resume)", train_dir),
-                        ("eval_fn", eval_fn), ("keep_best", keep_best),
-                        ("warm_start (fine-tune)", warm_start),
-                        ("teacher (distillation)", teacher)):
-        if value:
-            raise NotImplementedError(f"train_loop {name} is not ported yet "
-                                      "(ROADMAP.md §1 item 12)")
+    if teacher is not None:
+        _not_ported("train_loop teacher (distillation)", "10c")
     state, net = create_train_state(cfg, rng_seed, net=net, device=device)
+    resumed = False
+    mgr = None
+    if train_dir:
+        mgr = CheckpointManager(train_dir, save_every=save_every)
+        if mgr.latest_step() is not None:
+            # restore raises the config-mismatch errors (EMA, head state)
+            state = mgr.restore(state)
+            resumed = True
+            logging.info("resumed from step %d in %s", state.step,
+                         mgr.directory)
+    if warm_start is not None and not resumed:
+        state = warm_start(state)
     step_fn = make_train_step(net, cfg, state)
-    logger = logger or MetricLogger(batch_size=cfg.global_batch)
+    logger = logger or MetricLogger(train_dir, batch_size=cfg.global_batch)
 
     metrics: dict = {}
     preempted = False
+    keep_best_warned = False
     skip_pending: list = []
     skip_total = skip_consec = 0
     settle_cadence = min(log_every or 100, 100,
@@ -93,6 +116,8 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
 
     while state.step < num_steps:
         if should_stop is not None and should_stop():
+            # preemption: the checkpoint below is flushed at the CURRENT
+            # step, so no finished step is lost
             preempted = True
             break
         batch = next(batches)
@@ -112,6 +137,27 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                 raise FloatingPointError(
                     f"non-finite loss at step {step}: {host['loss']}")
             logger.log(step, host)
+        if eval_fn is not None and eval_every and step % eval_every == 0:
+            eval_metrics = eval_fn(state)
+            logger.log(step, {f"eval/{k}": v
+                              for k, v in eval_metrics.items()})
+            if keep_best and mgr is not None:
+                val = eval_metrics.get(keep_best)
+                if val is None and eval_metrics and not keep_best_warned:
+                    # a typo'd metric name would otherwise no-op for the
+                    # whole run with no diagnostic
+                    logging.warning(
+                        "keep_best=%r is not among the eval metrics %s: "
+                        "no best checkpoint will be saved", keep_best,
+                        sorted(eval_metrics))
+                    keep_best_warned = True
+                if val is not None and np.isfinite(val):
+                    mgr.save_best(state, step=step, metric=float(val),
+                                  name=keep_best)
+        if mgr is not None:
+            mgr.maybe_save(state, step=step)
+    if mgr is not None:
+        mgr.maybe_save(state, force=True)
     logger.flush()
     settle_skips()
     host = host_metrics()
