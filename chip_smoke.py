@@ -13,7 +13,9 @@ eval_identification CLIs. Training (BASELINE config 4): resnet_v1_50
 (face stem, bf16, f32 master weights), CosFace over 10,572 classes,
 batch 256, synthetic faces augmented through the preprocess kernel,
 by cli.train; then train -> preempt (SIGTERM) -> resume -> serve the
-trained checkpoint through the fused-block engine. Phases:
+trained checkpoint through the fused-block engine; then data-parallel
+training (BASELINE config 5 at the card's one replica) through torchrun.
+Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
 2. build: every CUDA kernel from tf_face_toolbox_tpu_torch/csrc
@@ -62,6 +64,20 @@ trained checkpoint through the fused-block engine. Phases:
     0.999, batch-centered >= 0.99); kernel 2 on each trained stage's
     stack (56x56x256, 28x28x512, 14x14x1024, 7x7x2048, each fed the
     previous stage's output) vs its plain version, its time and bound
+13. data-parallel training (BASELINE config 5; this machine has one
+    GPU, so its 8 replicas of 256 are cut to 1): (a) torchrun, one rank,
+    NCCL: cli.train --preset v5e8_data_parallel --multihost
+    --pallas_input for 20 steps (kernel 1 once a step), then bench_train
+    --preset v5e8_data_parallel (faces/s, ms/step, idle share, peak
+    memory, the NCCL all-reduce of the step's gradients, timed apart:
+    the trainer skips it at one rank); (b) two ranks sharing cuda:0 over
+    gloo, r50 face stem, 32 rows a rank, 3 bf16 steps: the ranks' states
+    equal (max |diff| 0), and held against replica_loop_step in this
+    process (per-leaf update cosine >= 0.999, BN running statistics
+    within 2 bf16 steps of each value, or of 1% of its tensor's largest
+    where smaller, losses within 1%); (c) remat at the batch of a
+    replica (256): False, True, "save_convs": gradients against no
+    remat (deterministic cuDNN), ms/step and peak memory
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -1157,6 +1173,233 @@ def phase_checkpoint(g, work: str) -> dict:
             "bytes": nbytes, "face_stages": stats, "seconds": total}
 
 
+def _dp_batches(cfg, steps: int) -> list:
+    """Phase 13(b)'s global batches: uint8 faces and labels from a seed."""
+    rng = np.random.default_rng(13)
+    return [(rng.integers(0, 256, (cfg.global_batch, cfg.crop_from,
+                                   cfg.crop_from, 3), np.uint8),
+             rng.integers(0, cfg.num_classes, cfg.global_batch))
+            for _ in range(steps)]
+
+
+def _dp_rank(rank: int, world: int, port: int, cfg_kw: dict, steps: int,
+             out_path: str) -> None:
+    """Phase 13(b): one rank of a gloo group on cuda:0 (a spawned
+    process): ``steps`` data-parallel steps, then its state, losses and
+    kernel 1 launches to ``out_path``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
+        fused_preprocess)
+    from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    topo = init_distributed("cuda:0", backend="gloo")
+    try:
+        cfg = TrainConfig(**cfg_kw)
+        state, net = create_train_state(cfg, 0, mesh=topo,
+                                        device=topo.device)
+        step = make_train_step(net, cfg, state, mesh=topo)
+        fused_preprocess.launches = 0
+        losses, seconds = [], []
+        for x, y in _dp_batches(cfg, steps):
+            t0 = time.perf_counter()
+            state, m = step(state, x, y)
+            losses.append(float(m["loss"]))     # waits for the step
+            seconds.append(time.perf_counter() - t0)
+        torch.save({"state": _snapshot(state), "losses": losses,
+                    "seconds": seconds,
+                    "launches": fused_preprocess.launches}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _torchrun(args: list, timeout: int) -> subprocess.CompletedProcess:
+    """``python -m torch.distributed.run`` (torchrun) of one rank on this
+    card; fails the smoke unless it exits 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout)
+    expect(proc.returncode == 0, f"torchrun {' '.join(args[:3])} failed:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
+    """Phase 13: data-parallel training (BASELINE config 5)."""
+    import multiprocessing as mp
+    import socket
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.parallel.reference import (
+        replica_loop_step)
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state)
+
+    t0 = time.time()
+    say(f"[13 data parallel] {bench.gpu_info()}")
+    # (a) config 5 on the production path: torchrun, NCCL, one replica
+    proc = _torchrun(["tf_face_toolbox_tpu_torch.cli.train", "--preset",
+                      "v5e8_data_parallel", "--multihost", "--pallas_input",
+                      "--data", "synthetic", "--num_steps", "20",
+                      "--log_every", "10"], timeout=600)
+    out = proc.stdout.strip().splitlines()
+    expect(out and out[-1].startswith("done: step=20"),
+           f"torchrun cli.train printed {out[-3:]}")
+    launches = next(int(line.split("preprocess=")[1]) for line in out
+                    if line.startswith("kernel launches:"))
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in proc.stderr.splitlines()
+              if line.startswith("step ") and "loss=" in line]
+    say(f"  (a) torchrun cli.train --preset v5e8_data_parallel --multihost "
+        f"--pallas_input (NCCL, 1 rank of 256; the preset's 8 x 256 cut to "
+        f"the card's 1): {out[-1]}, losses {[round(v, 4) for v in losses]}, "
+        f"kernel 1 launches {launches} in 20 steps; {time.time() - t0:.1f} s")
+    expect(launches == 20, f"kernel 1 launched {launches} times in 20 steps")
+    expect(len(losses) == 2 and all(np.isfinite(losses)),
+           f"config-5 losses {losses}")
+    t1 = time.time()
+    proc = _torchrun(["tf_face_toolbox_tpu_torch.bench_train", "--preset",
+                      "v5e8_data_parallel", "--steps", "20", "--warmup", "5"],
+                     timeout=600)
+    timing = json.loads(proc.stdout.strip().splitlines()[-1])
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        timing["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+    ratio = timing["faces_per_sec_per_gpu"] / single_faces_per_sec
+    say(f"  (a) bench_train --preset v5e8_data_parallel under torchrun "
+        f"(NCCL, 1 rank): {timing['faces_per_sec_per_gpu']:.1f} faces/s a "
+        f"GPU, {timing['faces_per_sec']:.1f} in all, "
+        f"{timing['ms_per_step']:.2f} ms/step; {ratio:.4f} x phase 11's "
+        f"one-process {single_faces_per_sec:.1f}; peak memory "
+        f"{timing['peak_memory_gb']:.2f} GB; profiled "
+        f"{timing['profiled_wall_ms_per_step']:.2f} ms/step wall, "
+        f"{timing['device_ms_per_step']:.2f} device, idle "
+        f"{timing['idle_share']:.1%}; device ms by kind: {kinds}; one NCCL "
+        f"all-reduce of the step's {timing['exchange']['values']:,} "
+        f"gradient values ({timing['exchange']['bytes'] / 1e6:.1f} MB) "
+        f"{timing['exchange']['ms']:.3f} ms at 1 rank (timed apart: the "
+        f"trainer skips it at 1 rank); {time.time() - t1:.1f} s")
+    expect(np.isfinite(timing["loss"]), f"timed run's loss {timing['loss']}")
+
+    # (b) two ranks on cuda:0 over gloo against replica_loop_step
+    t1 = time.time()
+    cfg_kw = dict(bt.CONFIG4, global_batch=64)
+    cfg = TrainConfig(**cfg_kw)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
+    procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, cfg_kw, 3,
+                                                paths[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    expect([p.exitcode for p in procs] == [0, 0],
+           f"gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(path, weights_only=True) for path in paths]
+    diff, where = _max_diff(ranks[0]["state"], ranks[1]["state"])
+    expect(diff == 0, f"the two ranks' states differ by {diff} at {where}")
+    expect([r["launches"] for r in ranks] == [3, 3],
+           f"kernel 1 launches on the ranks {[r['launches'] for r in ranks]}")
+
+    state, net = create_train_state(cfg, 0, device="cuda")
+    before = _snapshot(state)
+    ref_losses = []
+    for x, y in _dp_batches(cfg, 3):
+        state, m = replica_loop_step(net, cfg, state, x, y, 2)
+        ref_losses.append(float(m["loss"]))
+    ref = _snapshot(state)
+    del state, net
+    torch.cuda.empty_cache()
+    got = ranks[0]["state"]
+    cos, stats_ulps, unmoved = {}, 0.0, 0
+    for k, want in ref.items():
+        if k.startswith(("params/", "classifier")) and not k.endswith(
+                bt.NOISE_ONLY):
+            a = (got[k] - before[k]).double().ravel()
+            b = (want - before[k]).double().ravel()
+            if not a.any() and not b.any():
+                unmoved += 1
+                continue
+            cos[k] = float(a @ b / (a.norm() * b.norm()))
+        elif k.startswith("batch_stats/"):
+            # the bf16 step at each value, or at 1% of the tensor's
+            # largest where the value is smaller
+            scale = torch.clamp_min(want.abs(), 0.01 * want.abs().max())
+            ulps = ((got[k] - want).abs() / bf16_ulp(scale)).max().item()
+            stats_ulps = max(stats_ulps, ulps)
+    worst = min(cos, key=cos.get)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]["losses"], ref_losses))
+    say(f"  (b) 2 gloo ranks on cuda:0, r50 face stem, 32 rows a rank, 3 "
+        f"bf16 steps: ranks' states max |diff| {diff} over {len(got)} "
+        f"tensors; losses {[round(v, 4) for v in ranks[0]['losses']]} vs "
+        f"replica_loop_step {[round(v, 4) for v in ref_losses]} (rel "
+        f"{loss_rel:.2e}); update cosine min {cos[worst]:.6f} ({worst}) "
+        f"over {len(cos)} leaves, {unmoved} unmoved in both; BN running "
+        f"statistics within {stats_ulps:.2f} bf16 steps; kernel 1 launches "
+        f"{[r['launches'] for r in ranks]}; rank 0's steps (host clock, "
+        f"the gloo exchange staged through the host included) "
+        f"{[round(v, 3) for v in ranks[0]['seconds']]} s; "
+        f"{time.time() - t1:.1f} s")
+    expect(cos[worst] >= 0.999, f"update cosine {cos[worst]} at {worst}")
+    expect(stats_ulps <= 2.0, f"BN running statistics {stats_ulps} bf16 "
+                              "steps from replica_loop_step's")
+    expect(loss_rel <= 0.01, f"losses {ranks[0]['losses']} vs {ref_losses}")
+
+    # (c) remat at a replica's batch (config 4/5: 256)
+    t1 = time.time()
+    cfg4 = bt.config4()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, cfg4.num_classes, (256,), generator=g,
+                           device="cuda")
+    grads = bt.remat_grads(cfg4, images, labels)
+    del images, labels
+    remat = {}
+    for name, value in bt.REMAT.items():
+        torch.cuda.empty_cache()
+        remat[name] = bt.time_training(cfg4, steps=10, warmup=3,
+                                       profile_steps=0, remat=value)
+    for name in bt.REMAT:
+        r = remat[name]
+        cmp = grads.get(str(bt.REMAT[name]))
+        say(f"  (c) remat={name}: {r['ms_per_step']:.2f} ms/step "
+            f"({r['faces_per_sec']:.1f} faces/s), peak memory "
+            f"{r['peak_memory_gb']:.2f} GB" + (
+                f"; gradients vs no remat: max |diff| "
+                f"{cmp['max_abs_diff']:.3g} (f32), cosine min "
+                f"{cmp['min_cos']:.6f}" if cmp else ""))
+    for name, cmp in grads.items():
+        expect(cmp["min_cos"] >= 0.9999, f"remat={name} gradients' cosine "
+                                         f"{cmp['min_cos']}")
+    say(f"  (c) {time.time() - t1:.1f} s; phase 13: {time.time() - t0:.1f} s")
+    return {"cli_launches": launches, "timing": timing,
+            "rank_launches": [r["launches"] for r in ranks],
+            "rank_step_s": ranks[0]["seconds"],
+            "ranks_max_diff": diff, "min_cos": cos[worst],
+            "stats_ulps": stats_ulps, "remat": remat, "remat_grads": grads}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; there is no CPU path")
@@ -1398,6 +1641,8 @@ def main() -> None:
     train = phase_train(g, work)
     # ---- 12. checkpoints: train -> preempt -> resume -> serve
     ckpt = phase_checkpoint(g, work)
+    # ---- 13. data-parallel training (config 5), through torchrun
+    dp = phase_data_parallel(work, train["time"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -1437,7 +1682,12 @@ def main() -> None:
          "train_library_route_ms": train["library_route_ms"],
          # phase 12's cli.train runs (preempted at step k, resumed to 20)
          "checkpoint_train_launches": ckpt["launches"],
-         "checkpoint_train_steps": [ckpt["k"], 20 - ckpt["k"]]},
+         "checkpoint_train_steps": [ckpt["k"], 20 - ckpt["k"]],
+         # phase 13: config 5 under torchrun (20 steps, one rank), and
+         # each of two gloo ranks on cuda:0 (3 steps)
+         "data_parallel_launches": dp["cli_launches"],
+         "data_parallel_steps": 20,
+         "data_parallel_rank_launches": dp["rank_launches"]},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

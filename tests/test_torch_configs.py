@@ -3,8 +3,9 @@
 Mirrors tests/test_configs.py: all eight presets exist; the eval-only
 dicts are the JAX ones; each train preset has the JAX TrainConfig's
 field values (bf16 compute); the single-GPU preset builds and trains a
-step at a cut size; the presets whose paths are not ported yet raise
-naming their ROADMAP.md item when asked for, never at import.
+step at a cut size; the data-parallel preset is served with its batch a
+device times the ranks; the presets whose paths are not ported yet
+raise naming their ROADMAP.md item when asked for, never at import.
 """
 
 import dataclasses
@@ -32,8 +33,7 @@ EVAL = ["extract_verify_cpu", "se_resnet_extract", "variant_backbones",
 TRAIN = ["casia_single_chip", "v5e8_data_parallel", "large_id_pfc_v5e8",
          "adaface_noisy_data"]
 # presets whose path is not ported yet -> the item their refusal names
-REFUSED = {"v5e8_data_parallel": "10b", "large_id_pfc_v5e8": "11",
-           "adaface_noisy_data": "9"}
+REFUSED = {"large_id_pfc_v5e8": "11", "adaface_noisy_data": "9"}
 
 
 def test_all_presets_present():
@@ -87,6 +87,39 @@ def test_the_single_gpu_preset_trains_a_step():
     state, m = step_fn(state, images, np.arange(8) % 24)
     assert np.isfinite(float(m["loss"])) and state.step == 1
     # warmup from 0: the first update's rate is base_lr * 0 / warmup
+    assert float(m["learning_rate"]) < preset.base_lr * 0.01
+
+
+def test_the_data_parallel_preset_is_served():
+    """Config 5: the published 2048 over 8 devices, or 256 a rank times
+    the ranks of the run; every other field as published."""
+    published = configs.get_config("v5e8_data_parallel")
+    assert isinstance(published, TrainConfig)
+    assert published.dtype == torch.bfloat16
+    assert published.global_batch == 2048
+    for world in (1, 2, 8):
+        cfg = configs.get_config("v5e8_data_parallel", world=world)
+        assert cfg == dataclasses.replace(published, global_batch=256 * world)
+    # a one-device preset keeps its batch whatever the ranks
+    assert configs.get_config("casia_single_chip",
+                              world=4).global_batch == 256
+
+
+def test_the_data_parallel_preset_trains_a_step_on_one_rank():
+    """At one rank, cut for the CPU as the single-GPU preset is."""
+    from tf_face_toolbox_tpu_torch.parallel.mesh import create_topology
+
+    preset = configs.get_config("v5e8_data_parallel", world=1)
+    cfg = dataclasses.replace(preset, network="resnet_tiny",
+                              embedding_dim=16, num_classes=24,
+                              image_size=12, crop_from=16, global_batch=8)
+    topo = create_topology(1)
+    state, net = create_train_state(cfg, 0, mesh=topo, device="cpu")
+    step_fn = make_train_step(net, cfg, state, mesh=topo)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (8, 16, 16, 3), np.uint8)
+    state, m = step_fn(state, images, np.arange(8) % 24)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
     assert float(m["learning_rate"]) < preset.base_lr * 0.01
 
 

@@ -694,3 +694,94 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         torch.backends.cudnn.deterministic = deterministic
     raw = mgr.restore_raw()
     assert raw["classifier"].device.type == "cpu"
+
+
+def test_nccl_at_one_rank_trains_a_step(cuda, monkeypatch):
+    """NCCL at one rank, joined from torchrun's variables: a step through
+    kernel 1 (one launch) equals the one-process step bit for bit
+    (deterministic cuDNN), since the collectives are the identity."""
+    import torch.distributed as dist
+
+    import torch_dist as td
+    from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    for key, value in dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0,
+                           LOCAL_WORLD_SIZE=1, MASTER_ADDR="localhost",
+                           MASTER_PORT=td.free_port()).items():
+        monkeypatch.setenv(key, str(value))
+    cfg = TrainConfig(network="resnet_tiny", num_classes=10,
+                      embedding_dim=16, image_size=16, crop_from=20,
+                      global_batch=8, pallas_input=True)
+    x = torch.randint(0, 256, (8, 20, 20, 3), generator=cuda, device="cuda",
+                      dtype=torch.uint8)
+    y = torch.randint(0, 10, (8,), generator=cuda, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    topo = init_distributed("cuda")
+    try:
+        assert topo.device == torch.device("cuda", 0)
+        assert dist.get_backend() == "nccl" and topo.data == 1
+        states = []
+        for mesh in (topo, None):
+            state, net = create_train_state(cfg, 0, mesh=mesh)
+            before = tpp.fused_preprocess.launches
+            state, m = make_train_step(net, cfg, state, mesh=mesh)(state, x,
+                                                                  y)
+            assert tpp.fused_preprocess.launches == before + 1
+            assert torch.isfinite(m["loss"])
+            states.append(state)
+        for k, p in states[0].params.items():
+            assert torch.equal(p, states[1].params[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_on_one_card_match_replica_loop(cuda):
+    """Two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    GPU), kernel 1 on each rank's augment: the ranks end bit-identical,
+    and within the f32 trainer tolerance after three steps (rtol 1e-3,
+    atol 3e-4; cuDNN may pick other algorithms in other processes) of
+    replica_loop_step in this process."""
+    import torch_dist as td
+
+    kw = {"augment": True, "crop_from": 20, "pallas_input": True,
+          "dtype": torch.float32}
+    with td.Ranks(2, device="cuda:0") as ranks:
+        (m0, s0, n0), (m1, s1, n1) = ranks.run(td.train_steps, cfg_kw=kw,
+                                               u8=True)
+    assert n0 == n1 == td.STEPS
+    want_m, want = td.replica_steps(kw, 2, u8=True, device="cuda")
+
+    def walk(a, b, path=""):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), path
+            for k in a:
+                yield from walk(a[k], b[k], f"{path}/{k}")
+        elif a is None or isinstance(a, (int, float)):
+            assert a == b, path
+        else:
+            yield path, a, b
+
+    for path, a, b in walk(s0[-1], s1[-1]):
+        assert np.array_equal(a, b), path
+    for path, a, b in walk(s0[-1], want[-1]):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=3e-4, err_msg=path)
+    for g, w in zip(m0, want_m):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+
+
+def test_remat_gradients_on_the_card(cuda):
+    """remat=True and "save_convs" give the gradients of no remat on the
+    card (deterministic cuDNN: the recompute repeats the same kernels),
+    at resnet_v1_50's face stem in bf16 over 32 faces."""
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+
+    cfg = bt.config4(num_classes=1000, global_batch=32)
+    images = torch.randint(0, 256, (32, 120, 120, 3), generator=cuda,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (32,), generator=cuda, device="cuda")
+    for name, r in bt.remat_grads(cfg, images, labels).items():
+        assert r["max_abs_diff"] == 0, (name, r)

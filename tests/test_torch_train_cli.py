@@ -98,8 +98,7 @@ def _set(name, default):
 
 _REFUSED = [(_set(name, d), item)
             for name, (d, item) in cli_train._NOT_PORTED.items()]
-_REFUSED += [(["--data=a.faceshard,b.faceshard"], "10b/11"),
-             (["--margin=adaface"], "9"), (["--margin=magface"], "9"),
+_REFUSED += [(["--margin=adaface"], "9"), (["--margin=magface"], "9"),
              (["--margin=curricular"], "9"), (["--loader=native_dct"], "17"),
              (["--optimizer=lars"], "10c"), (["--stem=space2depth"], "4")]
 
@@ -117,7 +116,7 @@ def test_flags_keep_the_jax_defaults():
 
     args = vars(cli_train.parse_args([]))
     for name, value in args.items():
-        if name == "device":
+        if name in ("device", "preset"):    # the port's own flags
             continue
         want = flags.FLAGS[name].default
         if name == "lr_boundaries":

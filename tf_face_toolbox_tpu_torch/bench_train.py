@@ -1,17 +1,24 @@
-"""Training on one card: faces/sec/GPU of margin-softmax training, and
-the step's two augment routes held against each other.
+"""Training on the card: faces/sec/GPU of margin-softmax training, the
+step's two augment routes held against each other, and remat's trade.
 
     python -m tf_face_toolbox_tpu_torch.bench_train [--batch 256]
-        [--steps 20] [--warmup 5]
+        [--steps 20] [--warmup 5] [--remat false|true|save_convs]
+    torchrun --standalone --nproc_per_node <GPUs> -m \
+        tf_face_toolbox_tpu_torch.bench_train --preset v5e8_data_parallel
 
-BASELINE config 4 at full width: ``resnet_v1_50`` (face stem, 512-d,
-bf16 compute, f32 master weights), CosFace over 10,572 classes, SGD,
+BASELINE config 4 at full width (or ``--preset``'s config, 5 being the
+same network and head): ``resnet_v1_50`` (face stem, 512-d, bf16
+compute, f32 master weights), CosFace over 10,572 classes, SGD,
 synthetic uint8 faces (120 x 120, cropped to 112) through the host and
-device prefetch. ``time_training`` times ``steps`` steps with CUDA events
-after ``warmup``, then traces 5 more with torch.profiler (device time
-by kernel, idle share), and counts the step's operations from the conv
-and Dense shapes. Prints one JSON line. There is no CPU mode: a
-measurement that finds no card fails.
+device prefetch, kernel 1 on the augment; ``--batch`` rows a GPU.
+Under torchrun every rank trains data-parallel over NCCL
+(``parallel/``) and rank 0 prints. ``time_training`` times ``steps``
+steps with CUDA events after ``warmup``, then traces 5 more with
+torch.profiler (device time by kernel kind, collectives included, and
+the idle share), and counts the step's operations from the conv and
+Dense shapes. ``--remat`` builds the network with that ``remat``
+argument. Prints one JSON line. There is no CPU mode: a measurement
+that finds no card fails.
 """
 
 from __future__ import annotations
@@ -19,12 +26,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
 
 from tf_face_toolbox_tpu_torch.train.trainer import (
+    StepParts,
     TrainConfig,
+    build_network,
     create_train_state,
     make_train_step,
 )
@@ -70,10 +80,15 @@ def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device) -> float:
     return sum(total)
 
 
+REMAT = {"false": False, "true": True, "save_convs": "save_convs"}
+
+
 def _kind(name: str) -> str:
     n = name.lower()
     if "preprocess" in n:
         return "kernel 1 (preprocess)"
+    if "nccl" in n:
+        return "collectives (NCCL)"
     if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                             "implicit")):
         return "convs (cuDNN)"
@@ -88,11 +103,12 @@ def _kind(name: str) -> str:
 
 
 def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
-                  profile_steps: int = 5, seed: int = 0,
-                  device="cuda") -> dict:
-    """ms/step and faces/sec (CUDA events over ``steps`` after
-    ``warmup``), peak memory, and device time by kernel and the idle
-    share over ``profile_steps`` traced steps."""
+                  profile_steps: int = 5, seed: int = 0, remat=False,
+                  mesh=None, device="cuda") -> dict:
+    """ms/step and faces/sec, in all and a GPU (CUDA events over
+    ``steps`` after ``warmup``), peak memory, and device time by kernel
+    and the idle share over ``profile_steps`` traced steps (none at 0).
+    ``mesh``: this rank's topology; every rank calls this."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -100,10 +116,14 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     from tf_face_toolbox_tpu_torch.data.pipeline import (
         device_prefetch, host_prefetch)
 
-    state, net = create_train_state(cfg, seed, device=device)
-    step_fn = make_train_step(net, cfg, state)
-    batches = device_prefetch(host_prefetch(synthetic_batches(cfg, seed)),
-                              device=device)
+    if mesh is not None:
+        device = mesh.device
+    rank, world = (mesh.rank, mesh.data) if mesh is not None else (0, 1)
+    state, net = create_train_state(cfg, seed, mesh=mesh, device=device,
+                                    net=build_network(cfg, remat=remat))
+    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    batches = device_prefetch(host_prefetch(
+        synthetic_batches(cfg, seed, rank, world)), device=device)
 
     def run(n):
         nonlocal state
@@ -129,6 +149,15 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     ms = start.elapsed_time(end) / steps
     loss = float(m["loss"])
     peak = torch.cuda.max_memory_allocated()
+    out = {"batch": cfg.global_batch, "ranks": world, "steps": steps,
+           "warmup": warmup, "remat": remat,
+           "pallas_input": cfg.pallas_input, "ms_per_step": ms,
+           "faces_per_sec": cfg.global_batch / ms * 1e3,
+           "faces_per_sec_per_gpu": cfg.global_batch / world / ms * 1e3,
+           "first_step_s": first_s, "loss": loss,
+           "peak_memory_gb": peak / 1e9}
+    if not profile_steps:
+        return out
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -148,19 +177,76 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
         kind = _kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / profile_steps
     device_ms = sum(by_kind.values())
-    flops = 3 * forward_flops(net, cfg, device) * cfg.global_batch
-    return {"batch": cfg.global_batch, "steps": steps, "warmup": warmup,
-            "pallas_input": cfg.pallas_input, "ms_per_step": ms,
-            "faces_per_sec": cfg.global_batch / ms * 1e3,
-            "first_step_s": first_s, "loss": loss,
-            "peak_memory_gb": peak / 1e9,
-            "profiled_wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms,
-            "idle_share": 1 - device_ms / wall_ms,
-            "device_ms_by_kind": by_kind,
-            "top_kernels_ms": sorted(top, reverse=True)[:12],
-            "step_tflop": flops / 1e12,
-            "peak_share": flops / (ms / 1e3) / PEAK_BF16}
+    # a rank's rows: the operations of one GPU's share of the step
+    flops = 3 * forward_flops(net, cfg, device) * cfg.global_batch / world
+    out.update(profiled_wall_ms_per_step=wall_ms,
+               device_ms_per_step=device_ms,
+               idle_share=1 - device_ms / wall_ms,
+               device_ms_by_kind=by_kind,
+               top_kernels_ms=sorted(top, reverse=True)[:12],
+               step_tflop=flops / 1e12,
+               peak_share=flops / (ms / 1e3) / PEAK_BF16)
+    return out
+
+
+def exchange_ms(cfg: TrainConfig, mesh, iters: int = 10) -> dict:
+    """One all-reduce (SUM) of a flat f32 buffer the size of the step's
+    gradients (params and classifier), timed with CUDA events: what the
+    exchange costs where it runs (the trainer skips it at one rank)."""
+    import torch.distributed as dist
+
+    net = build_network(cfg)
+    values = (sum(p.numel() for p in net.parameters())
+              + cfg.num_classes * cfg.subcenters * cfg.embedding_dim)
+    flat = torch.zeros(values, device=mesh.device)
+    for _ in range(2):
+        dist.all_reduce(flat)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        dist.all_reduce(flat)
+    end.record()
+    end.synchronize()
+    return {"values": values, "bytes": values * 4,
+            "ms": start.elapsed_time(end) / iters}
+
+
+def remat_grads(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
+                remats=(True, "save_convs"), *, seed: int = 0,
+                device="cuda") -> dict:
+    """Each ``remat``'s gradients of one step (the same variables, draws
+    and batch; deterministic cuDNN) against those without: the largest
+    |difference| over every leaf, as f32, and the least per-leaf cosine
+    (float64) over the leaves that have a gradient."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grads = {}
+    try:
+        for remat in (False, *remats):
+            state, net = create_train_state(
+                cfg, seed, device=device,
+                net=build_network(cfg, remat=remat))
+            parts = StepParts(net, cfg, state)
+            parts.local(state, *parts.rows(images, labels), 0)
+            names = [*state.params, "classifier"]
+            grads[remat] = {k: g.detach().float().clone() for k, g in
+                            zip(names, parts.grads(state))}
+            del state, net, parts
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {}
+    base = grads[False]
+    for remat in remats:
+        diff, cos = 0.0, 1.0
+        for k, g in grads[remat].items():
+            diff = max(diff, (g - base[k]).abs().max().item())
+            a, b = g.double().ravel(), base[k].double().ravel()
+            if a.any() or b.any():
+                cos = min(cos, float(a @ b / (a.norm() * b.norm())))
+        out[str(remat)] = {"max_abs_diff": diff, "min_cos": cos}
+    return out
 
 
 def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
@@ -224,18 +310,40 @@ def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--batch", type=int, default=256, help="rows a GPU")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--preset", default="",
+                   help="a train preset of configs.py (default: config 4's "
+                        "shapes at the trainer's defaults)")
+    p.add_argument("--remat", default="false", choices=sorted(REMAT),
+                   help="the network's remat argument")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: torch sees no CUDA device")
-    from tf_face_toolbox_tpu_torch.bench import gpu_info
+    import torch.distributed as dist
 
-    cfg = config4(global_batch=args.batch)
-    r = time_training(cfg, steps=args.steps, warmup=args.warmup)
-    r["gpu"] = gpu_info()
-    print(json.dumps(r), flush=True)
+    from tf_face_toolbox_tpu_torch import configs
+    from tf_face_toolbox_tpu_torch.bench import gpu_info
+    from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
+
+    mesh = init_distributed("cuda") if "WORLD_SIZE" in os.environ else None
+    world = mesh.data if mesh is not None else 1
+    try:
+        cfg = (dataclasses.replace(configs.get_config(args.preset),
+                                   pallas_input=True)
+               if args.preset else config4())
+        cfg = dataclasses.replace(cfg, global_batch=args.batch * world)
+        r = time_training(cfg, steps=args.steps, warmup=args.warmup,
+                          remat=REMAT[args.remat], mesh=mesh)
+        if mesh is not None:
+            r["exchange"] = exchange_ms(cfg, mesh)
+        if mesh is None or mesh.is_main:
+            r["gpu"] = gpu_info()
+            print(json.dumps(r), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,11 +1,26 @@
-"""Training CLI: margin-softmax training of a backbone on one device.
+"""Training CLI: margin-softmax training of a backbone, on one GPU or
+data-parallel over several (one process a GPU, through torchrun).
 
 Counterpart of ``tf_face_toolbox_tpu/cli/train.py``, with its flag
 names and defaults. Every flag of the JAX CLI is accepted; one whose
 path is not ported yet raises if set, naming its ROADMAP.md item.
 ``--train_dir`` checkpoints every ``--save_every`` steps and resumes
 from the latest one; SIGTERM flushes a checkpoint at the current step
-and exits 0, and the same command continues from it.
+and exits 0, and the same command continues from it. ``--preset``
+takes a named config's values (``configs.py``) as the defaults of the
+flags it sets.
+
+Like the JAX CLI, which trains on every device it sees, a run trains on
+every GPU it is launched on: under torchrun with ``--multihost``, one
+rank a GPU, each reading its own slice of the data (global batch /
+ranks rows a step). A plain ``python -m`` with ``--device cuda`` on a
+host with several GPUs refuses and prints the torchrun line (``--device
+cuda:0`` trains on one).
+
+    # BASELINE config 5 on every GPU of a host (global batch 256 a GPU)
+    torchrun --standalone --nproc_per_node 8 -m \
+        tf_face_toolbox_tpu_torch.cli.train --preset v5e8_data_parallel \
+        --multihost --pallas_input --train_dir /tmp/dp
 
     # CASIA-WebFace-shaped run (BASELINE config 4), synthetic faces
     python -m tf_face_toolbox_tpu_torch.cli.train --data=synthetic \\
@@ -39,7 +54,6 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
 
 # flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
 _NOT_PORTED = {
-    "data_weights": ("", "10b/11"),
     "drop_path": (0.0, "17"),
     "magface_la": (10.0, "9"), "magface_ua": (110.0, "9"),
     "magface_lm": (0.45, "9"), "magface_um": (0.8, "9"),
@@ -49,8 +63,7 @@ _NOT_PORTED = {
     "triplet_loss": (0.0, "9"), "triplet_margin": (0.3, "9"),
     "balanced_pk": ("", "9"),
     "pfc_sample_rate": (1.0, "11"),
-    "mesh_model": (1, "10b/11"), "mesh_slices": (0, "10b/11"),
-    "multihost": (False, "10b/11"),
+    "mesh_model": (1, "11"),
     "distill_from": ("", "10c"), "distill_network": ("resnet_v1_50", "10c"),
     "distill_stem": ("face", "10c"), "distill_head": ("gap", "10c"),
     "distill_alpha": (1.0, "10c"), "distill_use_ema": (False, "10c"),
@@ -64,10 +77,16 @@ def _bool_flag(p, name: str, default: bool, help: str) -> None:
     p.add_argument(f"--no{name}", dest=name, action="store_false")
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--data", default="synthetic",
-                   help="FaceShard path, or 'synthetic' for random faces")
+                   help="FaceShard path, several as a,b (a weighted "
+                        "mixture; labels offset per source), or "
+                        "'synthetic' for random faces")
+    p.add_argument("--data_weights", default="",
+                   help="comma floats, one per --data shard: relative "
+                        "per-step sampling weights of the mixture "
+                        "(default equal)")
     p.add_argument("--network", default="resnet_v1_50", help="backbone name")
     p.add_argument("--stem", default="face",
                    choices=["face", "imagenet", "space2depth"])
@@ -149,14 +168,105 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--keep_best", default="",
                    help="eval metric (e.g. lfw_accuracy) whose best value's "
                         "state is kept in <train_dir>/best")
-    p.add_argument("--device", default="cuda", help="torch device")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; with --multihost, cuda is "
+                        "cuda:<LOCAL_RANK>")
+    _bool_flag(p, "multihost", False,
+               "join torchrun's process group (NCCL on the card, gloo on "
+               "the CPU) and train on every rank")
+    p.add_argument("--mesh_slices", type=int, default=0,
+                   help="nodes the ranks span (0 = from torchrun's "
+                        "LOCAL_WORLD_SIZE): checked to split the ranks "
+                        "into equal nodes, node-major")
+    p.add_argument("--preset", default="",
+                   help="a named train config (configs.py); its values "
+                        "are the defaults of the flags it sets, its "
+                        "per-GPU batch times the ranks the global batch")
     for name, (default, item) in _NOT_PORTED.items():
         if isinstance(default, bool):
             _bool_flag(p, name, default, f"not ported yet (item {item})")
         else:
             p.add_argument(f"--{name}", type=type(default), default=default,
                            help=f"not ported yet (item {item})")
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return _parser().parse_args(argv)
+
+
+def _given(argv) -> set[str]:
+    """The flags ``argv`` sets explicitly."""
+    p = _parser()
+    for action in p._actions:
+        action.default = argparse.SUPPRESS
+    return set(vars(p.parse_args(argv)))
+
+
+def preset_flags(cfg) -> dict:
+    """A preset's ``TrainConfig`` as the values of the flags that set it."""
+    import torch
+
+    m1, m2, m3 = cfg.margin_m1, cfg.margin_m2, cfg.margin_m3
+    margin, value = (("arcface", m2) if m2 else ("cosface", m3) if m3 else
+                     ("sphereface", m1) if m1 != 1.0 else ("softmax", -1.0))
+    flags = dict(
+        network=cfg.network, stem=cfg.stem, head=cfg.head_variant,
+        dropout=cfg.dropout_rate, embedding_dim=cfg.embedding_dim,
+        num_classes=cfg.num_classes, image_size=cfg.image_size,
+        crop_from=cfg.crop_from, global_batch=cfg.global_batch,
+        optimizer=cfg.optimizer, base_lr=cfg.base_lr,
+        lr_schedule=cfg.lr_schedule,
+        lr_boundaries=",".join(str(b) for b in cfg.lr_boundaries),
+        lr_decay=cfg.lr_decay, warmup_steps=cfg.warmup_steps,
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        grad_clip_norm=cfg.grad_clip_norm,
+        skip_nonfinite=cfg.skip_nonfinite, margin=margin,
+        margin_scale=cfg.margin_scale, margin_value=value,
+        subcenters=cfg.subcenters, bf16=cfg.dtype == torch.bfloat16,
+        ema_decay=cfg.ema_decay, pallas_input=cfg.pallas_input,
+        accum_steps=cfg.accum_steps, random_erase=cfg.random_erase,
+        input_norm=cfg.input_norm)
+    if cfg.lr_schedule == "cosine":
+        flags["num_steps"] = cfg.lr_total_steps
+    return flags
+
+
+def apply_preset(args, argv, world: int) -> None:
+    """Fill the flags ``argv`` leaves unset from ``args.preset`` (its batch
+    a GPU times ``world``); a preset whose path is not ported raises
+    naming its item."""
+    from tf_face_toolbox_tpu_torch import configs
+
+    try:
+        cfg = configs.get_config(args.preset, world=world)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    given = _given(argv)
+    for name, value in preset_flags(cfg).items():
+        if name not in given:
+            setattr(args, name, value)
+
+
+def check_launch(args, gpus: int, env=None) -> None:
+    """Without --multihost a run is one process: refuse one rank of a
+    torchrun launch, and a bare ``--device cuda`` on a host with several
+    GPUs, naming the torchrun line."""
+    import os
+
+    env = os.environ if env is None else env
+    if args.multihost:
+        return
+    ranks = int(env.get("WORLD_SIZE", "1"))
+    if ranks > 1:
+        raise SystemExit(f"WORLD_SIZE={ranks}: this process is one of "
+                         f"{ranks} torchrun ranks; pass --multihost")
+    if args.device == "cuda" and gpus > 1:
+        raise SystemExit(
+            f"this host has {gpus} GPUs: train on every one with `torchrun "
+            f"--standalone --nproc_per_node {gpus} -m "
+            "tf_face_toolbox_tpu_torch.cli.train --multihost ...`, or on "
+            "one with --device cuda:0")
 
 
 def _refuse_unported(args) -> None:
@@ -164,9 +274,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"--{name} is not ported yet (ROADMAP.md §1 "
                              f"item {item})")
-    if "," in args.data:
-        raise SystemExit("--data with several shards (a weighted mixture) "
-                         "is not ported yet (ROADMAP.md §1 item 10b/11)")
     if args.margin in ("magface", "adaface", "curricular"):
         raise SystemExit(f"--margin={args.margin} is not ported yet "
                          "(ROADMAP.md §1 item 9)")
@@ -260,17 +367,18 @@ def build_eval_fn(cfg, args, device):
     return eval_fn
 
 
-def synthetic_batches(cfg, seed: int):
+def synthetic_batches(cfg, seed: int, rank: int = 0, world: int = 1):
     """Random faces and identities at the loader's geometry (uint8
-    crop_from x crop_from) from a seeded numpy generator."""
+    crop_from x crop_from): rank ``rank``'s global batch / ``world`` rows
+    a step, from a numpy generator seeded (seed, rank)."""
     import numpy as np
 
-    rng = np.random.default_rng((seed, 0))
+    rows = cfg.global_batch // world
+    rng = np.random.default_rng((seed, rank))
     while True:
-        images = rng.integers(0, 256, (cfg.global_batch, cfg.crop_from,
-                                       cfg.crop_from, 3), dtype=np.uint8)
-        labels = rng.integers(0, cfg.num_classes,
-                              cfg.global_batch).astype(np.int32)
+        images = rng.integers(0, 256, (rows, cfg.crop_from, cfg.crop_from,
+                                       3), dtype=np.uint8)
+        labels = rng.integers(0, cfg.num_classes, rows).astype(np.int32)
         yield {"image": images, "label": labels}
 
 
@@ -286,61 +394,129 @@ def main(argv=None) -> None:
     if args.keep_best and not args.train_dir:
         raise SystemExit("--keep_best saves to <train_dir>/best; "
                          "pass --train_dir")
-
-    import signal
-    import threading
+    if args.data_weights and "," not in args.data:
+        # a --data that lost its comma would silently train on one source
+        raise SystemExit("--data_weights needs a multi-shard --data "
+                         f"(got --data={args.data!r})")
 
     import torch
-
-    from tf_face_toolbox_tpu_torch.data.pipeline import (
-        FaceShardSource, batch_iterator, device_prefetch, host_prefetch,
-        native_batch_iterator)
-    from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
-        fused_preprocess)
-    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
-    from tf_face_toolbox_tpu_torch.train.loop import train_loop
+    import torch.distributed as dist
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
                          "pass --device cpu to run on the host")
+    check_launch(args, torch.cuda.device_count()
+                 if torch.cuda.is_available() else 0)
+    from tf_face_toolbox_tpu_torch.parallel.mesh import (
+        create_topology, init_distributed)
+
+    try:
+        if args.multihost:
+            topo = init_distributed(args.device, nodes=args.mesh_slices)
+        else:
+            topo = create_topology(1, nodes=args.mesh_slices, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_slices={args.mesh_slices}: {e}")
+    try:
+        _train(args, argv, topo)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, argv, topo) -> None:
+    import signal
+    import threading
+
+    from tf_face_toolbox_tpu_torch.data.pipeline import (
+        FaceShardSource, batch_iterator, device_prefetch, host_prefetch,
+        mixed_batch_iterator, mixture_sources, native_batch_iterator)
+    from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
+        fused_preprocess)
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.loop import train_loop
+
+    device, rank, world = topo.device, topo.rank, topo.data
+    if not topo.is_main:
+        logging.getLogger().setLevel(logging.WARNING)
+    if args.preset:
+        apply_preset(args, argv, world)
+    if args.global_batch % world:
+        raise SystemExit(f"--global_batch={args.global_batch} is not "
+                         f"divisible by the {world} ranks")
+    host_batch = args.global_batch // world
+    latest = (CheckpointManager(args.train_dir).latest_step()
+              if args.train_dir else None) or 0
     if args.data == "synthetic":
         # restarts from its seed on resume, as the JAX CLI's does
         cfg = build_config(args, args.num_classes or 100)
-        batches = synthetic_batches(cfg, args.seed)
+        batches = synthetic_batches(cfg, args.seed, rank, world)
+    elif "," in args.data:
+        # one source a step, picked by one choice stream shared by the
+        # ranks; the python loader (a source switch a step defeats the
+        # native loader's readahead)
+        if args.loader not in ("auto", "python"):
+            raise SystemExit("--data with several shards uses the python "
+                             f"loader (got --loader={args.loader})")
+        paths = [p for p in args.data.split(",") if p]
+        sources = mixture_sources(paths, seed=args.seed, host_index=rank,
+                                  host_count=world)
+        weights = None
+        if args.data_weights:
+            try:
+                weights = [float(v) for v in args.data_weights.split(",")]
+            except ValueError:
+                raise SystemExit("--data_weights must be comma floats "
+                                 f"(got {args.data_weights!r})")
+            if len(weights) != len(paths):
+                raise SystemExit(f"--data_weights has {len(weights)} "
+                                 f"entries for {len(paths)} shards")
+        total = sum(s.num_classes for s in sources)
+        if args.num_classes and args.num_classes < total:
+            # offset labels past the classifier's rows would index out of
+            # it on the device
+            raise SystemExit(
+                f"--num_classes={args.num_classes} is smaller than the "
+                f"mixture's combined identity count {total} (labels are "
+                f"offset per source); omit --num_classes or set it >= "
+                f"{total}")
+        cfg = build_config(args, args.num_classes or total)
+        batches = mixed_batch_iterator(
+            paths, host_batch, weights=weights, seed=args.seed,
+            start_step=latest, resize_to=(cfg.crop_from, cfg.crop_from),
+            sources=sources)
     else:
-        source = FaceShardSource(args.data, seed=args.seed)
+        source = FaceShardSource(args.data, seed=args.seed, host_index=rank,
+                                 host_count=world)
         cfg = build_config(args, args.num_classes or source.num_classes)
         # resume: continue through the same shuffled sequence from the
         # checkpointed step instead of replaying epoch 0
-        start_epoch = start_step = 0
-        if args.train_dir:
-            latest = CheckpointManager(args.train_dir).latest_step()
-            spe = source.num_records // cfg.global_batch
-            if spe == 0:
-                raise ValueError(
-                    f"dataset ({source.num_records} records) is smaller "
-                    f"than the batch ({cfg.global_batch})")
-            if latest:
-                start_epoch, start_step = latest // spe, latest % spe
+        spe = source.num_records // host_batch
+        if spe == 0:
+            raise ValueError(
+                f"dataset ({source.num_records} records a rank) is smaller "
+                f"than the batch a rank ({host_batch})")
+        start_epoch, start_step = divmod(latest, spe)
         use_native = args.loader == "native"
         if args.loader == "auto":
             from tf_face_toolbox_tpu_torch.data.native import native_available
             use_native = native_available()
         if use_native:
             batches = native_batch_iterator(
-                source, cfg.global_batch, out_h=cfg.crop_from,
+                source, host_batch, out_h=cfg.crop_from,
                 out_w=cfg.crop_from, start_epoch=start_epoch,
                 start_step=start_step)
         else:
             batches = batch_iterator(
-                source, cfg.global_batch,
+                source, host_batch,
                 resize_to=(cfg.crop_from, cfg.crop_from),
                 start_epoch=start_epoch, start_step=start_step)
     batches = device_prefetch(host_prefetch(batches), device=device)
 
     # preemption safety: SIGTERM flags the loop to flush a checkpoint at
     # the current step and exit 0; a resume continues where it landed
+    # (with several ranks, all stop at the step where they agree)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
 
@@ -368,7 +544,7 @@ def main(argv=None) -> None:
                         keep_best=args.keep_best,
                         should_stop=stop.is_set, warm_start=warm_start,
                         max_consecutive_skips=args.max_consecutive_skips,
-                        device=device)
+                        mesh=topo, device=device)
     step = result.state.step
     print(f"kernel launches: preprocess={fused_preprocess.launches - before}",
           flush=True)

@@ -5,8 +5,13 @@ values. The eval-only presets are dicts, as there. A train preset is
 kept as the keyword arguments of the port's ``TrainConfig`` (bf16
 compute) and built when asked for, so a preset whose path is not
 ported yet raises then, naming its ROADMAP.md item (sampled Partial-FC:
-11, AdaFace: 9, through ``TrainConfig``'s own refusals; an 8-device
-data-parallel mesh: 10b/11), never at import.
+11, AdaFace: 9, through ``TrainConfig``'s own refusals; a model axis:
+11), never at import.
+
+The data-parallel preset (config 5) is served with data = the ranks of
+the run: ``get_config(name, world=W)`` keeps its batch a device (256)
+and makes the global batch 256 * W; without ``world`` it is the
+published 2048 over 8.
 """
 
 from __future__ import annotations
@@ -140,9 +145,10 @@ TRAIN_PRESETS = {
     "large_id_pfc_v5e8": CONFIG_7_LARGE_ID_PFC_V5E8,
     "adaface_noisy_data": CONFIG_8_ADAFACE_NOISY_DATA,
 }
-# train presets whose mesh spans several devices
-_MESHES = {"v5e8_data_parallel": "data=8", "large_id_pfc_v5e8":
-           "data=2, model=4"}
+# train presets over a data axis: name -> its published device count
+_DATA_PARALLEL = {"v5e8_data_parallel": 8}
+# train presets with a model axis (item 11)
+_MODEL_AXIS = {"large_id_pfc_v5e8": "data=2, model=4"}
 
 _REGISTRY = {
     "extract_verify_cpu": CONFIG_1_EXTRACT_VERIFY_CPU,
@@ -153,19 +159,25 @@ _REGISTRY = {
 }
 
 
-def get_config(name: str):
+def get_config(name: str, *, world: int | None = None):
     """A train preset as a ``TrainConfig`` (bf16), an eval preset as its
-    dict."""
+    dict. ``world``: the data-parallel ranks of the run; a data-parallel
+    preset's global batch becomes its batch a device times ``world``
+    (other train presets keep theirs)."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown config '{name}'; have {sorted(_REGISTRY)}")
     if name not in TRAIN_PRESETS:
         return _REGISTRY[name]
     from tf_face_toolbox_tpu_torch.train.trainer import TrainConfig, _not_ported
 
-    cfg = TrainConfig(**TRAIN_PRESETS[name], dtype=torch.bfloat16)
-    if name in _MESHES:
-        _not_ported(f"preset {name!r} (a {_MESHES[name]} device mesh)",
-                    "10b/11")
+    kwargs = dict(TRAIN_PRESETS[name])
+    if name in _DATA_PARALLEL and world is not None:
+        kwargs["global_batch"] = (kwargs["global_batch"]
+                                  // _DATA_PARALLEL[name] * world)
+    cfg = TrainConfig(**kwargs, dtype=torch.bfloat16)
+    if name in _MODEL_AXIS:
+        _not_ported(f"preset {name!r} (a {_MODEL_AXIS[name]} device mesh)",
+                    "11")
     return cfg
 
 

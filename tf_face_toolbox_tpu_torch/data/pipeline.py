@@ -4,9 +4,9 @@ iterators, and prefetch to the host and the device.
 Counterpart of ``tf_face_toolbox_tpu/data/pipeline.py``: an epoch is a
 seeded permutation of record ids (exact resume from (epoch, step)),
 decode runs on host threads or in the native C++ loader, and
-augmentation is left to the train step on the device. The weighted
-shard mixture and the balanced P x K sampler are not ported yet
-(ROADMAP.md §1 items 10b/11 and 9).
+augmentation is left to the train step on the device. Several shards
+train as one weighted mixture (``mixed_batch_iterator``). The balanced
+P x K sampler is not ported yet (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -220,6 +220,88 @@ def native_batch_iterator(source: FaceShardSource, batch_size: int, *,
         source, batch_size, start_epoch=start_epoch,
         start_step=start_step, num_threads=num_threads,
         fetch=lambda reader, ids: reader.decode_batch(ids, out_h, out_w))
+
+
+def mixture_sources(paths, *, seed: int = 0, host_index: int = 0,
+                    host_count: int = 1) -> list[FaceShardSource]:
+    """The readers of a shard mixture, source i shuffled with seed ``seed
+    + 9973 * i`` (decorrelated permutations), each over this host's
+    records. Pass them back to ``mixed_batch_iterator`` (``sources=``)
+    so each index is opened once."""
+    return [FaceShardSource(p, seed=seed + 9973 * i, host_index=host_index,
+                            host_count=host_count)
+            for i, p in enumerate(paths)]
+
+
+def mixed_batch_iterator(paths, batch_size: int, *, weights=None,
+                         seed: int = 0, start_step: int = 0,
+                         resize_to: tuple[int, int] | None = None,
+                         num_threads: int = 4, host_index: int = 0,
+                         host_count: int = 1,
+                         sources: list[FaceShardSource] | None = None,
+                         ) -> Iterator[dict]:
+    """Weighted online mixture over several FaceShards, as the JAX
+    package's: each step draws its whole batch from one source, picked
+    by ``weights`` from one choice stream seeded (seed, 0x313E), the
+    same on every host. Identity spaces are disjoint: source i's labels
+    are offset by the summed ``num_classes`` of the sources before it,
+    and training uses their sum.
+
+    Resume: pass the global step; the choice stream's first
+    ``start_step`` draws are replayed and each source's iterator resumes
+    at the (epoch, step) of the batches it has given. A plain function
+    (not a generator), so argument errors raise at the call. Yields
+    {'image', 'label', 'source', 'step'}.
+    """
+    if isinstance(paths, str):
+        paths = [p for p in paths.split(",") if p]
+    n = len(paths)
+    if n < 2:
+        raise ValueError("mixed_batch_iterator needs >= 2 shards; "
+                         "use batch_iterator for one")
+    w = np.asarray([1.0] * n if weights is None else weights, np.float64)
+    if len(w) != n or (w <= 0).any():
+        raise ValueError(f"need {n} positive weights, got {list(w)}")
+    cum = np.cumsum(w / w.sum())
+    if sources is None:
+        sources = mixture_sources(paths, seed=seed, host_index=host_index,
+                                  host_count=host_count)
+    offsets = np.concatenate(
+        [[0], np.cumsum([s.num_classes for s in sources])[:-1]]
+    ).astype(np.int64)
+
+    choice_rng = np.random.default_rng((seed, 0x313E))
+    consumed = [0] * n
+    if start_step:
+        prefix = np.searchsorted(cum, choice_rng.random(start_step),
+                                 side="right").clip(0, n - 1)
+        for i in range(n):
+            consumed[i] = int((prefix == i).sum())
+
+    iters = []
+    for i, s in enumerate(sources):
+        spe = s.num_records // batch_size
+        if spe == 0:
+            raise ValueError(f"{paths[i]}: {s.num_records} records (per "
+                             f"host), smaller than one batch of {batch_size}")
+        iters.append(batch_iterator(
+            s, batch_size, start_epoch=consumed[i] // spe,
+            start_step=consumed[i] % spe, num_threads=num_threads,
+            resize_to=resize_to))
+
+    def gen():
+        t = start_step
+        while True:
+            i = int(np.searchsorted(cum, choice_rng.random(),
+                                    side="right").clip(0, n - 1))
+            b = next(iters[i])
+            yield {"image": b["image"],
+                   "label": (b["label"].astype(np.int64)
+                             + offsets[i]).astype(np.int32),
+                   "source": i, "step": t}
+            t += 1
+
+    return gen()
 
 
 def host_prefetch(it: Iterator[dict], *, depth: int = 2) -> Iterator[dict]:

@@ -1,10 +1,16 @@
 """ResNet backbones: bottleneck blocks, face and imagenet stems.
 
 Counterpart of ``tf_face_toolbox_tpu/models/resnet.py`` for groups=1,
-no squeeze-excite, no quantization and no remat. Anything else raises
+no squeeze-excite and no quantization. Anything else raises
 NotImplementedError naming the ROADMAP.md item that ports it. Eval by
 default; ``net(images, train=TrainContext(...))`` runs train mode
 (models/layers.py).
+
+``remat`` (the JAX module's argument) recomputes each bottleneck block
+in backward instead of keeping its activations: ``True`` keeps only the
+block's input, ``"save_convs"`` also its conv outputs (the BatchNorms,
+ReLUs and residual add are recomputed from them). It changes when work
+is done, not what is computed, and no parameter or buffer name.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from tf_face_toolbox_tpu_torch.models.layers import (
     ConvBN,
@@ -83,14 +90,16 @@ class ResNet(nn.Module):
             _unsupported("squeeze-excite (SE-ResNet)", "4")
         if quantized:
             _unsupported("int8 serving", "18")
-        if remat:
-            _unsupported("remat (training)", "10b")
+        if remat not in (False, True, "save_convs"):
+            raise ValueError(f"unknown remat {remat!r}; have False, True, "
+                             "'save_convs'")
         if stem in ("space2depth", "dct"):
             _unsupported(f"the {stem} stem", "4" if stem == "space2depth"
                          else "17")
         if stem not in ("face", "imagenet"):
             raise ValueError(f"unknown stem: {stem}")
         self.stage_sizes = tuple(stage_sizes)
+        self.remat = remat
         self.stem = stem
         self.head_variant = head_variant
         self.dtype = dtype
@@ -132,5 +141,50 @@ class ResNet(nn.Module):
         if self.stem == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
         for block in self.blocks():
-            x = block(x, train)
+            if self.remat and train is not None and torch.is_grad_enabled():
+                x = _recomputed(block, x, train, self.remat)
+            else:
+                x = block(x, train)
         return self.EmbeddingHead_0(x, train)
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.convolution.default:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _recomputed(block: BottleneckBlock, x: torch.Tensor, train: TrainContext,
+                remat) -> torch.Tensor:
+    """``block(x, train)`` under ``torch.utils.checkpoint``.
+
+    The first call is the forward, and its BatchNorms put their updated
+    running statistics into ``train.stats``. Backward calls it again; a
+    BatchNorm already in ``train.stats`` starts from those values, so the
+    recompute would advance its statistics once more. It therefore puts
+    back the entries it found: the statistics stay as the forward (and
+    any forward since, such as the next micro-batch's) left them.
+    """
+    calls = 0
+
+    def run(x):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return block(x, train)
+        saved = dict(train.stats)
+        try:
+            return block(x, train)
+        finally:
+            # also when the recompute stops early (by an exception) once
+            # it has what backward needs
+            train.stats.clear()
+            train.stats.update(saved)
+
+    context_fn = checkpoint.noop_context_fn
+    if remat == "save_convs":
+        def context_fn():
+            return checkpoint.create_selective_checkpoint_contexts(
+                _save_conv_outputs)
+    return checkpoint.checkpoint(run, x, use_reentrant=False,
+                                 context_fn=context_fn)

@@ -20,6 +20,14 @@ A step is written to ``<dir>/.<step>.tmp`` and renamed into place with
 ``os.replace``, so a crash never leaves a half-written step that
 ``latest_step`` would pick. Saves are synchronous: ``wait`` and
 ``close`` exist for the JAX API and have nothing to wait for.
+
+Data-parallel runs (``mesh``, a ``parallel.mesh.Topology``): every rank
+holds the same state and calls the same methods; rank 0 writes, after a
+barrier, and a second barrier follows, so that no rank lists a step
+still in its temporary directory. Every rank restores onto its own
+device. ``save_best`` acts on rank 0's reading of the bar. The
+classifier stays in its global (C*K, D) shape (a class-sharded head,
+item 11, re-slices it).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import shutil
 
 import torch
 
+from tf_face_toolbox_tpu_torch.parallel import collectives
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 
 _STATE, _META = "state.pt", "meta.json"
@@ -93,10 +102,12 @@ class CheckpointManager:
     _BEST_JSON = "best_step.json"
 
     def __init__(self, directory: str, *, save_every: int = 1000,
-                 keep: int = 5):
+                 keep: int = 5, mesh=None):
         self._dir = os.path.abspath(directory)
         self.save_every = save_every
         self.keep = keep
+        self.mesh = mesh
+        self._main = mesh is None or mesh.is_main
         self._best_mgr: CheckpointManager | None = None
 
     @property
@@ -113,7 +124,10 @@ class CheckpointManager:
         step = state.step if step is None else step
         if not force and (self.save_every <= 0 or step % self.save_every):
             return False
-        self._write(state, step)
+        collectives.barrier(self.mesh)
+        if self._main:
+            self._write(state, step)
+        collectives.barrier(self.mesh)
         return True
 
     def _write(self, state: TrainState, step: int) -> bool:
@@ -292,20 +306,27 @@ class CheckpointManager:
                   name: str = "metric") -> bool:
         """Save to ``<dir>/best`` iff ``metric`` beats the stored bar.
         The bar is written after the checkpoint is in place, so a crash
-        between the two never leaves a bar without its checkpoint."""
-        best = self.best_info()
-        if best is not None and not metric > best["metric"]:
+        between the two never leaves a bar without its checkpoint. With
+        several ranks, rank 0's decision (its ``metric`` against the bar
+        it reads) is every rank's."""
+        improved = 0.0
+        if self._main:
+            best = self.best_info()
+            improved = float(best is None or metric > best["metric"])
+        if not collectives.broadcast_value(improved, self.mesh):
             return False
         if self._best_mgr is None:
             self._best_mgr = CheckpointManager(
-                os.path.join(self._dir, "best"), save_every=0, keep=1)
+                os.path.join(self._dir, "best"), save_every=0, keep=1,
+                mesh=self.mesh)
         self._best_mgr.maybe_save(state, step=step, force=True)
-        path = os.path.join(self._dir, self._BEST_JSON)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"step": int(step), "metric": float(metric),
-                       "name": name}, f)
-        os.replace(tmp, path)
+        if self._main:
+            path = os.path.join(self._dir, self._BEST_JSON)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"step": int(step), "metric": float(metric),
+                           "name": name}, f)
+            os.replace(tmp, path)
         return True
 
     def wait(self) -> None:

@@ -1,14 +1,23 @@
 """The training loop: batches -> step_fn -> metrics -> checkpoints ->
 resume.
 
-Counterpart of ``tf_face_toolbox_tpu/train/loop.py`` on one device. A
-``train_dir`` holding a checkpoint resumes from its latest step (the
+Counterpart of ``tf_face_toolbox_tpu/train/loop.py``, on one device or
+on every rank of a data-parallel run (``mesh``: a
+``parallel.mesh.Topology``; each rank runs the loop on its own batches).
+A ``train_dir`` holding a checkpoint resumes from its latest step (the
 caller aligns the data iterator); ``warm_start`` applies only to a fresh
 start. Metrics stay on the device between log points (``log_every``);
 the ``skip_nonfinite`` flags settle every min(log_every, 100,
 max_consecutive_skips) steps and at log points, and
 ``max_consecutive_skips`` skips in a row raise ``FloatingPointError``.
 Distillation (``teacher``) raises naming ROADMAP.md §1 item 10c.
+
+With several ranks: only rank 0 logs, writes metrics, runs the eval
+hook and writes checkpoints (``CheckpointManager``); the eval value is
+broadcast from it, so ``keep_best`` decides the same everywhere; and
+the ranks agree to stop (``should_stop``) by an all-reduce of their
+flags every 10 steps, since a rank that broke alone would leave the
+others waiting in the next step's all-reduce.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from tf_face_toolbox_tpu_torch.parallel import collectives
 from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 from tf_face_toolbox_tpu_torch.train.trainer import (
@@ -51,6 +61,7 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                warm_start=None,
                teacher=None,
                max_consecutive_skips: int = 100,
+               mesh=None,
                device="cuda") -> LoopResult:
     """Run (or resume) training to ``num_steps`` total steps on ``device``.
 
@@ -64,15 +75,20 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
     one of its metrics (higher is better) whose improvements are saved
     to ``<train_dir>/best``. ``should_stop``: polled before each step; a
     True ends the loop early and flushes a checkpoint at the current
-    step (``last_metrics["preempted"]`` = 1).
+    step (``last_metrics["preempted"]`` = 1). ``mesh``: this rank's
+    topology (``device`` is then its device).
     """
     if teacher is not None:
         _not_ported("train_loop teacher (distillation)", "10c")
-    state, net = create_train_state(cfg, rng_seed, net=net, device=device)
+    if mesh is not None:
+        device = mesh.device
+    main = mesh is None or mesh.is_main
+    state, net = create_train_state(cfg, rng_seed, net=net, mesh=mesh,
+                                    device=device)
     resumed = False
     mgr = None
     if train_dir:
-        mgr = CheckpointManager(train_dir, save_every=save_every)
+        mgr = CheckpointManager(train_dir, save_every=save_every, mesh=mesh)
         if mgr.latest_step() is not None:
             # restore raises the config-mismatch errors (EMA, head state)
             state = mgr.restore(state)
@@ -81,8 +97,10 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                          mgr.directory)
     if warm_start is not None and not resumed:
         state = warm_start(state)
-    step_fn = make_train_step(net, cfg, state)
-    logger = logger or MetricLogger(train_dir, batch_size=cfg.global_batch)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    logger = logger or MetricLogger(train_dir if main else None,
+                                    batch_size=cfg.global_batch)
+    stop_sync = 10 if mesh is not None and mesh.distributed else 1
 
     metrics: dict = {}
     preempted = False
@@ -115,7 +133,8 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
         return host
 
     while state.step < num_steps:
-        if should_stop is not None and should_stop():
+        if (should_stop is not None and state.step % stop_sync == 0
+                and collectives.any_rank(should_stop(), mesh)):
             # preemption: the checkpoint below is flushed at the CURRENT
             # step, so no finished step is lost
             preempted = True
@@ -136,11 +155,14 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                 # one has already poisoned the weights
                 raise FloatingPointError(
                     f"non-finite loss at step {step}: {host['loss']}")
-            logger.log(step, host)
+            if main:
+                logger.log(step, host)
         if eval_fn is not None and eval_every and step % eval_every == 0:
-            eval_metrics = eval_fn(state)
-            logger.log(step, {f"eval/{k}": v
-                              for k, v in eval_metrics.items()})
+            eval_metrics = {}
+            if main:
+                eval_metrics = eval_fn(state)
+                logger.log(step, {f"eval/{k}": v
+                                  for k, v in eval_metrics.items()})
             if keep_best and mgr is not None:
                 val = eval_metrics.get(keep_best)
                 if val is None and eval_metrics and not keep_best_warned:
@@ -151,8 +173,11 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                         "no best checkpoint will be saved", keep_best,
                         sorted(eval_metrics))
                     keep_best_warned = True
-                if val is not None and np.isfinite(val):
-                    mgr.save_best(state, step=step, metric=float(val),
+                # rank 0's value (f64), so every rank decides alike
+                val = collectives.broadcast_value(
+                    float("nan") if val is None else float(val), mesh)
+                if np.isfinite(val):
+                    mgr.save_best(state, step=step, metric=val,
                                   name=keep_best)
         if mgr is not None:
             mgr.maybe_save(state, step=step)

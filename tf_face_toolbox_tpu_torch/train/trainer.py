@@ -1,30 +1,39 @@
-"""Train step on one device: augment, forward, margin loss, SGD.
+"""Train step: augment, forward, margin loss, gradient exchange, SGD.
 
-Counterpart of ``tf_face_toolbox_tpu/train/trainer.py`` at one device
-(a data and model mesh of 1 x 1, where its ``sharded_margin_softmax_
-loss`` is ``margin_softmax_loss``). A step:
+Counterpart of ``tf_face_toolbox_tpu/train/trainer.py`` over the data
+axis of its mesh (a model axis of 1, where its ``sharded_margin_
+softmax_loss`` is ``margin_softmax_loss``). Each process is one replica
+(``parallel.mesh.Topology``; none: one device). A step, on each rank:
 
-1. augments the uint8 batch (random crop, flip, per-image
-   standardization; with ``pallas_input``, the crop then the fused
-   input kernel, ``ops/fused_preprocess.py``), optional random erase;
-2. forwards in ``cfg.dtype`` in train mode (batch statistics; the
-   updated running statistics come back in a ``TrainContext``);
-3. takes the margin-softmax loss of the f32 embeddings against the f32
-   classifier, and backward;
-4. then, in order: the global gradient norm over params and classifier,
-   ``grad_clip_norm``, SGD (weight decay on conv and Dense kernels and
-   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, and
-   ``skip_nonfinite`` (where nothing but ``step`` changes).
+1. takes its rows [r * n, (r + 1) * n) of the global batch (n = global
+   batch / ranks), or its own n rows when given only those;
+2. augments them (random crop, flip, per-image standardization; with
+   ``pallas_input``, the crop then the fused input kernel,
+   ``ops/fused_preprocess.py``), optional random erase;
+3. forwards in ``cfg.dtype`` in train mode (each rank's own batch
+   statistics; the updated running statistics come back in a
+   ``TrainContext``), takes the margin-softmax loss of the f32
+   embeddings against the f32 classifier (the mean over its rows), and
+   backward;
+4. exchanges, as the JAX step does (``parallel/collectives.py``): the
+   backbone's and the classifier's gradients, the loss and the running
+   statistics are averaged over the ranks;
+5. then, in order, on the same values on every rank: the global
+   gradient norm, ``grad_clip_norm``, SGD (weight decay on conv and
+   Dense kernels and the classifier, momentum), the EMA ``d * e + (1 -
+   d) * p``, and ``skip_nonfinite`` on the averaged loss and norm (so
+   every rank skips together; nothing but ``step`` changes).
 
-``accum_steps`` splits the batch into micro-batches whose forwards
+``accum_steps`` splits a rank's rows into micro-batches whose forwards
 advance the BN statistics one after another; their gradients are summed
 and divided by the count. Augmentation and dropout draw from generators
-seeded from (state.rng, step, stream), not JAX's threefry stream.
+seeded from (state.rng, step, stream), and (state.rng, step, rank,
+stream) on ranks above 0 (JAX folds the device's position into its
+step key), not JAX's threefry stream.
 
-DDP, remat and the Partial-FC head (items 10b and 11), the adaptive
-margins (item 9), other optimizers and distillation (item 10c), and
-quantization-aware training (item 18) are not ported yet: their fields
-raise naming the item.
+The Partial-FC head (item 11), the adaptive margins (item 9), other
+optimizers and distillation (item 10c), and quantization-aware training
+(item 18) are not ported yet: their fields raise naming the item.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from tf_face_toolbox_tpu_torch.ops.losses import (
     init_classifier_weights,
     margin_softmax_loss,
 )
+from tf_face_toolbox_tpu_torch.parallel import collectives
+from tf_face_toolbox_tpu_torch.parallel.mesh import local_batch_size
 from tf_face_toolbox_tpu_torch.train.schedule import cosine, staircase
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 
@@ -175,10 +186,21 @@ def _generator(device, *parts: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(_seed(*parts))
 
 
+def build_network(cfg: TrainConfig, **overrides) -> torch.nn.Module:
+    """The backbone ``cfg`` names (``overrides``: other ResNet fields, such
+    as ``remat``)."""
+    return create_network(cfg.network, embedding_dim=cfg.embedding_dim,
+                          dtype=cfg.dtype, stem=cfg.stem,
+                          head_variant=cfg.head_variant,
+                          dropout_rate=cfg.dropout_rate,
+                          input_size=cfg.image_size, **overrides)
+
+
 def create_train_state(cfg: TrainConfig, seed: int = 0, *,
                        net: torch.nn.Module | None = None,
                        variables: dict | None = None,
                        classifier: np.ndarray | None = None,
+                       mesh=None,
                        device="cuda") -> tuple[TrainState, torch.nn.Module]:
     """Network, classifier and optimizer, ready to train on ``device``.
 
@@ -186,15 +208,13 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
     (``models.init_parameters``) and a N(0, 1) * 0.01 classifier, drawn
     from generators seeded from ``seed``. ``variables`` (a flat JAX-key
     dict or tree, the ``.npz`` hand-off) and ``classifier`` start from
-    given values instead. ``net`` injects a backbone. Returns (state,
-    net).
+    given values instead. ``net`` injects a backbone. ``mesh``: with
+    several ranks, every rank must build the same state, which one
+    checksum exchange checks (it raises on every rank otherwise).
+    Returns (state, net).
     """
     if net is None:
-        net = create_network(cfg.network, embedding_dim=cfg.embedding_dim,
-                             dtype=cfg.dtype, stem=cfg.stem,
-                             head_variant=cfg.head_variant,
-                             dropout_rate=cfg.dropout_rate,
-                             input_size=cfg.image_size)
+        net = build_network(cfg)
     if variables is not None:
         from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
         load_jax_variables(net, variables)
@@ -218,6 +238,9 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
         classifier=w, opt_state={"optimizer": opt, "count": 0}, rng=seed,
         ema_params=({k: p.detach().clone() for k, p in params.items()}
                     if cfg.ema_decay > 0 else None))
+    collectives.check_replicated(
+        [*params.values(), *state.batch_stats.values(), w], mesh,
+        "the initial train state")
     return state, net
 
 
@@ -251,47 +274,98 @@ def _grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
-                    state: TrainState, *, input_format: str = "u8",
+                    state: TrainState, *, mesh=None, input_format: str = "u8",
                     teacher=None) -> Callable:
     """``step_fn(state, images, labels) -> (state, metrics)``.
 
     ``images``: (B, crop_from, crop_from, 3) uint8 when ``cfg.augment``,
     else (B, image_size, image_size, 3) standardized f32; ``labels``:
-    (B,) ints. Tensors on the state's device, or numpy arrays. The
-    state is updated in place and returned. Metrics: ``loss``,
-    ``grad_norm`` (before the clip) and, with ``skip_nonfinite``,
-    ``skipped_nonfinite`` as tensors or floats; ``learning_rate`` =
-    the schedule at ``state.step`` (the applied rate follows the
-    optimizer's count, which a skipped step holds).
+    (B,) ints. Tensors on the state's device, or numpy arrays. With
+    ``mesh`` (a ``parallel.mesh.Topology`` of several ranks) B is the
+    global batch, of which this rank takes its rows, or this rank's
+    rows alone; every rank calls ``step_fn`` once a step. The state is
+    updated in place and returned. Metrics (the same on every rank):
+    ``loss`` (the global batch's), ``grad_norm`` (before the clip) and,
+    with ``skip_nonfinite``, ``skipped_nonfinite`` as tensors or
+    floats; ``learning_rate`` = the schedule at ``state.step`` (the
+    applied rate follows the optimizer's count, which a skipped step
+    holds).
     """
-    if input_format != "u8":
-        _not_ported(f"input_format={input_format!r} (DCT input)", "17")
-    if teacher is not None:
-        _not_ported("distillation", "10c")
-    if cfg.accum_steps > 1 and cfg.global_batch % cfg.accum_steps:
-        raise ValueError(f"batch {cfg.global_batch} not divisible by "
-                         f"accum_steps {cfg.accum_steps}")
-    if cfg.pallas_input and cfg.input_norm != "per_image":
-        # the kernel bakes per-image standardization in; fixed norm
-        # takes the plain augment chain (the reference's own rule)
-        logging.warning("pallas_input: the fused kernel covers per_image "
-                        "standardization only; input_norm=%s uses the "
-                        "plain augment chain", cfg.input_norm)
-    sched = make_schedule(cfg)
-    margin = cfg.margin
-    device = state.classifier.device
-    bn_keys = {mod: name for name, mod in net.named_modules()
-               if isinstance(mod, BatchNorm)}
-
-    def loss_of(x, labels, classifier, ctx):
-        emb = net(x, train=ctx).to(torch.float32)
-        return margin_softmax_loss(emb, classifier, labels, margin,
-                                   subcenters=cfg.subcenters)
+    parts = StepParts(net, cfg, state, mesh, input_format=input_format,
+                      teacher=teacher)
 
     def step_fn(state: TrainState, images, labels):
-        images = torch.as_tensor(images).to(device)
-        labels = torch.as_tensor(labels).to(device=device, dtype=torch.long)
-        parts = (state.rng, state.step)
+        images, labels = parts.rows(images, labels)
+        loss, stats = parts.local(state, images, labels, parts.rank)
+        grads = parts.grads(state)
+        collectives.sync_gradients(grads[:-1], mesh)
+        collectives.sync_classifier_gradients(grads[-1:], mesh)
+        loss = collectives.replicate_mean(loss, mesh)
+        collectives.sync_batch_stats([t for pair in stats.values()
+                                      for t in pair], mesh)
+        return parts.apply(state, loss, stats)
+
+    return step_fn
+
+
+class StepParts:
+    """A step in two halves around the exchange: ``local`` (one rank's
+    augment, forward and backward, its gradients left in ``.grad``) and
+    ``apply`` (norm, clip, skip, SGD, statistics, EMA). The train step
+    runs them with the collectives between; the plain version
+    (``parallel.reference.replica_loop_step``) runs ``local`` for every
+    rank in one process and averages by hand."""
+
+    def __init__(self, net: torch.nn.Module, cfg: TrainConfig,
+                 state: TrainState, mesh=None, *, input_format: str = "u8",
+                 teacher=None):
+        if input_format != "u8":
+            _not_ported(f"input_format={input_format!r} (DCT input)", "17")
+        if teacher is not None:
+            _not_ported("distillation", "10c")
+        self.rank = mesh.rank if mesh is not None else 0
+        self.world = mesh.data if mesh is not None else 1
+        self.rows_a_rank = (local_batch_size(cfg.global_batch, mesh)
+                            if mesh is not None else cfg.global_batch)
+        if cfg.accum_steps > 1 and self.rows_a_rank % cfg.accum_steps:
+            raise ValueError(f"per-device batch {self.rows_a_rank} not "
+                             f"divisible by accum_steps {cfg.accum_steps}")
+        if cfg.pallas_input and cfg.input_norm != "per_image":
+            # the kernel bakes per-image standardization in; fixed norm
+            # takes the plain augment chain (the reference's own rule)
+            logging.warning("pallas_input: the fused kernel covers per_image "
+                            "standardization only; input_norm=%s uses the "
+                            "plain augment chain", cfg.input_norm)
+        self.net, self.cfg = net, cfg
+        self.sched = make_schedule(cfg)
+        self.device = state.classifier.device
+        self.bn_keys = {mod: name for name, mod in net.named_modules()
+                        if isinstance(mod, BatchNorm)}
+
+    def rows(self, images, labels) -> tuple[torch.Tensor, torch.Tensor]:
+        """This rank's rows of a global batch, on the device."""
+        images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+        n = self.rows_a_rank
+        if self.world > 1:
+            if images.shape[0] == self.cfg.global_batch:
+                images = images[self.rank * n:(self.rank + 1) * n]
+                labels = labels[self.rank * n:(self.rank + 1) * n]
+            elif images.shape[0] != n:
+                raise ValueError(
+                    f"a batch of {images.shape[0]} rows is neither the "
+                    f"global batch ({self.cfg.global_batch}) nor a rank's "
+                    f"rows ({n})")
+        return (images.to(self.device),
+                labels.to(device=self.device, dtype=torch.long))
+
+    def local(self, state: TrainState, images: torch.Tensor,
+              labels: torch.Tensor, rank: int) -> tuple[torch.Tensor, dict]:
+        """Rank ``rank``'s forward and backward on its rows: returns its
+        mean loss and the BN modules' updated running statistics; the
+        gradients (of that mean) are in the parameters' ``.grad``."""
+        cfg, device = self.cfg, self.device
+        # rank 0 draws a one-device run's streams
+        parts = (state.rng, state.step) + ((rank,) if rank else ())
         ctx = TrainContext(_generator(device, *parts, _DROPOUT))
         if cfg.augment:
             x = _augment(cfg, images, _generator("cpu", *parts, _AUGMENT),
@@ -300,31 +374,46 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
             x = images
         x = x.to(cfg.dtype)
 
-        params = list(state.params.values())
-        for p in params + [state.classifier]:
+        def loss_of(xb, lb):
+            emb = self.net(xb, train=ctx).to(torch.float32)
+            return margin_softmax_loss(emb, state.classifier, lb,
+                                       cfg.margin, subcenters=cfg.subcenters)
+
+        for p in (*state.params.values(), state.classifier):
             p.grad = None
         k = cfg.accum_steps
         if k == 1:
-            loss = loss_of(x, labels, state.classifier, ctx)
+            loss = loss_of(x, labels)
             loss.backward()
             loss = loss.detach()
         else:
             losses = []
             for xm, lm in zip(x.chunk(k), labels.chunk(k)):
-                micro = loss_of(xm, lm, state.classifier, ctx)
+                micro = loss_of(xm, lm)
                 micro.backward()
                 losses.append(micro.detach())
             loss = torch.stack(losses).mean()
-        grads = [p.grad for p in params] + [state.classifier.grad]
-        if k > 1:
-            torch._foreach_div_(grads, float(k))
+            torch._foreach_div_(self.grads(state), float(k))
+        return loss, ctx.stats
+
+    @staticmethod
+    def grads(state: TrainState) -> list[torch.Tensor]:
+        """The gradients of params, then the classifier's."""
+        return [p.grad for p in (*state.params.values(), state.classifier)]
+
+    def apply(self, state: TrainState, loss: torch.Tensor,
+              stats: dict) -> tuple[TrainState, dict]:
+        """The update from the gradients in ``.grad``, the loss and the
+        running statistics, as they are after the exchange."""
+        cfg = self.cfg
+        grads = self.grads(state)
         grad_norm = _grad_norm(grads)
         if cfg.grad_clip_norm > 0:
             scale = torch.clamp_max(
                 cfg.grad_clip_norm / torch.clamp_min(grad_norm, 1e-12), 1.0)
             torch._foreach_mul_(grads, scale)
 
-        metrics = {"loss": loss, "learning_rate": sched(state.step),
+        metrics = {"loss": loss, "learning_rate": self.sched(state.step),
                    "grad_norm": grad_norm}
         ok = True
         if cfg.skip_nonfinite:
@@ -333,23 +422,22 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
             metrics["skipped_nonfinite"] = 0.0 if ok else 1.0
         if ok:
             opt = state.opt_state["optimizer"]
-            lr = sched(state.opt_state["count"])
+            lr = self.sched(state.opt_state["count"])
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
             state.opt_state["count"] += 1
             with torch.no_grad():
-                for mod, (mean, var) in ctx.stats.items():
-                    name = bn_keys[mod]
+                for mod, (mean, var) in stats.items():
+                    name = self.bn_keys[mod]
                     state.batch_stats[f"{name}.running_mean"].copy_(mean)
                     state.batch_stats[f"{name}.running_var"].copy_(var)
                 if state.ema_params is not None:
                     d = cfg.ema_decay
                     ema = list(state.ema_params.values())
                     torch._foreach_mul_(ema, d)
-                    torch._foreach_add_(ema, [p.detach() for p in params],
-                                        alpha=1.0 - d)
+                    torch._foreach_add_(
+                        ema, [p.detach() for p in state.params.values()],
+                        alpha=1.0 - d)
         state.step += 1
         return state, metrics
-
-    return step_fn
