@@ -14,7 +14,9 @@ eval_identification CLIs. Training (BASELINE config 4): resnet_v1_50
 batch 256, synthetic faces augmented through the preprocess kernel,
 by cli.train; then train -> preempt (SIGTERM) -> resume -> serve the
 trained checkpoint through the fused-block engine; then data-parallel
-training (BASELINE config 5 at the card's one replica) through torchrun.
+training (BASELINE config 5 at the card's one replica) through torchrun;
+then the class-sharded Partial-FC head (BASELINE config 7: 93,431
+classes) at one rank and on four gloo ranks sharing the card.
 Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
@@ -78,6 +80,25 @@ Phases:
     where smaller, losses within 1%); (c) remat at the batch of a
     replica (256): False, True, "save_convs": gradients against no
     remat (deterministic cuDNN), ms/step and peak memory
+14. the class-sharded Partial-FC head (BASELINE config 7; the preset's
+    2 x 4 mesh of 256 rows a device cut to this card's one rank): (a)
+    cli.train --preset large_id_pfc_v5e8 --pallas_input for 20 steps
+    (93,431 classes, sampled at 0.1: budget 9,344; kernel 1 once a
+    step), then bench_train for the sampled head and for the exact one
+    (--pfc_sample_rate 1; 10 steps after 3): faces/s, ms/step, peak
+    memory, device ms by kind with the head's share, against phase 11's
+    config-4 rate; (b)
+    four ranks sharing cuda:0 over gloo as data 2 x model 2, config 7
+    (r50 face stem, its warmup schedule) at 16 rows a rank, 93,431
+    classes (46,716 a shard), 3 bf16 steps of the exact head, then 3 of
+    the sampled one at 0.1 (budget 4,672), cuDNN deterministic:
+    gloo's MAX on CUDA tensors (the head's pmax), the replicated tensors
+    equal on all four ranks and each shard on its two data ranks (max
+    |diff| 0), and held against replica_loop_step(model=2) in this
+    process, each step from the ranks' state before it (losses within 1%,
+    per-leaf update cosine >= 0.999 with the classifier reassembled from
+    its shards, BN running statistics within 2 bf16 steps); kernel 1 3
+    launches a rank a head
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -1400,6 +1421,290 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
             "stats_ulps": stats_ulps, "remat": remat, "remat_grads": grads}
 
 
+def _pfc_config(rate: float):
+    """Phase 14(b)'s config: config 7's preset (its schedule: a 5,000-step
+    warmup to 0.4) at 16 rows a rank of four, the head sampled at
+    ``rate``, kernel 1 on the augment."""
+    import dataclasses
+
+    from tf_face_toolbox_tpu_torch import configs
+
+    return dataclasses.replace(
+        configs.get_config("large_id_pfc_v5e8", world=4), global_batch=64,
+        pallas_input=True, pfc_sample_rate=rate)
+
+
+def _pfc_rank(rank: int, world: int, port: int, steps: int,
+              out_path: str) -> None:
+    """Phase 14(b): one rank of four on cuda:0 over gloo, on a (2, 2)
+    grid (a spawned process): gloo's MAX all-reduce of a CUDA tensor,
+    then ``steps`` steps of the exact head and, from a fresh state, of the
+    sampled one; each head's final state, losses and kernel 1 launches
+    to ``out_path``. The ranks of data index 0 (model indices 0 and 1)
+    also write their state after each step to ``out_path.<head>.<k>``
+    (rank 1 its shard only): the plain version starts each step
+    there."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
+        fused_preprocess)
+    from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        create_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic cuDNN, as in the plain version: the comparison is of
+    # the step's arithmetic, not of cuDNN's atomics
+    torch.backends.cudnn.deterministic = True
+    topo = init_distributed("cuda:0", model=2, backend="gloo")
+    try:
+        t = torch.tensor([float(rank), -float(rank)], device=topo.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        out = {"max": t.tolist()}
+        for head, rate in (("exact", 1.0), ("sampled", 0.1)):
+            cfg = _pfc_config(rate)
+            state, net = create_train_state(cfg, 0, mesh=topo,
+                                            device=topo.device)
+            step = make_train_step(net, cfg, state, mesh=topo)
+            fused_preprocess.launches = 0
+            losses, seconds = [], []
+            for k, (x, y) in enumerate(_dp_batches(cfg, steps)):
+                t0 = time.perf_counter()
+                state, m = step(state, x, y)
+                losses.append(float(m["loss"]))     # waits for the step
+                seconds.append(time.perf_counter() - t0)
+                if rank < 2:
+                    snap = _snapshot(state)
+                    if rank == 1:
+                        snap = {key: snap[key] for key in _SHARD_KEYS}
+                    torch.save(snap, f"{out_path}.{head}.{k}")
+            out[head] = {"state": _snapshot(state), "losses": losses,
+                         "seconds": seconds,
+                         "launches": fused_preprocess.launches}
+            del state, net, step
+            torch.cuda.empty_cache()
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+_SHARD_KEYS = ("classifier", "momentum/classifier")
+
+
+def _state_at(cfg, saved: list, k: int):
+    """A state of the plain version (the global classifier) at rank 0's
+    snapshot ``saved[0].<k>`` and rank 1's shard ``saved[1].<k>``:
+    (state, net)."""
+    from tf_face_toolbox_tpu_torch.parallel.mesh import Topology
+    from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
+
+    state, net = create_train_state(cfg, 0, mesh=Topology(data=2, model=2),
+                                    whole_classifier=True, device="cuda")
+    snap = torch.load(f"{saved[0]}.{k}", weights_only=True)
+    shard = torch.load(f"{saved[1]}.{k}", weights_only=True)
+    for key in _SHARD_KEYS:
+        if key in snap:
+            snap[key] = torch.cat([snap[key], shard[key]])
+    opt = state.opt_state["optimizer"]
+    with torch.no_grad():
+        for name, t in (*state.params.items(), *state.batch_stats.items()):
+            kind = "params" if name in state.params else "batch_stats"
+            t.copy_(snap[f"{kind}/{name}"])
+        state.classifier.copy_(snap["classifier"])
+    for name, p in {**state.params, "classifier": state.classifier}.items():
+        buf = snap.get(f"momentum/{name}")
+        if buf is not None:
+            opt.state[p] = {"momentum_buffer": buf.to(p.device)}
+    state.step, state.opt_state["count"], state.rng = (
+        int(v) for v in snap["counters"])
+    return state, net
+
+
+def _bench_train(args: list) -> dict:
+    """``bench_train`` as a subprocess on this card: its JSON line."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.bench_train",
+         *args], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0, f"bench_train {' '.join(args)} failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
+    """Phase 14: the class-sharded Partial-FC head (BASELINE config 7)."""
+    import multiprocessing as mp
+    import socket
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.parallel.mesh import Topology
+    from tf_face_toolbox_tpu_torch.parallel.reference import (
+        replica_loop_step)
+    from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
+
+    t0 = time.time()
+    say(f"[14 partial fc] {bench.gpu_info()}")
+    # (a) config 7 at the card's one rank: 93,431 classes, sampled at 0.1
+    step, losses, cli_launches = run_train_cli(
+        ["--preset", "large_id_pfc_v5e8", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "10"], timeout=600)
+    say(f"  (a) cli.train --preset large_id_pfc_v5e8 --pallas_input (1 rank "
+        f"of 256, the preset's 2 x 4 mesh cut to the card's 1; 93,431 "
+        f"classes, sampled at 0.1, budget 9,344): done step={step}, losses "
+        f"{[round(v, 4) for v in losses]}, kernel 1 launches {cli_launches} "
+        f"in 20 steps; {time.time() - t0:.1f} s")
+    expect(step == 20, f"config 7 stopped at step {step}")
+    expect(cli_launches == 20,
+           f"kernel 1 launched {cli_launches} times in 20 steps")
+    expect(len(losses) == 2 and all(np.isfinite(losses)),
+           f"config-7 losses {losses}")
+    timing = {}
+    for head, extra in (("sampled", []),
+                        ("exact", ["--pfc_sample_rate", "1"])):
+        t1 = time.time()
+        r = timing[head] = _bench_train(["--preset", "large_id_pfc_v5e8",
+                                         "--steps", "10", "--warmup", "3",
+                                         *extra])
+        kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            r["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+        say(f"  (a) bench_train --preset large_id_pfc_v5e8 {' '.join(extra)}"
+            f" ({head} head, {r['classifier_columns']:,} classifier rows "
+            f"scored a step): {r['faces_per_sec']:.1f} faces/s "
+            f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x phase 11's "
+            f"config 4 {single_faces_per_sec:.1f}), {r['ms_per_step']:.2f} "
+            f"ms/step; peak memory {r['peak_memory_gb']:.2f} GB; profiled "
+            f"{r['profiled_wall_ms_per_step']:.2f} ms/step wall, "
+            f"{r['device_ms_per_step']:.2f} device, idle "
+            f"{r['idle_share']:.1%}; head share {r['head_share']:.2%}; "
+            f"device ms by kind: {kinds}; {time.time() - t1:.1f} s")
+        expect(np.isfinite(r["loss"]), f"{head} head's loss {r['loss']}")
+    ratio = (timing["sampled"]["faces_per_sec"]
+             / timing["exact"]["faces_per_sec"])
+    say(f"  (a) sampled / exact faces/s: {ratio:.4f}")
+
+    # (b) four ranks on cuda:0 over gloo, data 2 x model 2
+    t1 = time.time()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, f"pfc_rank{r}.pt") for r in range(4)]
+    procs = [ctx.Process(target=_pfc_rank, args=(r, 4, port, 3, paths[r]))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=900)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    expect([p.exitcode for p in procs] == [0] * 4,
+           f"gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(path, weights_only=True) for path in paths]
+    expect(all(r["max"] == [3.0, 0.0] for r in ranks),
+           f"gloo MAX on cuda:0 gave {[r['max'] for r in ranks]}")
+    out = {}
+    for head, rate in (("exact", 1.0), ("sampled", 0.1)):
+        states = [r[head]["state"] for r in ranks]
+        rep = [{k: v for k, v in s.items() if k not in _SHARD_KEYS}
+               for s in states]
+        diff, where = max(_max_diff(rep[0], rep[r]) for r in range(1, 4))
+        shard_diff = max(_max_diff({k: states[r][k] for k in _SHARD_KEYS},
+                                   {k: states[r + 2][k] for k in _SHARD_KEYS})
+                         for r in range(2))[0]
+        expect(diff == 0 and shard_diff == 0,
+               f"{head}: the ranks differ by {diff} at {where}, the shards "
+               f"by {shard_diff}")
+        # each step of the plain version from the ranks' state before it
+        # (the first from the same seed): bf16 weights that four ranks'
+        # f32 sums leave an ulp apart would otherwise move later steps
+        cfg = _pfc_config(rate)
+        saved = [f"{p}.{head}" for p in paths[:2]]
+        cos, unmoved, ref_losses = {}, set(), []
+        stats_ulps = loss_rel = 0.0
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for k, (x, y) in enumerate(_dp_batches(cfg, 3)):
+                if k == 0:
+                    state, net = create_train_state(
+                        cfg, 0, mesh=Topology(data=2, model=2),
+                        whole_classifier=True, device="cuda")
+                else:
+                    state, net = _state_at(cfg, saved, k - 1)
+                before = _snapshot(state)
+                state, m = replica_loop_step(net, cfg, state, x, y, 4,
+                                             model=2)
+                ref_losses.append(float(m["loss"]))
+                ref = _snapshot(state)
+                del state, net
+                got = torch.load(f"{saved[0]}.{k}", weights_only=True)
+                shard = torch.load(f"{saved[1]}.{k}", weights_only=True)
+                for key in _SHARD_KEYS:
+                    got[key] = torch.cat([got[key], shard[key]])
+                for key, want in ref.items():
+                    if key.startswith(("params/", "classifier")) and not \
+                            key.endswith(bt.NOISE_ONLY):
+                        a = (got[key] - before[key]).double().ravel()
+                        b = (want - before[key]).double().ravel()
+                        if not a.any() and not b.any():
+                            unmoved.add(key)
+                            continue
+                        c = float(a @ b / (a.norm() * b.norm()))
+                        cos[key] = min(cos.get(key, 1.0), c)
+                    elif key.startswith("batch_stats/"):
+                        scale = torch.clamp_min(want.abs(),
+                                                0.01 * want.abs().max())
+                        ulps = ((got[key] - want).abs()
+                                / bf16_ulp(scale)).max().item()
+                        stats_ulps = max(stats_ulps, ulps)
+                loss_rel = max(loss_rel, abs(ranks[0][head]["losses"][k]
+                                             - ref_losses[-1])
+                               / abs(ref_losses[-1]))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+        unmoved -= cos.keys()
+        worst = min(cos, key=cos.get)
+        rank_losses = ranks[0][head]["losses"]
+        launches = [r[head]["launches"] for r in ranks]
+        say(f"  (b) {head} head{' at 0.1 (budget 4,672)' if rate < 1 else ''}"
+            f": 4 gloo ranks on cuda:0 (2 x 2), config 7's r50 face stem and "
+            f"schedule, 16 rows a rank, 93,431 classes (46,716 a shard), 3 "
+            f"bf16 steps: replicated tensors max |diff| {diff}, shards across "
+            f"data ranks {shard_diff}; losses "
+            f"{[round(v, 4) for v in rank_losses]} vs replica_loop_step("
+            f"model=2) from the ranks' state before each step "
+            f"{[round(v, 4) for v in ref_losses]} (rel {loss_rel:.2e}); "
+            f"update cosine min over the steps {cos[worst]:.6f} ({worst}) "
+            f"over {len(cos)} leaves, {len(unmoved)} unmoved in both; BN "
+            f"running statistics within {stats_ulps:.2f} bf16 steps; kernel "
+            f"1 launches {launches}; rank 0's steps (host clock, the gloo "
+            f"exchanges through the host included) "
+            f"{[round(v, 3) for v in ranks[0][head]['seconds']]} s")
+        expect(launches == [3] * 4, f"{head}: kernel 1 launches {launches}")
+        expect(cos[worst] >= 0.999, f"{head}: update cosine {cos[worst]} at "
+                                    f"{worst}")
+        expect(stats_ulps <= 2.0, f"{head}: BN running statistics "
+                                  f"{stats_ulps} bf16 steps off")
+        expect(loss_rel <= 0.01, f"{head}: losses {rank_losses} vs "
+                                 f"{ref_losses}")
+        out[head] = {"min_cos": cos[worst], "stats_ulps": stats_ulps,
+                     "loss_rel": loss_rel, "launches": launches,
+                     "ranks_max_diff": diff, "shards_max_diff": shard_diff}
+    say(f"  (b) {time.time() - t1:.1f} s; phase 14: {time.time() - t0:.1f} s")
+    out.update(cli_launches=cli_launches, timing=timing,
+               seconds=time.time() - t0)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; there is no CPU path")
@@ -1643,6 +1948,8 @@ def main() -> None:
     ckpt = phase_checkpoint(g, work)
     # ---- 13. data-parallel training (config 5), through torchrun
     dp = phase_data_parallel(work, train["time"]["faces_per_sec"])
+    # ---- 14. the class-sharded Partial-FC head (config 7)
+    pfc = phase_partial_fc(work, train["time"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -1687,7 +1994,13 @@ def main() -> None:
          # each of two gloo ranks on cuda:0 (3 steps)
          "data_parallel_launches": dp["cli_launches"],
          "data_parallel_steps": 20,
-         "data_parallel_rank_launches": dp["rank_launches"]},
+         "data_parallel_rank_launches": dp["rank_launches"],
+         # phase 14: config 7 through cli.train (20 steps, one rank), and
+         # each of four gloo ranks on cuda:0 (3 steps a head)
+         "partial_fc_launches": pfc["cli_launches"],
+         "partial_fc_steps": 20,
+         "partial_fc_rank_launches": {h: pfc[h]["launches"]
+                                      for h in ("exact", "sampled")}},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

@@ -3,9 +3,10 @@
 Mirrors tests/test_configs.py: all eight presets exist; the eval-only
 dicts are the JAX ones; each train preset has the JAX TrainConfig's
 field values (bf16 compute); the single-GPU preset builds and trains a
-step at a cut size; the data-parallel preset is served with its batch a
-device times the ranks; the presets whose paths are not ported yet
-raise naming their ROADMAP.md item when asked for, never at import.
+step at a cut size; the data-parallel and Partial-FC presets are served
+with their batch a device times the ranks; the presets whose paths are
+not ported yet raise naming their ROADMAP.md item when asked for, never
+at import.
 """
 
 import dataclasses
@@ -32,8 +33,10 @@ EVAL = ["extract_verify_cpu", "se_resnet_extract", "variant_backbones",
         "accuracy_serving_bf16"]
 TRAIN = ["casia_single_chip", "v5e8_data_parallel", "large_id_pfc_v5e8",
          "adaface_noisy_data"]
-# presets whose path is not ported yet -> the item their refusal names
+# presets whose path is not ported yet -> the item their refusal names;
+# large_id_pfc_v5e8 named item 11 until the Partial-FC head was ported
 REFUSED = {"large_id_pfc_v5e8": "11", "adaface_noisy_data": "9"}
+SERVED = {"large_id_pfc_v5e8"}
 
 
 def test_all_presets_present():
@@ -125,8 +128,20 @@ def test_the_data_parallel_preset_trains_a_step_on_one_rank():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_presets_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match=f"item {REFUSED[name]}"):
-        configs.get_config(name)
+    """A preset whose path is still to port raises naming its item; one
+    whose item has landed (config 7, item 11) builds instead: 256 rows a
+    device times the ranks, every other field as published."""
+    if name not in SERVED:
+        with pytest.raises(NotImplementedError,
+                           match=f"item {REFUSED[name]}"):
+            configs.get_config(name)
+        return
+    published = configs.get_config(name)
+    assert published.global_batch == 2048 and published.dtype == torch.bfloat16
+    assert (published.num_classes, published.pfc_sample_rate) == (93_431, 0.1)
+    for world in (1, 4, 8):
+        assert configs.get_config(name, world=world) == dataclasses.replace(
+            published, global_batch=256 * world)
 
 
 def test_unknown_config_raises():

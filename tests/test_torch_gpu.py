@@ -773,6 +773,63 @@ def test_two_gloo_ranks_on_one_card_match_replica_loop(cuda):
         np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
 
 
+@pytest.mark.parametrize("head", ["exact", "sampled"])
+def test_four_gloo_ranks_on_a_data_model_grid(cuda, head):
+    """Four ranks sharing cuda:0 over gloo as data 2 x model 2 (the
+    class-sharded head: the exact one at 13 classes, padded to 14, or the
+    sampled one at 201, rate 0.5), kernel 1 on each rank's augment: three
+    steps leave the replicated tensors equal on all four ranks and each
+    model index's shard equal on its two data ranks, bit for bit; steps 2
+    and 3, taken again from the ranks' state before them, hold to
+    replica_loop_step(model=2)'s steps from those states in this process
+    (rtol 1e-3, atol 3e-4; losses rtol 1e-4: cuDNN may pick other
+    algorithms in other processes, and four ranks sum in another
+    order)."""
+    import torch_dist as td
+
+    kw = {"augment": True, "crop_from": 20, "pallas_input": True,
+          "dtype": torch.float32, "global_batch": 64,
+          **({"num_classes": 13} if head == "exact" else
+             {"num_classes": 201, "pfc_sample_rate": 0.5})}
+    run = {"model": 2, "classes": kw["num_classes"], "u8": True}
+
+    def replicated(snap):
+        return {k: v for k, v in snap.items() if k != "classifier"} | {
+            "momentum": snap["momentum"]["params"]}
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                same(a[k], b[k])
+        elif a is None or isinstance(a, (int, float)):
+            assert a == b
+        else:
+            assert np.array_equal(a, b)
+
+    with td.Ranks(4, device="cuda:0") as ranks:
+        out = ranks.run(td.train_steps, cfg_kw=kw, **run)
+        assert [n for _, _, n in out] == [td.STEPS] * 4
+        snaps = [s for _, s, _ in out]
+        for r in range(4):
+            same(replicated(snaps[r][-1]), replicated(snaps[0][-1]))
+            same({k: snaps[r][-1][k] for k in ("classifier", "momentum")},
+                 {k: snaps[r % 2][-1][k] for k in ("classifier", "momentum")})
+        starts = [td.join_shards([s0, s1]) for s0, s1 in
+                  zip(snaps[0][:-1], snaps[1][:-1])]
+        forced = ranks.run(td.steps_from, cfg_kw=kw, starts=starts, **run)
+    plain = td.steps_from(None, kw, starts, world=4, device="cuda", **run)
+    for (m_got, s0), (_, s1), (m_want, want) in zip(forced[0], forced[1],
+                                                   plain):
+        got = td.join_shards([s0, s1])
+        np.testing.assert_allclose(m_got["loss"], m_want["loss"], rtol=1e-4)
+        for k, v in want["vars"].items():
+            np.testing.assert_allclose(got["vars"][k], v, rtol=1e-3,
+                                       atol=3e-4, err_msg=k)
+        np.testing.assert_allclose(got["classifier"], want["classifier"],
+                                   rtol=1e-3, atol=3e-4)
+
+
 def test_remat_gradients_on_the_card(cuda):
     """remat=True and "save_convs" give the gradients of no remat on the
     card (deterministic cuDNN: the recompute repeats the same kernels),

@@ -43,6 +43,7 @@ from tf_face_toolbox_tpu_torch.parallel.mesh import (
     init_distributed,
     local_batch_size,
     node_layout,
+    rank_batch_size,
 )
 from tf_face_toolbox_tpu_torch.train import trainer
 from tf_face_toolbox_tpu_torch.train.trainer import (
@@ -226,12 +227,23 @@ def test_collectives_are_the_identity_at_one_rank():
 
 def test_topology_shapes():
     """Mirrors tests/test_parallel.py::test_mesh_shapes: every rank on the
-    data axis; a model axis raises naming item 11."""
+    data axis by default; a model axis of 4 makes a (2, 4) grid, rank r
+    at data index r // 4 and model index r % 4 (JAX's grid.reshape(data,
+    model)); rows a data replica (JAX's local_batch_size) and rows a rank
+    are named apart. Without a process group the axes have no groups."""
     topo = create_topology(8)
     assert topo.shape[DATA_AXIS] == 8 and topo.shape[MODEL_AXIS] == 1
     assert topo.is_main and topo.distributed
-    with pytest.raises(NotImplementedError, match="item 11"):
-        create_topology(8, model=4)
+    grid = create_topology(8, model=4, rank=6)
+    assert grid.shape == {DATA_AXIS: 2, MODEL_AXIS: 4} and grid.world == 8
+    assert (grid.data_index, grid.model_index) == (1, 2)
+    assert grid.data_group is None and grid.model_group is None
+    assert local_batch_size(64, grid) == 32 and rank_batch_size(64, grid) == 8
+    with pytest.raises(ValueError, match="not divisible by model=3"):
+        create_topology(8, model=3)
+    with pytest.raises(ValueError, match="8 ranks"):
+        rank_batch_size(60, grid)
+    assert create_topology(2, model=2).distributed     # data 1 x model 2
     assert local_batch_size(64, create_topology(2)) == 32
     with pytest.raises(ValueError):
         local_batch_size(63, topo)
@@ -255,9 +267,9 @@ def test_node_layout_checks():
         node_layout(6, node_ids=[0, 0, 0, 0, 1, 1])
     with pytest.raises(ValueError, match="found 2 nodes, expected 4"):
         node_layout(8, node_ids=[0] * 4 + [1] * 4, nodes=4)
-    # a model axis of 2 fits inside 4-rank nodes, and is item 11's
-    with pytest.raises(NotImplementedError, match="item 11"):
-        create_topology(8, model=2, node_ids=[0] * 4 + [1] * 4)
+    # a model axis of 2 fits inside 4-rank nodes
+    topo = create_topology(8, model=2, node_ids=[0] * 4 + [1] * 4)
+    assert (topo.data, topo.model, topo.nodes) == (4, 2, 2)
 
 
 def test_init_distributed_needs_torchrun(monkeypatch):

@@ -7,9 +7,10 @@ both ranks; rank 0 alone writes checkpoints and runs the eval hook, and
 both at the same step. ``cli.train --multihost`` as two processes with
 torchrun's environment: SIGTERM to one rank flushes one checkpoint and
 both exit 0. The weighted shard mixture yields the JAX package's
-sources and labels step by step. The model-axis paths still raise
-naming item 11, and a one-process run on a host with several GPUs
-refuses with the torchrun line.
+sources and labels step by step. The model-axis paths (``--mesh_model``,
+``--pfc_sample_rate``, config 7's preset) train as four ranks on a 2 x
+2 grid, and a one-process run on a host with several GPUs refuses with
+the torchrun line.
 """
 
 import dataclasses
@@ -245,8 +246,21 @@ def test_mixture_refusals(shards, argv, why):
                                   ["--preset=large_id_pfc_v5e8"]],
                          ids=lambda a: a[0].split("=")[0])
 def test_the_model_axis_paths_raise_naming_item_11(argv):
-    with pytest.raises(SystemExit, match="item 11"):
-        cli_train.main([*TINY, "--num_steps=1", *argv])
+    """The model-axis paths named item 11 until it was ported; now each
+    trains: cli.train --multihost as four ranks on a 2 x 2 grid (the
+    exact head at 13 classes, the sampled one at 201, config 7's preset
+    at its 93,431 classes, cut to the tiny net), 2 steps, the same loss
+    on every rank."""
+    extra = {"--mesh_model": ["--num_classes=13"],
+             "--pfc_sample_rate": ["--num_classes=201"],
+             "--preset": []}[argv[0].split("=")[0]]
+    outs = _finish(_launch(["--mesh_model=2", *argv, *extra,
+                            "--num_steps=2", "--log_every=1"], world=4))
+    for code, out, err in outs:
+        assert code == 0, err[-3000:]
+    done = [o.strip().splitlines()[-1] for _, o, _ in outs]
+    assert len(set(done)) == 1 and done[0].startswith("done: step=2 loss=")
+    assert np.isfinite(float(done[0].split("loss=")[1]))
 
 
 def test_the_adaface_preset_raises_naming_item_9():

@@ -26,6 +26,8 @@ import traceback
 import numpy as np
 import torch
 
+from tf_face_toolbox_tpu_torch.parallel.mesh import Topology
+
 # one test config for the parity runs: CosFace, momentum, weight decay,
 # a staircase with a 2-step warmup and a boundary at step 2 (learning
 # rates 0.025, 0.05, 0.025); tests/test_torch_trainer.py's, with its
@@ -135,21 +137,68 @@ class Ranks:
 
 # ---- what the ranks run --------------------------------------------------
 
-def batches(nan_at=None, steps=STEPS, seed=7, u8=False):
-    """The parity runs' global f32 batches (``u8``: uint8 faces of 20 x
-    20, for the augment); ``nan_at``: the step whose row 0 (rank 0's)
-    holds a NaN."""
+_GRIDS: dict = {}
+
+
+def grid(topo, model: int):
+    """This rank's topology on a (world / model, model) grid of the same
+    ranks (its axes' groups created once a process)."""
+    if model == topo.model:
+        return topo
+    if model not in _GRIDS:
+        from tf_face_toolbox_tpu_torch.parallel.mesh import create_topology
+
+        _GRIDS[model] = create_topology(topo.world, model=model,
+                                        rank=topo.rank,
+                                        local_rank=topo.local_rank,
+                                        device=topo.device)
+    return _GRIDS[model]
+
+
+class installed_draws:
+    """Within the block, ``sharded_softmax.draw_uniforms`` returns
+    ``table[generator.initial_seed()]`` (the JAX head's draws, computed
+    by a test); None leaves the port's own draws."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __enter__(self):
+        from tf_face_toolbox_tpu_torch.parallel import sharded_softmax as ss
+
+        self.real = ss.draw_uniforms
+        if self.table is not None:
+            table = self.table
+
+            def drawn(generator, c_local):
+                u = torch.tensor(table[generator.initial_seed()])
+                assert u.shape == (c_local,)
+                return u.to(generator.device)
+
+            ss.draw_uniforms = drawn
+
+    def __exit__(self, *exc):
+        from tf_face_toolbox_tpu_torch.parallel import sharded_softmax as ss
+
+        ss.draw_uniforms = self.real
+
+
+def batches(nan_at=None, steps=STEPS, seed=7, u8=False, classes=CLASSES,
+            rows=BATCH):
+    """The parity runs' global f32 batches of ``rows`` (``u8``: uint8
+    faces of 20 x 20, for the augment) with labels in [0, ``classes``);
+    ``nan_at``: the step whose row 0 (rank 0's) holds a NaN."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(steps):
         if u8:
-            x = rng.integers(0, 256, (BATCH, 20, 20, 3), np.uint8)
+            x = rng.integers(0, 256, (rows, 20, 20, 3), np.uint8)
         else:
-            x = rng.standard_normal((BATCH, SIZE, SIZE, 3)).astype(
+            x = rng.standard_normal((rows, SIZE, SIZE, 3)).astype(
                 np.float32)
         if i == nan_at:
             x[0, 0, 0, 0] = np.nan
-        out.append((x, rng.integers(0, CLASSES, BATCH).astype(np.int32)))
+        out.append((x, rng.integers(0, classes, rows).astype(np.int32)))
     return out
 
 
@@ -211,45 +260,70 @@ def collectives_case(topo) -> tuple:
 
 
 def train_steps(topo, cfg_kw: dict, flat=None, cls=None, nan_at=None,
-                steps=STEPS, seed=0, u8=False) -> tuple[list, list, int]:
-    """``steps`` steps of the data-parallel step on ``batches``: (metrics
-    and snapshot after each, kernel 1 launches)."""
+                steps=STEPS, seed=0, u8=False, model=1, classes=CLASSES,
+                draws=None, keep_snapshots=True,
+                data_seed=7) -> tuple[list, list, int]:
+    """``steps`` steps of the collective step on ``batches``, the ranks on
+    a (world / ``model``, ``model``) grid (``draws``: the sampled head's
+    keys by generator seed, see ``installed_draws``): (metrics and
+    snapshot after each, its classifier a shard, kernel 1 launches)."""
     from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
         fused_preprocess)
     from tf_face_toolbox_tpu_torch.train.trainer import (
         TrainConfig, create_train_state, make_train_step)
 
+    mesh = grid(topo, model)
     cfg = TrainConfig(**{**BASE, **cfg_kw})
     state, net = create_train_state(cfg, seed, variables=flat,
-                                    classifier=cls, mesh=topo,
+                                    classifier=cls, mesh=mesh,
                                     device=topo.device)
-    step_fn = make_train_step(net, cfg, state, mesh=topo)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh)
     metrics, snaps = [], []
     launches = fused_preprocess.launches
-    for x, y in batches(nan_at, steps, u8=u8):
-        state, m = step_fn(state, x, y)
-        metrics.append({k: float(v) for k, v in m.items()})
-        snaps.append(snapshot(state))
+    with installed_draws(draws):
+        for x, y in batches(nan_at, steps, data_seed, u8=u8,
+                            classes=classes, rows=cfg.global_batch):
+            state, m = step_fn(state, x, y)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if keep_snapshots:
+                snaps.append(snapshot(state))
     return metrics, snaps, fused_preprocess.launches - launches
 
 
 def replica_steps(cfg_kw: dict, world: int, flat=None, cls=None,
-                  nan_at=None, steps=STEPS, seed=0, device="cpu", u8=False):
+                  nan_at=None, steps=STEPS, seed=0, device="cpu", u8=False,
+                  model=1, classes=CLASSES, draws=None, data_seed=7):
     """The same steps through ``parallel.reference.replica_loop_step`` in
-    this process."""
+    this process (its classifier global)."""
     from tf_face_toolbox_tpu_torch.parallel.reference import replica_loop_step
     from tf_face_toolbox_tpu_torch.train.trainer import (
         TrainConfig, create_train_state)
 
     cfg = TrainConfig(**{**BASE, **cfg_kw})
-    state, net = create_train_state(cfg, seed, variables=flat,
-                                    classifier=cls, device=device)
+    state, net = create_train_state(
+        cfg, seed, variables=flat, classifier=cls, device=device,
+        mesh=Topology(data=world // model, model=model),
+        whole_classifier=True)
     metrics, snaps = [], []
-    for x, y in batches(nan_at, steps, u8=u8):
-        state, m = replica_loop_step(net, cfg, state, x, y, world)
-        metrics.append({k: float(v) for k, v in m.items()})
-        snaps.append(snapshot(state))
+    with installed_draws(draws):
+        for x, y in batches(nan_at, steps, data_seed, u8=u8,
+                            classes=classes, rows=cfg.global_batch):
+            state, m = replica_loop_step(net, cfg, state, x, y, world,
+                                         model=model)
+            metrics.append({k: float(v) for k, v in m.items()})
+            snaps.append(snapshot(state))
     return metrics, snaps
+
+
+def join_shards(snaps: list) -> dict:
+    """One snapshot with the classifier and its momentum reassembled from
+    the model row's shards (``snaps``: the row's ranks in model order)."""
+    out = dict(snaps[0])
+    out["classifier"] = np.concatenate([s["classifier"] for s in snaps])
+    cls = [s["momentum"]["classifier"] for s in snaps]
+    out["momentum"] = {**snaps[0]["momentum"], "classifier": (
+        None if cls[0] is None else np.concatenate(cls))}
+    return out
 
 
 def rank_batches(topo, start: int, rows: int, size: int = 20):
@@ -282,9 +356,9 @@ def loop_run(topo, train_dir: str, num_steps: int, cfg_kw: dict,
     writes, evals = [], []
     real_write = CheckpointManager._write
 
-    def counted(self, state, step):
+    def counted(self, state, step, *tensors):
         writes.append(step)
-        return real_write(self, state, step)
+        return real_write(self, state, step, *tensors)
 
     def eval_fn(state):
         evals.append(state.step)
@@ -313,3 +387,143 @@ def loop_run(topo, train_dir: str, num_steps: int, cfg_kw: dict,
         CheckpointManager._write = real_write
     return {"state": snapshot(result.state), "writes": writes,
             "evals": evals, "metrics": result.last_metrics}
+
+
+def sharded_head(topo, model: int, emb, w, labels, margin: dict,
+                 total_classes=None, subcenters=1, budget=None,
+                 data_sync=False, seeds=None, draws=None, repeats=1):
+    """The class-sharded head on the ranks' (world / ``model``,
+    ``model``) grid: each data index takes its block of the rows of
+    ``emb`` / ``labels`` (all of them at data 1), each model index its
+    shard of ``w`` (numpy). Exact, or sampled at ``budget`` with this
+    shard's generator seeded ``seeds[model index]`` (the seeds of the
+    ``repeats`` draws follow on from it). Backward of the loss over the
+    model size; returns (loss, its emb gradient, its shard gradient), the
+    gradients averaged over ``repeats`` draws."""
+    from tf_face_toolbox_tpu_torch.ops.losses import MarginConfig
+    from tf_face_toolbox_tpu_torch.parallel import sharded_softmax as ss
+
+    mesh = grid(topo, model)
+    cfg = MarginConfig(**margin)
+    rows = emb.shape[0] // mesh.data
+    d, m = mesh.data_index, mesh.model_index
+    shard = w.shape[0] // model
+    e = torch.tensor(emb[d * rows:(d + 1) * rows], requires_grad=True)
+    ws = torch.tensor(w[m * shard:(m + 1) * shard], requires_grad=True)
+    y = torch.as_tensor(labels[d * rows:(d + 1) * rows]).long()
+    losses = []
+    with installed_draws(draws):
+        for i in range(repeats):
+            if budget is None:
+                loss = ss.sharded_margin_softmax_loss(
+                    e, ws, y, cfg, mesh, total_classes=total_classes,
+                    subcenters=subcenters)
+            else:
+                gen = torch.Generator().manual_seed(seeds[m] + i * model)
+                loss = ss.sampled_sharded_margin_softmax_loss(
+                    e, ws, y, cfg, gen, budget, mesh,
+                    total_classes=total_classes, data_sync=data_sync)
+            (loss / model).backward()
+            losses.append(loss.item())
+    return (float(np.mean(losses)), e.grad.numpy() / repeats,
+            ws.grad.numpy() / repeats)
+
+
+def checkpoint_round_trip(topo, train_dir: str, model: int,
+                          cfg_kw: dict) -> dict:
+    """One step on the grid, a save, a fresh state restored from it (its
+    snapshot against the saved one's), and a restore into a state of
+    another class count (the error)."""
+    import dataclasses
+
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    mesh = grid(topo, model)
+    cfg = TrainConfig(**{**BASE, **cfg_kw})
+    state, net = create_train_state(cfg, 0, mesh=mesh, device=topo.device)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    x, y = batches(steps=1, classes=cfg.num_classes,
+                   rows=cfg.global_batch)[0]
+    state, _ = step_fn(state, x, y)
+    mgr = CheckpointManager(train_dir, mesh=mesh)
+    mgr.maybe_save(state, force=True)
+    fresh, _ = create_train_state(cfg, 1, mesh=mesh, device=topo.device)
+    mgr.restore(fresh)
+    other, _ = create_train_state(
+        dataclasses.replace(cfg, num_classes=cfg.num_classes + model),
+        0, mesh=mesh, device=topo.device)
+    try:
+        mgr.restore(other)
+        error = ""
+    except ValueError as e:
+        error = str(e)
+    return {"saved": snapshot(state), "restored": snapshot(fresh),
+            "error": error, "shapes": mgr.global_shapes()}
+
+
+def state_at(snap: dict, cfg, mesh=None, whole=False, device="cpu"):
+    """A port state at ``snap`` (a snapshot in the JAX key space, the
+    port's or the JAX trainer's): variables, global classifier (this
+    rank's shard of it, or all of it with ``whole``), momentum buffers,
+    EMA, step and count. Returns (state, net)."""
+    from tf_face_toolbox_tpu_torch.interop import port
+    from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
+
+    state, net = create_train_state(
+        cfg, 0, variables=snap["vars"], classifier=snap["classifier"],
+        mesh=mesh, whole_classifier=whole, device=device)
+    rows = state.classifier.shape[0]
+    index = 0 if whole or mesh is None else mesh.model_index
+    mom = snap["momentum"]
+    if mom["classifier"] is not None:
+        opt = state.opt_state["optimizer"]
+        for name, p in state.params.items():
+            key, kind = port.jax_key(name, p)
+            opt.state[p] = {"momentum_buffer": port.from_jax_layout(
+                mom["params"][key], kind).to(device)}
+        opt.state[state.classifier] = {"momentum_buffer": torch.tensor(
+            mom["classifier"][index * rows:(index + 1) * rows]).to(device)}
+    if snap["ema"] is not None:
+        with torch.no_grad():
+            for name, e in state.ema_params.items():
+                key, kind = port.jax_key(name, e)
+                e.copy_(port.from_jax_layout(snap["ema"][key], kind))
+    state.step = snap["step"]
+    state.opt_state["count"] = snap.get("count", snap["step"])
+    return state, net
+
+
+def steps_from(topo, cfg_kw: dict, starts: list, model=1, classes=CLASSES,
+               draws=None, data_seed=7, world=None, device="cpu",
+               u8=False) -> list:
+    """One step from each state of ``starts`` (snapshots), on its step's
+    batch of ``batches``: on the ranks' grid, or with ``topo`` None
+    through ``replica_loop_step`` of ``world`` ranks in this process (on
+    ``device``). Returns (metrics, snapshot) of each."""
+    from tf_face_toolbox_tpu_torch.parallel.reference import replica_loop_step
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, make_train_step)
+
+    cfg = TrainConfig(**{**BASE, **cfg_kw})
+    data = batches(None, max(s["step"] for s in starts) + 1, data_seed,
+                   u8=u8, classes=classes, rows=cfg.global_batch)
+    out = []
+    with installed_draws(draws):
+        for snap in starts:
+            x, y = data[snap["step"]]
+            if topo is None:
+                state, net = state_at(snap, cfg, Topology(
+                    data=world // model, model=model), whole=True,
+                    device=device)
+                state, m = replica_loop_step(net, cfg, state, x, y, world,
+                                             model=model)
+            else:
+                mesh = grid(topo, model)
+                state, net = state_at(snap, cfg, mesh, device=topo.device)
+                state, m = make_train_step(net, cfg, state, mesh=mesh)(
+                    state, x, y)
+            out.append(({k: float(v) for k, v in m.items()},
+                        snapshot(state)))
+    return out

@@ -3,22 +3,29 @@ step's two augment routes held against each other, and remat's trade.
 
     python -m tf_face_toolbox_tpu_torch.bench_train [--batch 256]
         [--steps 20] [--warmup 5] [--remat false|true|save_convs]
+        [--preset NAME] [--pfc_sample_rate R]
     torchrun --standalone --nproc_per_node <GPUs> -m \
         tf_face_toolbox_tpu_torch.bench_train --preset v5e8_data_parallel
+    torchrun --standalone --nproc_per_node <GPUs> -m \
+        tf_face_toolbox_tpu_torch.bench_train --preset large_id_pfc_v5e8 \
+        --mesh_model <N>
 
-BASELINE config 4 at full width (or ``--preset``'s config, 5 being the
-same network and head): ``resnet_v1_50`` (face stem, 512-d, bf16
-compute, f32 master weights), CosFace over 10,572 classes, SGD,
-synthetic uint8 faces (120 x 120, cropped to 112) through the host and
-device prefetch, kernel 1 on the augment; ``--batch`` rows a GPU.
-Under torchrun every rank trains data-parallel over NCCL
+BASELINE config 4 at full width (or ``--preset``'s config: 5 is the
+same network and head; 7 the same network with the class-sharded head
+over 93,431 classes, sampled at 0.1, or exact with ``--pfc_sample_rate
+1``): ``resnet_v1_50`` (face stem, 512-d, bf16 compute, f32 master
+weights), CosFace over 10,572 classes, SGD, synthetic uint8 faces (120 x
+120, cropped to 112) through the host and device prefetch, kernel 1 on
+the augment; ``--batch`` rows a GPU. Under torchrun every rank trains
+over NCCL on a (ranks / ``--mesh_model``, ``--mesh_model``) grid
 (``parallel/``) and rank 0 prints. ``time_training`` times ``steps``
 steps with CUDA events after ``warmup``, then traces 5 more with
-torch.profiler (device time by kernel kind, collectives included, and
-the idle share), and counts the step's operations from the conv and
-Dense shapes. ``--remat`` builds the network with that ``remat``
-argument. Prints one JSON line. There is no CPU mode: a measurement
-that finds no card fails.
+torch.profiler (device time by kernel kind, collectives included; the
+head's cosine GEMMs, top-k and gathers as one kind; the idle share),
+and counts the step's operations from the conv and Dense shapes and
+the classifier columns scored. ``--remat`` builds the network with that
+``remat`` argument. Prints one JSON line. There is no CPU mode: a
+measurement that finds no card fails.
 """
 
 from __future__ import annotations
@@ -52,12 +59,16 @@ def config4(**overrides) -> TrainConfig:
     return TrainConfig(**{**CONFIG4, **overrides})
 
 
-def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device) -> float:
+def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
+                  columns: int | None = None) -> float:
     """Operations (2 per multiply-add) of one image's forward: every conv
-    and Dense from its shapes, and the classifier GEMM."""
+    and Dense from its shapes, and the classifier GEMM over ``columns``
+    classifier rows (default every class's)."""
     from tf_face_toolbox_tpu_torch.models.layers import ConvBN
 
-    total = [2.0 * cfg.embedding_dim * cfg.num_classes * cfg.subcenters]
+    if columns is None:
+        columns = cfg.num_classes * cfg.subcenters
+    total = [2.0 * cfg.embedding_dim * columns]
 
     def conv_hook(mod, _inp, out):
         o, i, kh, kw = mod.weight.shape
@@ -92,8 +103,12 @@ def _kind(name: str) -> str:
     if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                             "implicit")):
         return "convs (cuDNN)"
-    if any(k in n for k in ("gemm", "cutlass", "cublas", "sm90_xmma")):
-        return "GEMMs"
+    # the head's cosine GEMMs (and the embedding's small Dense), the
+    # sampled head's top-k and sort, its gathers and scatters
+    if any(k in n for k in ("gemm", "cutlass", "cublas", "sm90_xmma",
+                            "topk", "radixfind", "sort", "index", "gather",
+                            "scatter")):
+        return "head (GEMMs, top-k, gather)"
     if "reduce" in n or "norm" in n:
         return "reductions"
     if any(k in n for k in ("elementwise", "vectorized", "unrolled",
@@ -118,10 +133,14 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
 
     if mesh is not None:
         device = mesh.device
-    rank, world = (mesh.rank, mesh.data) if mesh is not None else (0, 1)
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     state, net = create_train_state(cfg, seed, mesh=mesh, device=device,
                                     net=build_network(cfg, remat=remat))
     step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    parts = StepParts(net, cfg, state, mesh)
+    # the classifier rows a step scores, over the model row's shards
+    columns = (state.classifier.shape[0] * parts.model
+               if parts.budget is None else parts.budget * parts.model)
     batches = device_prefetch(host_prefetch(
         synthetic_batches(cfg, seed, rank, world)), device=device)
 
@@ -149,7 +168,10 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     ms = start.elapsed_time(end) / steps
     loss = float(m["loss"])
     peak = torch.cuda.max_memory_allocated()
-    out = {"batch": cfg.global_batch, "ranks": world, "steps": steps,
+    out = {"batch": cfg.global_batch, "ranks": world,
+           "model": parts.model, "classes": cfg.num_classes,
+           "pfc_sample_rate": cfg.pfc_sample_rate, "budget": parts.budget,
+           "classifier_columns": columns, "steps": steps,
            "warmup": warmup, "remat": remat,
            "pallas_input": cfg.pallas_input, "ms_per_step": ms,
            "faces_per_sec": cfg.global_batch / ms * 1e3,
@@ -178,11 +200,14 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / profile_steps
     device_ms = sum(by_kind.values())
     # a rank's rows: the operations of one GPU's share of the step
-    flops = 3 * forward_flops(net, cfg, device) * cfg.global_batch / world
+    flops = (3 * forward_flops(net, cfg, device, columns)
+             * cfg.global_batch / world)
     out.update(profiled_wall_ms_per_step=wall_ms,
                device_ms_per_step=device_ms,
                idle_share=1 - device_ms / wall_ms,
                device_ms_by_kind=by_kind,
+               head_share=by_kind.get("head (GEMMs, top-k, gather)", 0.0)
+               / device_ms,
                top_kernels_ms=sorted(top, reverse=True)[:12],
                step_tflop=flops / 1e12,
                peak_share=flops / (ms / 1e3) / PEAK_BF16)
@@ -318,6 +343,10 @@ def main(argv=None) -> None:
                         "shapes at the trainer's defaults)")
     p.add_argument("--remat", default="false", choices=sorted(REMAT),
                    help="the network's remat argument")
+    p.add_argument("--pfc_sample_rate", type=float, default=None,
+                   help="the head's sample rate (default: the preset's)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="under torchrun: the model axis of the ranks")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: torch sees no CUDA device")
@@ -327,13 +356,17 @@ def main(argv=None) -> None:
     from tf_face_toolbox_tpu_torch.bench import gpu_info
     from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
 
-    mesh = init_distributed("cuda") if "WORLD_SIZE" in os.environ else None
-    world = mesh.data if mesh is not None else 1
+    mesh = (init_distributed("cuda", model=args.mesh_model)
+            if "WORLD_SIZE" in os.environ else None)
+    world = mesh.world if mesh is not None else 1
     try:
         cfg = (dataclasses.replace(configs.get_config(args.preset),
                                    pallas_input=True)
                if args.preset else config4())
         cfg = dataclasses.replace(cfg, global_batch=args.batch * world)
+        if args.pfc_sample_rate is not None:
+            cfg = dataclasses.replace(cfg,
+                                      pfc_sample_rate=args.pfc_sample_rate)
         r = time_training(cfg, steps=args.steps, warmup=args.warmup,
                           remat=REMAT[args.remat], mesh=mesh)
         if mesh is not None:

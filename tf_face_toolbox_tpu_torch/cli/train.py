@@ -13,14 +13,22 @@ flags it sets.
 Like the JAX CLI, which trains on every device it sees, a run trains on
 every GPU it is launched on: under torchrun with ``--multihost``, one
 rank a GPU, each reading its own slice of the data (global batch /
-ranks rows a step). A plain ``python -m`` with ``--device cuda`` on a
-host with several GPUs refuses and prints the torchrun line (``--device
-cuda:0`` trains on one).
+ranks rows a step). ``--mesh_model N`` puts the ranks on a (ranks / N,
+N) grid whose model axis shards the classifier's classes (the
+Partial-FC head; ``--pfc_sample_rate`` < 1 samples each shard's
+columns). A plain ``python -m`` with ``--device cuda`` on a host with
+several GPUs refuses and prints the torchrun line (``--device cuda:0``
+trains on one).
 
     # BASELINE config 5 on every GPU of a host (global batch 256 a GPU)
     torchrun --standalone --nproc_per_node 8 -m \
         tf_face_toolbox_tpu_torch.cli.train --preset v5e8_data_parallel \
         --multihost --pallas_input --train_dir /tmp/dp
+
+    # BASELINE config 7: 93,431 classes over a 2 x 4 grid, sampled PFC
+    torchrun --standalone --nproc_per_node 8 -m \
+        tf_face_toolbox_tpu_torch.cli.train --preset large_id_pfc_v5e8 \
+        --mesh_model 4 --multihost --pallas_input --train_dir /tmp/pfc
 
     # CASIA-WebFace-shaped run (BASELINE config 4), synthetic faces
     python -m tf_face_toolbox_tpu_torch.cli.train --data=synthetic \\
@@ -62,8 +70,6 @@ _NOT_PORTED = {
     "center_loss": (0.0, "9"), "center_alpha": (0.5, "9"),
     "triplet_loss": (0.0, "9"), "triplet_margin": (0.3, "9"),
     "balanced_pk": ("", "9"),
-    "pfc_sample_rate": (1.0, "11"),
-    "mesh_model": (1, "11"),
     "distill_from": ("", "10c"), "distill_network": ("resnet_v1_50", "10c"),
     "distill_stem": ("face", "10c"), "distill_head": ("gap", "10c"),
     "distill_alpha": (1.0, "10c"), "distill_use_ema": (False, "10c"),
@@ -174,6 +180,14 @@ def _parser() -> argparse.ArgumentParser:
     _bool_flag(p, "multihost", False,
                "join torchrun's process group (NCCL on the card, gloo on "
                "the CPU) and train on every rank")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-axis size: the ranks of a data row share "
+                        "their rows and split the classifier's classes "
+                        "(the Partial-FC head)")
+    p.add_argument("--pfc_sample_rate", type=float, default=1.0,
+                   help="sampled Partial-FC: the share of each classifier "
+                        "shard scored a step (1.0 = exact; 0.1 = An et al. "
+                        "2021's setting for 10^5..10^7 identities)")
     p.add_argument("--mesh_slices", type=int, default=0,
                    help="nodes the ranks span (0 = from torchrun's "
                         "LOCAL_WORLD_SIZE): checked to split the ranks "
@@ -223,7 +237,8 @@ def preset_flags(cfg) -> dict:
         grad_clip_norm=cfg.grad_clip_norm,
         skip_nonfinite=cfg.skip_nonfinite, margin=margin,
         margin_scale=cfg.margin_scale, margin_value=value,
-        subcenters=cfg.subcenters, bf16=cfg.dtype == torch.bfloat16,
+        subcenters=cfg.subcenters, pfc_sample_rate=cfg.pfc_sample_rate,
+        bf16=cfg.dtype == torch.bfloat16,
         ema_decay=cfg.ema_decay, pallas_input=cfg.pallas_input,
         accum_steps=cfg.accum_steps, random_erase=cfg.random_erase,
         input_norm=cfg.input_norm)
@@ -311,12 +326,13 @@ def build_config(args, num_classes: int):
             skip_nonfinite=args.skip_nonfinite,
             margin_scale=args.margin_scale, margin_m1=m1, margin_m2=m2,
             margin_m3=m3, subcenters=args.subcenters,
+            pfc_sample_rate=args.pfc_sample_rate,
             dtype=torch.bfloat16 if args.bf16 else torch.float32,
             augment=True, crop_from=args.crop_from or args.image_size + 8,
             random_erase=args.random_erase, accum_steps=args.accum_steps,
             ema_decay=args.ema_decay, pallas_input=args.pallas_input,
             input_norm=args.input_norm)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
 
 
@@ -369,8 +385,9 @@ def build_eval_fn(cfg, args, device):
 
 def synthetic_batches(cfg, seed: int, rank: int = 0, world: int = 1):
     """Random faces and identities at the loader's geometry (uint8
-    crop_from x crop_from): rank ``rank``'s global batch / ``world`` rows
-    a step, from a numpy generator seeded (seed, rank)."""
+    crop_from x crop_from): rank ``rank``'s block of the global batch
+    (global batch / ``world`` rows, ``world`` = data * model ranks) a
+    step, from a numpy generator seeded (seed, rank)."""
     import numpy as np
 
     rows = cfg.global_batch // world
@@ -413,11 +430,14 @@ def main(argv=None) -> None:
 
     try:
         if args.multihost:
-            topo = init_distributed(args.device, nodes=args.mesh_slices)
+            topo = init_distributed(args.device, model=args.mesh_model,
+                                    nodes=args.mesh_slices)
         else:
-            topo = create_topology(1, nodes=args.mesh_slices, device=device)
+            topo = create_topology(1, model=args.mesh_model,
+                                   nodes=args.mesh_slices, device=device)
     except ValueError as e:
-        raise SystemExit(f"--mesh_slices={args.mesh_slices}: {e}")
+        raise SystemExit(f"--mesh_model={args.mesh_model} --mesh_slices="
+                         f"{args.mesh_slices}: {e}")
     try:
         _train(args, argv, topo)
     finally:
@@ -437,14 +457,15 @@ def _train(args, argv, topo) -> None:
     from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
     from tf_face_toolbox_tpu_torch.train.loop import train_loop
 
-    device, rank, world = topo.device, topo.rank, topo.data
+    device, rank, world = topo.device, topo.rank, topo.world
     if not topo.is_main:
         logging.getLogger().setLevel(logging.WARNING)
     if args.preset:
         apply_preset(args, argv, world)
     if args.global_batch % world:
         raise SystemExit(f"--global_batch={args.global_batch} is not "
-                         f"divisible by the {world} ranks")
+                         f"divisible by the {world} ranks ({topo.data} x "
+                         f"{topo.model})")
     host_batch = args.global_batch // world
     latest = (CheckpointManager(args.train_dir).latest_step()
               if args.train_dir else None) or 0

@@ -4,14 +4,15 @@ Counterpart of ``tf_face_toolbox_tpu/configs.py``, with its names and
 values. The eval-only presets are dicts, as there. A train preset is
 kept as the keyword arguments of the port's ``TrainConfig`` (bf16
 compute) and built when asked for, so a preset whose path is not
-ported yet raises then, naming its ROADMAP.md item (sampled Partial-FC:
-11, AdaFace: 9, through ``TrainConfig``'s own refusals; a model axis:
-11), never at import.
+ported yet raises then, naming its ROADMAP.md item (AdaFace: 9, through
+``TrainConfig``'s own refusals), never at import.
 
-The data-parallel preset (config 5) is served with data = the ranks of
-the run: ``get_config(name, world=W)`` keeps its batch a device (256)
-and makes the global batch 256 * W; without ``world`` it is the
-published 2048 over 8.
+The presets published for 8 devices (config 5, data-parallel; config 7,
+the class-sharded Partial-FC head on a 2 x 4 mesh) are served at the
+ranks of the run: ``get_config(name, world=W)`` keeps their batch a
+device (256) and makes the global batch 256 * W; without ``world`` it is
+the published 2048 over 8. The run's model axis (``--mesh_model``) is
+the run's choice, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -145,10 +146,8 @@ TRAIN_PRESETS = {
     "large_id_pfc_v5e8": CONFIG_7_LARGE_ID_PFC_V5E8,
     "adaface_noisy_data": CONFIG_8_ADAFACE_NOISY_DATA,
 }
-# train presets over a data axis: name -> its published device count
-_DATA_PARALLEL = {"v5e8_data_parallel": 8}
-# train presets with a model axis (item 11)
-_MODEL_AXIS = {"large_id_pfc_v5e8": "data=2, model=4"}
+# train presets published for several devices: name -> their count
+_DEVICES = {"v5e8_data_parallel": 8, "large_id_pfc_v5e8": 8}
 
 _REGISTRY = {
     "extract_verify_cpu": CONFIG_1_EXTRACT_VERIFY_CPU,
@@ -161,24 +160,20 @@ _REGISTRY = {
 
 def get_config(name: str, *, world: int | None = None):
     """A train preset as a ``TrainConfig`` (bf16), an eval preset as its
-    dict. ``world``: the data-parallel ranks of the run; a data-parallel
-    preset's global batch becomes its batch a device times ``world``
+    dict. ``world``: the ranks of the run; a preset published for several
+    devices gets its batch a device times ``world`` as its global batch
     (other train presets keep theirs)."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown config '{name}'; have {sorted(_REGISTRY)}")
     if name not in TRAIN_PRESETS:
         return _REGISTRY[name]
-    from tf_face_toolbox_tpu_torch.train.trainer import TrainConfig, _not_ported
+    from tf_face_toolbox_tpu_torch.train.trainer import TrainConfig
 
     kwargs = dict(TRAIN_PRESETS[name])
-    if name in _DATA_PARALLEL and world is not None:
-        kwargs["global_batch"] = (kwargs["global_batch"]
-                                  // _DATA_PARALLEL[name] * world)
-    cfg = TrainConfig(**kwargs, dtype=torch.bfloat16)
-    if name in _MODEL_AXIS:
-        _not_ported(f"preset {name!r} (a {_MODEL_AXIS[name]} device mesh)",
-                    "11")
-    return cfg
+    if name in _DEVICES and world is not None:
+        kwargs["global_batch"] = (kwargs["global_batch"] // _DEVICES[name]
+                                  * world)
+    return TrainConfig(**kwargs, dtype=torch.bfloat16)
 
 
 def list_configs() -> list[str]:

@@ -1,24 +1,29 @@
-"""Process topology: one process a GPU, the data axis over all of them.
+"""Process topology: one process a GPU, on a (data, model) grid.
 
 Counterpart of ``tf_face_toolbox_tpu/parallel/mesh.py``. JAX builds a
 (data, model) device mesh inside one program; here each process is one
-replica of the ``data`` axis (rank r of ``data``), launched by torchrun,
-and ``Topology`` says where this process sits. The ``model`` axis (the
-class-sharded Partial-FC head) must be 1: more raises naming ROADMAP.md
-§1 item 11.
+device of that grid, launched by torchrun, and ``Topology`` says where
+this process sits. Rank r is at data index r // model and model index
+r % model, the order of JAX's ``grid.reshape(data, model)``.
 
 Axis names, kept for readers of the JAX package:
 
 - ``data``: data parallelism. Each rank takes its own rows of the global
   batch; gradients and BN running statistics are averaged over it
   (``parallel/collectives.py``).
-- ``model``: class sharding of the margin-softmax head (item 11).
+- ``model``: class sharding of the margin-softmax head (the Partial-FC
+  head, ``parallel/sharded_softmax.py``): rank (d, m) holds classes
+  [m * C_local, (m + 1) * C_local) of the classifier, and the ranks of
+  one data index (a model row) share their rows' embeddings.
+
+Each rank keeps one process group for its data column (the ranks of its
+model index) and one for its model row (the ranks of its data index).
 
 Multi-node runs keep the JAX multi-slice mesh's rule
 (``create_multislice_mesh``): ranks split into equal nodes and are
 numbered node-major, as torchrun numbers them, so the one all-reduce of
 the step can be split by NCCL into a reduction inside each node and one
-exchange across them.
+exchange across them; the model axis stays inside a node.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -36,19 +43,37 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """This process's place: ``rank`` of ``data`` ranks, ``local_rank`` on
-    its node, ``nodes`` equal nodes (rank r on node r // (data / nodes)),
-    and the ``device`` it trains on."""
+    """This process's place: ``rank`` of ``data * model`` ranks,
+    ``local_rank`` on its node, ``nodes`` equal nodes, and the
+    ``device`` it trains on. ``data_group`` / ``model_group``: the
+    process groups of its data column and model row (None: every rank,
+    or no group where the axis is 1 or no process group exists)."""
     rank: int = 0
     local_rank: int = 0
     data: int = 1
     model: int = 1
     nodes: int = 1
     device: torch.device = torch.device("cpu")
+    data_group: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
+    model_group: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def is_main(self) -> bool:
@@ -56,9 +81,9 @@ class Topology:
 
     @property
     def distributed(self) -> bool:
-        """More than one replica: the collectives exchange (at one they
-        are the identity)."""
-        return self.data > 1
+        """More than one rank: the collectives exchange (at one they are
+        the identity)."""
+        return self.world > 1
 
 
 def node_layout(world: int, *, nodes: int = 0, node_ids=None,
@@ -94,25 +119,45 @@ def node_layout(world: int, *, nodes: int = 0, node_ids=None,
     return n
 
 
+def _axis_groups(data: int, model: int, rank: int) -> tuple[Any, Any]:
+    """This rank's (data column, model row) process groups. Every rank
+    creates every group, in the same order (``dist.new_group`` asks it
+    of them); an axis that spans every rank uses the default group."""
+    if not dist.is_initialized() or data == 1 or model == 1:
+        return None, None
+    world = data * model
+    columns = [list(range(m, world, model)) for m in range(model)]
+    rows = [list(range(d * model, (d + 1) * model)) for d in range(data)]
+    mine = []
+    for layout in (columns, rows):
+        for ranks in layout:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine.append(group)
+    return mine[0], mine[1]
+
+
 def create_topology(world: int, *, model: int = 1, rank: int = 0,
                     local_rank: int | None = None, nodes: int = 0,
                     node_ids=None, device="cpu") -> Topology:
-    """A topology of ``world`` ranks, all on the data axis, as the JAX
-    ``create_mesh`` puts every device on it. ``model`` > 1 raises naming
-    item 11 once the layout checks pass."""
-    if world % model:
+    """A topology of ``world`` ranks on a (world / model, model) grid, as
+    the JAX ``create_mesh(model=...)`` lays its devices out. With a
+    process group, it must span ``world`` ranks, and every rank must
+    call this (it creates the axes' groups)."""
+    if model < 1 or world % model:
         raise ValueError(f"{world} ranks not divisible by model={model}")
     n = node_layout(world, nodes=nodes, node_ids=node_ids, model=model)
-    if model > 1:
-        raise NotImplementedError(
-            f"a model axis of {model} (the class-sharded Partial-FC head) "
-            "is not ported yet (ROADMAP.md §1 item 11)")
+    if dist.is_initialized() and dist.get_world_size() != world:
+        raise ValueError(f"a topology of {world} ranks in a process group "
+                         f"of {dist.get_world_size()}")
+    data_group, model_group = _axis_groups(world // model, model, rank)
     return Topology(rank=rank, local_rank=rank if local_rank is None
-                    else local_rank, data=world, nodes=n,
-                    device=torch.device(device))
+                    else local_rank, data=world // model, model=model,
+                    nodes=n, device=torch.device(device),
+                    data_group=data_group, model_group=model_group)
 
 
-def init_distributed(device="cuda", *, nodes: int = 0,
+def init_distributed(device="cuda", *, model: int = 1, nodes: int = 0,
                      backend: str | None = None) -> Topology:
     """Join the process group torchrun's environment describes (RANK,
     WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT)
@@ -122,7 +167,7 @@ def init_distributed(device="cuda", *, nodes: int = 0,
     kept (several ranks may share one card over gloo). ``backend``:
     NCCL on CUDA devices and gloo on the CPU by default. ``nodes``: the
     node count to check (``--mesh_slices``); the ranks' nodes come from
-    LOCAL_WORLD_SIZE.
+    LOCAL_WORLD_SIZE. ``model``: the model axis (``--mesh_model``).
     """
     env = os.environ
     missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
@@ -146,15 +191,26 @@ def init_distributed(device="cuda", *, nodes: int = 0,
     kwargs = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world, **kwargs)
-    return create_topology(world, rank=rank, local_rank=local_rank,
-                           nodes=nodes,
+    return create_topology(world, model=model, rank=rank,
+                           local_rank=local_rank, nodes=nodes,
                            node_ids=[r // local_world for r in range(world)],
                            device=dev)
 
 
 def local_batch_size(global_batch: int, mesh: Topology) -> int:
+    """Rows a data replica (a model row of ranks shares them), as the JAX
+    ``local_batch_size``."""
     n = mesh.shape[DATA_AXIS]
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"data-parallel size {n}")
     return global_batch // n
+
+
+def rank_batch_size(global_batch: int, mesh: Topology) -> int:
+    """Rows a rank forwards: global batch / (data * model), the block
+    ``rank`` of the batch (JAX shards it as ``P((data, model))``)."""
+    if global_batch % mesh.world:
+        raise ValueError(f"global batch {global_batch} not divisible by the "
+                         f"{mesh.world} ranks ({mesh.data} x {mesh.model})")
+    return global_batch // mesh.world

@@ -21,13 +21,15 @@ A step is written to ``<dir>/.<step>.tmp`` and renamed into place with
 ``latest_step`` would pick. Saves are synchronous: ``wait`` and
 ``close`` exist for the JAX API and have nothing to wait for.
 
-Data-parallel runs (``mesh``, a ``parallel.mesh.Topology``): every rank
-holds the same state and calls the same methods; rank 0 writes, after a
-barrier, and a second barrier follows, so that no rank lists a step
-still in its temporary directory. Every rank restores onto its own
-device. ``save_best`` acts on rank 0's reading of the bar. The
-classifier stays in its global (C*K, D) shape (a class-sharded head,
-item 11, re-slices it).
+Runs over several ranks (``mesh``, a ``parallel.mesh.Topology``): every
+rank calls the same methods; the ranks of each model row gather their
+classifier shards and the shards' momentum into the global (C_pad * K,
+D) shape, then rank 0 writes, after a barrier, and a second barrier
+follows, so that no rank lists a step still in its temporary directory.
+Every rank restores onto its own device, the classifier and its
+momentum re-sliced by its model index; a saved global row count other
+than this run's raises. ``save_best`` acts on rank 0's reading of the
+bar.
 """
 
 from __future__ import annotations
@@ -58,6 +60,11 @@ def _shapes(tree, prefix: str, out: dict) -> dict:
     else:
         out[prefix] = list(tree.shape)
     return out
+
+
+def _shard_rows(mesh) -> tuple[int, int]:
+    """(model size, model index) of ``mesh`` (one shard without one)."""
+    return (mesh.model, mesh.model_index) if mesh is not None else (1, 0)
 
 
 def _momentum(state: TrainState) -> dict[str, torch.Tensor]:
@@ -125,19 +132,27 @@ class CheckpointManager:
         if not force and (self.save_every <= 0 or step % self.save_every):
             return False
         collectives.barrier(self.mesh)
+        # every rank of a model row gathers its shards (a collective)
+        momentum = _momentum(state)
+        if "classifier" in momentum:
+            momentum["classifier"] = collectives.model_all_gather(
+                momentum["classifier"], self.mesh)
+        classifier = collectives.model_all_gather(
+            state.classifier.detach(), self.mesh)
         if self._main:
-            self._write(state, step)
+            self._write(state, step, classifier, momentum)
         collectives.barrier(self.mesh)
         return True
 
-    def _write(self, state: TrainState, step: int) -> bool:
+    def _write(self, state: TrainState, step: int, classifier: torch.Tensor,
+               momentum: dict) -> bool:
         final = os.path.join(self._dir, str(step))
         if os.path.isdir(final):
             return False
         tensors = {"params": _host(state.params),
                    "batch_stats": _host(state.batch_stats),
-                   "classifier": _host(state.classifier),
-                   "momentum": _host(_momentum(state))}
+                   "classifier": _host(classifier),
+                   "momentum": _host(momentum)}
         if state.ema_params is not None:
             tensors["ema_params"] = _host(state.ema_params)
         if state.head_state:
@@ -244,10 +259,26 @@ class CheckpointManager:
                 "with")
         device = st.classifier.device
         saved = self._load(step, device)
+        model, index = _shard_rows(self.mesh)
+        shard = st.classifier.shape[0]
+        rows = saved["classifier"].shape[0]
+        if rows != shard * model:
+            raise ValueError(
+                f"checkpoint classifier has {rows} rows, this run's "
+                f"{shard * model} (classes padded to the model axis of "
+                f"{model}, times the sub-centers): restore with the "
+                "--num_classes and --subcenters the run was started with")
+
+        def own(t):      # this rank's rows of a global classifier tensor
+            return t[index * shard:(index + 1) * shard]
+
         _fill(st.params, saved["params"], "params")
         _fill(st.batch_stats, saved["batch_stats"], "batch_stats")
         _fill({"classifier": st.classifier},
-              {"classifier": saved["classifier"]}, "classifier")
+              {"classifier": own(saved["classifier"])}, "classifier")
+        if "classifier" in saved["momentum"]:
+            saved["momentum"]["classifier"] = own(
+                saved["momentum"]["classifier"]).clone()
         if st.ema_params is not None:
             _fill(st.ema_params, saved["ema_params"], "ema_params")
         if st.head_state:

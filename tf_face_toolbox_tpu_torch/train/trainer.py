@@ -1,45 +1,54 @@
 """Train step: augment, forward, margin loss, gradient exchange, SGD.
 
-Counterpart of ``tf_face_toolbox_tpu/train/trainer.py`` over the data
-axis of its mesh (a model axis of 1, where its ``sharded_margin_
-softmax_loss`` is ``margin_softmax_loss``). Each process is one replica
-(``parallel.mesh.Topology``; none: one device). A step, on each rank:
+Counterpart of ``tf_face_toolbox_tpu/train/trainer.py``. Each process
+is one rank of a (data, model) grid (``parallel.mesh.Topology``; none:
+one device). The classifier's classes are padded to a multiple of the
+model size, C_pad, and rank (d, m) holds shard m of them (the
+class-sharded Partial-FC head, ``parallel/sharded_softmax.py``). A
+step, on each rank:
 
-1. takes its rows [r * n, (r + 1) * n) of the global batch (n = global
-   batch / ranks), or its own n rows when given only those;
+1. takes its rows, block d * model + m of the global batch (global
+   batch / (data * model) rows), or its own rows when given only those;
 2. augments them (random crop, flip, per-image standardization; with
    ``pallas_input``, the crop then the fused input kernel,
    ``ops/fused_preprocess.py``), optional random erase;
 3. forwards in ``cfg.dtype`` in train mode (each rank's own batch
    statistics; the updated running statistics come back in a
-   ``TrainContext``), takes the margin-softmax loss of the f32
-   embeddings against the f32 classifier (the mean over its rows), and
-   backward;
+   ``TrainContext``); gathers the f32 embeddings and labels of its model
+   row; takes the exact or, with ``pfc_sample_rate`` < 1, the sampled
+   sharded margin-softmax loss against its f32 shard (the row's mean),
+   and backward of that loss over the model size (the psums inside it
+   sum each rank's cotangent, JAX's algebra);
 4. exchanges, as the JAX step does (``parallel/collectives.py``): the
-   backbone's and the classifier's gradients, the loss and the running
-   statistics are averaged over the ranks;
+   backbone's gradient summed over the model row and averaged over the
+   data axis; the classifier shard's averaged over its data column (the
+   sampled head averaged its compact gradient in backward already); the
+   loss and the running statistics averaged over every rank;
 5. then, in order, on the same values on every rank: the global
-   gradient norm, ``grad_clip_norm``, SGD (weight decay on conv and
-   Dense kernels and the classifier, momentum), the EMA ``d * e + (1 -
-   d) * p``, and ``skip_nonfinite`` on the averaged loss and norm (so
-   every rank skips together; nothing but ``step`` changes).
+   gradient norm (the shards' squared norms summed over the model row),
+   ``grad_clip_norm``, SGD (weight decay on conv and Dense kernels and
+   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, and
+   ``skip_nonfinite`` on the averaged loss and norm (so every rank skips
+   together; nothing but ``step`` changes).
 
 ``accum_steps`` splits a rank's rows into micro-batches whose forwards
 advance the BN statistics one after another; their gradients are summed
 and divided by the count. Augmentation and dropout draw from generators
 seeded from (state.rng, step, stream), and (state.rng, step, rank,
 stream) on ranks above 0 (JAX folds the device's position into its
-step key), not JAX's threefry stream.
+step key), not JAX's threefry stream; the sampled head's keys from
+(state.rng, step, 0x9FC, model index), the same on every data rank.
 
-The Partial-FC head (item 11), the adaptive margins (item 9), other
-optimizers and distillation (item 10c), and quantization-aware training
-(item 18) are not ported yet: their fields raise naming the item.
+The adaptive margins (item 9), other optimizers and distillation (item
+10c), and quantization-aware training (item 18) are not ported yet:
+their fields raise naming the item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -51,15 +60,18 @@ from tf_face_toolbox_tpu_torch.ops import preprocess as pp
 from tf_face_toolbox_tpu_torch.ops.losses import (
     MarginConfig,
     init_classifier_weights,
-    margin_softmax_loss,
 )
 from tf_face_toolbox_tpu_torch.parallel import collectives
-from tf_face_toolbox_tpu_torch.parallel.mesh import local_batch_size
+from tf_face_toolbox_tpu_torch.parallel.mesh import rank_batch_size
+from tf_face_toolbox_tpu_torch.parallel.sharded_softmax import (
+    sampled_sharded_margin_softmax_loss,
+    sharded_margin_softmax_loss,
+)
 from tf_face_toolbox_tpu_torch.train.schedule import cosine, staircase
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 
 # generator streams of a step (the JAX trainer's fold_in tags)
-_AUGMENT, _ERASE, _DROPOUT = 0, 0xE5A5E, 0x0D12
+_AUGMENT, _ERASE, _DROPOUT, _PFC = 0, 0xE5A5E, 0x0D12, 0x9FC
 
 
 def _not_ported(what: str, item: str):
@@ -103,7 +115,7 @@ class TrainConfig:
     center_alpha: float = 0.5
     triplet_weight: float = 0.0       # item 9
     triplet_margin: float = 0.3
-    pfc_sample_rate: float = 1.0      # sampled Partial-FC: item 11
+    pfc_sample_rate: float = 1.0      # sampled Partial-FC; 1 = exact
     dtype: Any = torch.float32        # torch.bfloat16 on the card
     augment: bool = True              # crop/flip/standardize a u8 batch
     crop_from: int = 120              # source size when augmenting
@@ -122,8 +134,6 @@ class TrainConfig:
                 raise ValueError(f"unknown optimizer '{self.optimizer}'; "
                                  "have sgd|adam|adamw|lars")
             _not_ported(f"optimizer={self.optimizer!r}", "10c")
-        if self.pfc_sample_rate < 1.0:
-            _not_ported("sampled Partial-FC (pfc_sample_rate < 1)", "11")
         if self.margin_mode != "fixed":
             if self.margin_mode not in ("magface", "adaface", "curricular"):
                 raise ValueError(f"unknown margin_mode '{self.margin_mode}';"
@@ -142,11 +152,22 @@ class TrainConfig:
         if self.subcenters < 1:
             raise ValueError(f"subcenters must be >= 1 (got "
                              f"{self.subcenters})")
+        if self.pfc_sample_rate < 1.0 and self.subcenters > 1:
+            raise ValueError(
+                "sampled Partial-FC (pfc_sample_rate < 1) cannot pool "
+                "sub-centers: uniform row sampling would split classes - "
+                "use the exact head (pfc_sample_rate=1) with subcenters")
 
     @property
     def margin(self) -> MarginConfig:
         return MarginConfig(scale=self.margin_scale, m1=self.margin_m1,
                             m2=self.margin_m2, m3=self.margin_m3)
+
+
+def padded_classes(num_classes: int, model: int) -> int:
+    """Classes padded up to a multiple of the model axis (JAX's
+    ``_padded_classes``); the head masks the pads."""
+    return -(-num_classes // model) * model
 
 
 def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -200,18 +221,23 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
                        net: torch.nn.Module | None = None,
                        variables: dict | None = None,
                        classifier: np.ndarray | None = None,
-                       mesh=None,
+                       mesh=None, whole_classifier: bool = False,
                        device="cuda") -> tuple[TrainState, torch.nn.Module]:
-    """Network, classifier and optimizer, ready to train on ``device``.
+    """Network, classifier shard and optimizer, ready to train on
+    ``device``.
 
     Fresh by default: the JAX initialisers' distributions
-    (``models.init_parameters``) and a N(0, 1) * 0.01 classifier, drawn
-    from generators seeded from ``seed``. ``variables`` (a flat JAX-key
-    dict or tree, the ``.npz`` hand-off) and ``classifier`` start from
-    given values instead. ``net`` injects a backbone. ``mesh``: with
-    several ranks, every rank must build the same state, which one
-    checksum exchange checks (it raises on every rank otherwise).
-    Returns (state, net).
+    (``models.init_parameters``) and a N(0, 1) * 0.01 classifier of the
+    global (C_pad * K, D) shape, drawn from generators seeded from
+    ``seed``. ``variables`` (a flat JAX-key dict or tree, the ``.npz``
+    hand-off) and ``classifier`` (global shape) start from given values
+    instead. ``net`` injects a backbone. ``mesh``: the rank keeps rows
+    [m * C_local * K, (m + 1) * C_local * K) of the classifier, m its
+    model index; with several ranks, every rank must build the same
+    network and global classifier, which one checksum exchange checks
+    (it raises on every rank otherwise). ``whole_classifier``: keep the
+    global classifier (the state of ``parallel.reference``'s plain
+    version of the step). Returns (state, net).
     """
     if net is None:
         net = build_network(cfg)
@@ -221,7 +247,8 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
     else:
         init_parameters(net, _seed(seed, 0))
     net.to(device).train()
-    rows = cfg.num_classes * cfg.subcenters
+    model = mesh.model if mesh is not None else 1
+    rows = padded_classes(cfg.num_classes, model) * cfg.subcenters
     if classifier is None:
         w = init_classifier_weights(rows, cfg.embedding_dim,
                                     generator=_generator("cpu", seed, 1))
@@ -230,17 +257,22 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
         if tuple(w.shape) != (rows, cfg.embedding_dim):
             raise ValueError(f"classifier {tuple(w.shape)} != "
                              f"{(rows, cfg.embedding_dim)}")
-    w = w.to(device).requires_grad_(True)
-    opt = make_optimizer(cfg, net, w)
+    w = w.to(device)
     params = dict(net.named_parameters())
+    buffers = dict(net.named_buffers())
+    collectives.check_replicated([*params.values(), *buffers.values(), w],
+                                 mesh, "the initial train state")
+    if not whole_classifier:
+        shard = rows // model
+        m = mesh.model_index if mesh is not None else 0
+        w = w[m * shard:(m + 1) * shard].clone()
+    w.requires_grad_(True)
+    opt = make_optimizer(cfg, net, w)
     state = TrainState(
-        step=0, params=params, batch_stats=dict(net.named_buffers()),
-        classifier=w, opt_state={"optimizer": opt, "count": 0}, rng=seed,
+        step=0, params=params, batch_stats=buffers, classifier=w,
+        opt_state={"optimizer": opt, "count": 0}, rng=seed,
         ema_params=({k: p.detach().clone() for k, p in params.items()}
                     if cfg.ema_decay > 0 else None))
-    collectives.check_replicated(
-        [*params.values(), *state.batch_stats.values(), w], mesh,
-        "the initial train state")
     return state, net
 
 
@@ -269,8 +301,13 @@ def _augment(cfg: TrainConfig, images: torch.Tensor, step_gen: torch.Generator,
     return x
 
 
-def _grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def _grad_norm(grads: list[torch.Tensor], mesh=None) -> torch.Tensor:
+    """The global L2 norm; the classifier (last) is a shard of the model
+    row's, whose squared norms are summed over the row."""
+    norms = list(torch._foreach_norm(grads))
+    if collectives.model_sharded(mesh):
+        norms[-1] = collectives.model_psum(norms[-1].square(), mesh).sqrt()
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
@@ -299,7 +336,9 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
         loss, stats = parts.local(state, images, labels, parts.rank)
         grads = parts.grads(state)
         collectives.sync_gradients(grads[:-1], mesh)
-        collectives.sync_classifier_gradients(grads[-1:], mesh)
+        if parts.budget is None:
+            # the sampled head averaged its compact gradient in backward
+            collectives.sync_classifier_gradients(grads[-1:], mesh)
         loss = collectives.replicate_mean(loss, mesh)
         collectives.sync_batch_stats([t for pair in stats.values()
                                       for t in pair], mesh)
@@ -313,8 +352,9 @@ class StepParts:
     augment, forward and backward, its gradients left in ``.grad``) and
     ``apply`` (norm, clip, skip, SGD, statistics, EMA). The train step
     runs them with the collectives between; the plain version
-    (``parallel.reference.replica_loop_step``) runs ``local`` for every
-    rank in one process and averages by hand."""
+    (``parallel.reference.replica_loop_step``) runs ``prepare``, the
+    forward and ``budget``'s head for every rank in one process and
+    averages by hand."""
 
     def __init__(self, net: torch.nn.Module, cfg: TrainConfig,
                  state: TrainState, mesh=None, *, input_format: str = "u8",
@@ -323,9 +363,12 @@ class StepParts:
             _not_ported(f"input_format={input_format!r} (DCT input)", "17")
         if teacher is not None:
             _not_ported("distillation", "10c")
+        self.mesh = mesh
         self.rank = mesh.rank if mesh is not None else 0
-        self.world = mesh.data if mesh is not None else 1
-        self.rows_a_rank = (local_batch_size(cfg.global_batch, mesh)
+        self.world = mesh.world if mesh is not None else 1
+        self.model = mesh.model if mesh is not None else 1
+        self.model_index = mesh.model_index if mesh is not None else 0
+        self.rows_a_rank = (rank_batch_size(cfg.global_batch, mesh)
                             if mesh is not None else cfg.global_batch)
         if cfg.accum_steps > 1 and self.rows_a_rank % cfg.accum_steps:
             raise ValueError(f"per-device batch {self.rows_a_rank} not "
@@ -336,6 +379,14 @@ class StepParts:
             logging.warning("pallas_input: the fused kernel covers per_image "
                             "standardization only; input_norm=%s uses the "
                             "plain augment chain", cfg.input_norm)
+        self.budget = None
+        if cfg.pfc_sample_rate < 1.0:
+            c_local = padded_classes(cfg.num_classes, self.model) // self.model
+            # positives come from the global (micro-)batch, so its rows
+            # are the budget's floor
+            pool = cfg.global_batch // cfg.accum_steps
+            self.budget = min(max(math.ceil(cfg.pfc_sample_rate * c_local),
+                                  pool), c_local)
         self.net, self.cfg = net, cfg
         self.sched = make_schedule(cfg)
         self.device = state.classifier.device
@@ -358,11 +409,10 @@ class StepParts:
         return (images.to(self.device),
                 labels.to(device=self.device, dtype=torch.long))
 
-    def local(self, state: TrainState, images: torch.Tensor,
-              labels: torch.Tensor, rank: int) -> tuple[torch.Tensor, dict]:
-        """Rank ``rank``'s forward and backward on its rows: returns its
-        mean loss and the BN modules' updated running statistics; the
-        gradients (of that mean) are in the parameters' ``.grad``."""
+    def prepare(self, state: TrainState, images: torch.Tensor,
+                rank: int) -> tuple[TrainContext, torch.Tensor]:
+        """Rank ``rank``'s train context (its dropout generator; the BN
+        statistics its forwards update) and its augmented input."""
         cfg, device = self.cfg, self.device
         # rank 0 draws a one-device run's streams
         parts = (state.rng, state.step) + ((rank,) if rank else ())
@@ -372,25 +422,56 @@ class StepParts:
                          _generator(device, *parts, _ERASE))
         else:
             x = images
-        x = x.to(cfg.dtype)
+        return ctx, x.to(cfg.dtype)
+
+    def pfc_generator(self, state: TrainState,
+                      model_index: int) -> torch.Generator:
+        """The sampled head's generator of a step, the same on every rank
+        of a data column (JAX folds the step, not the device)."""
+        return _generator(self.device, state.rng, state.step, _PFC,
+                          model_index)
+
+    def head(self, state: TrainState, emb: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """The mean margin-softmax loss of the model row's rows (the same
+        on each of its ranks): ``emb`` (f32) and ``labels`` of this rank,
+        gathered over the row, against this rank's classifier shard."""
+        cfg, mesh = self.cfg, self.mesh
+        emb = collectives.model_all_gather(emb, mesh)
+        labels = collectives.model_all_gather(labels, mesh)
+        if self.budget is None:
+            return sharded_margin_softmax_loss(
+                emb, state.classifier, labels, cfg.margin, mesh,
+                total_classes=cfg.num_classes, subcenters=cfg.subcenters)
+        return sampled_sharded_margin_softmax_loss(
+            emb, state.classifier, labels, cfg.margin,
+            self.pfc_generator(state, self.model_index), self.budget,
+            mesh, total_classes=cfg.num_classes, data_sync=True)
+
+    def local(self, state: TrainState, images: torch.Tensor,
+              labels: torch.Tensor, rank: int) -> tuple[torch.Tensor, dict]:
+        """Rank ``rank``'s forward and backward on its rows: returns its
+        model row's mean loss and the BN modules' updated running
+        statistics; the gradients (of that mean over the model size) are
+        in the parameters' ``.grad``."""
+        ctx, x = self.prepare(state, images, rank)
 
         def loss_of(xb, lb):
-            emb = self.net(xb, train=ctx).to(torch.float32)
-            return margin_softmax_loss(emb, state.classifier, lb,
-                                       cfg.margin, subcenters=cfg.subcenters)
+            return self.head(state, self.net(xb, train=ctx).to(torch.float32),
+                             lb)
 
         for p in (*state.params.values(), state.classifier):
             p.grad = None
-        k = cfg.accum_steps
+        k = self.cfg.accum_steps
         if k == 1:
             loss = loss_of(x, labels)
-            loss.backward()
+            (loss / self.model).backward()
             loss = loss.detach()
         else:
             losses = []
             for xm, lm in zip(x.chunk(k), labels.chunk(k)):
                 micro = loss_of(xm, lm)
-                micro.backward()
+                (micro / self.model).backward()
                 losses.append(micro.detach())
             loss = torch.stack(losses).mean()
             torch._foreach_div_(self.grads(state), float(k))
@@ -407,7 +488,7 @@ class StepParts:
         running statistics, as they are after the exchange."""
         cfg = self.cfg
         grads = self.grads(state)
-        grad_norm = _grad_norm(grads)
+        grad_norm = _grad_norm(grads, self.mesh)
         if cfg.grad_clip_norm > 0:
             scale = torch.clamp_max(
                 cfg.grad_clip_norm / torch.clamp_min(grad_norm, 1e-12), 1.0)
