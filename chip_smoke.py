@@ -16,7 +16,10 @@ by cli.train; then train -> preempt (SIGTERM) -> resume -> serve the
 trained checkpoint through the fused-block engine; then data-parallel
 training (BASELINE config 5 at the card's one replica) through torchrun;
 then the class-sharded Partial-FC head (BASELINE config 7: 93,431
-classes) at one rank and on four gloo ranks sharing the card.
+classes) at one rank and on four gloo ranks sharing the card; then the
+loss heads: BASELINE preset 8 (AdaFace, 3 sub-centers) by cli.train,
+MagFace, CurricularFace, center and triplet losses on a P x K batch,
+and AdaFace with center loss and CurricularFace on four gloo ranks.
 Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
@@ -99,6 +102,24 @@ Phases:
     per-leaf update cosine >= 0.999 with the classifier reassembled from
     its shards, BN running statistics within 2 bf16 steps); kernel 1 3
     launches a rank a head
+15. the loss heads (BASELINE preset 8, ``adaface_noisy_data``): (a)
+    cli.train --preset adaface_noisy_data --pallas_input for 20 steps
+    (r50 face stem, bf16, 10,572 classes x 3 sub-centers, batch 256,
+    random erase 0.25, cosine LR; kernel 1 once a step, finite losses,
+    the logged adaface_norm_mean moving from 20), then bench_train
+    --preset adaface_noisy_data (10 steps after 3: faces/s, ms/step, peak
+    memory, device ms by kind with the head's share) against phase 11's
+    config-4 rate; (b) at config 4's width, one step from the same state
+    through kernel 1 and through the plain augment chain for MagFace,
+    CurricularFace, and CosFace with center loss and triplet on a P x K
+    batch of 64 identities x 4 faces drawn by balanced_batch_iterator
+    from phase 11's shard (losses within 1%, every leaf's update cosine
+    >= 0.999, the head state included); (c) four gloo ranks sharing
+    cuda:0 as data 2 x model 2, preset 8 (r50 face stem, 3 sub-centers,
+    random erase, its schedule) at 16 rows a rank: AdaFace with center
+    loss, then CurricularFace, 3 bf16 steps each, held as phase 14(b)
+    holds config 7 (the centers split and compared as the classifier is;
+    AdaFace's statistics and t within 1e-3)
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -660,6 +681,13 @@ def phase_gallery_times(g) -> list:
 def run_train_cli(args: list, timeout: int) -> tuple[int, list, int]:
     """cli.train as a subprocess: (final step, logged losses, kernel 1
     launches it counted)."""
+    step, logged, launches = train_cli(args, timeout)
+    return step, logged["loss"], launches
+
+
+def train_cli(args: list, timeout: int) -> tuple[int, dict, int]:
+    """cli.train as a subprocess: (final step, each logged metric's values
+    by name, kernel 1 launches it counted)."""
     proc = subprocess.run(
         [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
          "--device", "cuda", *args],
@@ -672,10 +700,13 @@ def run_train_cli(args: list, timeout: int) -> tuple[int, list, int]:
     step = int(out[-1].split("step=")[1].split()[0])
     launches = next(int(line.split("preprocess=")[1]) for line in out
                     if line.startswith("kernel launches:"))
-    losses = [float(line.split("loss=")[1].split()[0])
-              for line in proc.stderr.splitlines()
-              if line.startswith("step ") and "loss=" in line]
-    return step, losses, launches
+    logged: dict = {"loss": []}
+    for line in proc.stderr.splitlines():
+        if line.startswith("step ") and "loss=" in line:
+            for key, _, value in (pair.partition("=") for pair in
+                                  line.split(":", 1)[1].split()):
+                logged.setdefault(key, []).append(float(value))
+    return step, logged, launches
 
 
 def phase_train(g, work: str) -> dict:
@@ -846,6 +877,10 @@ def _snapshot(state) -> dict:
     out["classifier"] = state.classifier
     for k, v in (state.ema_params or {}).items():
         out[f"ema/{k}"] = v
+    from tf_face_toolbox_tpu_torch.train.state import head_leaves
+
+    out.update({f"head/{k}": v
+                for k, v in head_leaves(state.head_state).items()})
     for name, p in {**state.params, "classifier": state.classifier}.items():
         buf = opt.state.get(p, {}).get("momentum_buffer")
         if buf is not None:
@@ -1434,16 +1469,16 @@ def _pfc_config(rate: float):
         pallas_input=True, pfc_sample_rate=rate)
 
 
-def _pfc_rank(rank: int, world: int, port: int, steps: int,
-              out_path: str) -> None:
-    """Phase 14(b): one rank of four on cuda:0 over gloo, on a (2, 2)
-    grid (a spawned process): gloo's MAX all-reduce of a CUDA tensor,
-    then ``steps`` steps of the exact head and, from a fresh state, of the
-    sampled one; each head's final state, losses and kernel 1 launches
-    to ``out_path``. The ranks of data index 0 (model indices 0 and 1)
-    also write their state after each step to ``out_path.<head>.<k>``
-    (rank 1 its shard only): the plain version starts each step
-    there."""
+def _grid_rank(rank: int, world: int, port: int, steps: int,
+               out_path: str, heads: list) -> None:
+    """Phases 14(b) and 15(c): one rank of four on cuda:0 over gloo, on a
+    (2, 2) grid (a spawned process): gloo's MAX all-reduce of a CUDA
+    tensor, then ``steps`` steps of each (name, config) of ``heads``, each
+    from a fresh state; each head's final state, losses and kernel 1
+    launches to ``out_path``. The ranks of data index 0 (model indices 0
+    and 1) also write their state after each step to
+    ``out_path.<name>.<k>`` (rank 1 its shards only): the plain version
+    starts each step there."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -1465,8 +1500,7 @@ def _pfc_rank(rank: int, world: int, port: int, steps: int,
         t = torch.tensor([float(rank), -float(rank)], device=topo.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         out = {"max": t.tolist()}
-        for head, rate in (("exact", 1.0), ("sampled", 0.1)):
-            cfg = _pfc_config(rate)
+        for name, cfg in heads:
             state, net = create_train_state(cfg, 0, mesh=topo,
                                             device=topo.device)
             step = make_train_step(net, cfg, state, mesh=topo)
@@ -1480,9 +1514,10 @@ def _pfc_rank(rank: int, world: int, port: int, steps: int,
                 if rank < 2:
                     snap = _snapshot(state)
                     if rank == 1:
-                        snap = {key: snap[key] for key in _SHARD_KEYS}
-                    torch.save(snap, f"{out_path}.{head}.{k}")
-            out[head] = {"state": _snapshot(state), "losses": losses,
+                        snap = {key: snap[key] for key in _SHARD_KEYS
+                                if key in snap}
+                    torch.save(snap, f"{out_path}.{name}.{k}")
+            out[name] = {"state": _snapshot(state), "losses": losses,
                          "seconds": seconds,
                          "launches": fused_preprocess.launches}
             del state, net, step
@@ -1492,13 +1527,14 @@ def _pfc_rank(rank: int, world: int, port: int, steps: int,
         dist.destroy_process_group()
 
 
-_SHARD_KEYS = ("classifier", "momentum/classifier")
+# a model index's own tensors: the classifier, its momentum, the centers
+_SHARD_KEYS = ("classifier", "momentum/classifier", "head/centers")
 
 
 def _state_at(cfg, saved: list, k: int):
-    """A state of the plain version (the global classifier) at rank 0's
-    snapshot ``saved[0].<k>`` and rank 1's shard ``saved[1].<k>``:
-    (state, net)."""
+    """A state of the plain version (the global classifier and centers)
+    at rank 0's snapshot ``saved[0].<k>`` and rank 1's shards
+    ``saved[1].<k>``: (state, net)."""
     from tf_face_toolbox_tpu_torch.parallel.mesh import Topology
     from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
 
@@ -1519,6 +1555,13 @@ def _state_at(cfg, saved: list, k: int):
         buf = snap.get(f"momentum/{name}")
         if buf is not None:
             opt.state[p] = {"momentum_buffer": buf.to(p.device)}
+    for key, value in snap.items():
+        if key.startswith("head/"):
+            path = key.split("/")[1:]
+            tree = state.head_state
+            for part in path[:-1]:
+                tree = tree[part]
+            tree[path[-1]] = value.to("cuda")
     state.step, state.opt_state["count"], state.rng = (
         int(v) for v in snap["counters"])
     return state, net
@@ -1534,17 +1577,151 @@ def _bench_train(args: list) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
-    """Phase 14: the class-sharded Partial-FC head (BASELINE config 7)."""
+def _say_bench(label: str, r: dict, single_faces_per_sec: float) -> None:
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        r["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+    say(f"  {label} ({r['head']} head, {r['classifier_columns']:,} "
+        f"classifier rows scored a step): {r['faces_per_sec']:.1f} faces/s "
+        f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x phase 11's "
+        f"config 4 {single_faces_per_sec:.1f}), {r['ms_per_step']:.2f} "
+        f"ms/step; peak memory {r['peak_memory_gb']:.2f} GB; profiled "
+        f"{r['profiled_wall_ms_per_step']:.2f} ms/step wall, "
+        f"{r['device_ms_per_step']:.2f} device, idle {r['idle_share']:.1%}; "
+        f"head share {r['head_share']:.2%}; device ms by kind: {kinds}")
+    expect(np.isfinite(r["loss"]), f"{label}: loss {r['loss']}")
+
+
+def _run_grid(work: str, tag: str, heads: list,
+              steps: int) -> tuple[list, list]:
+    """Four spawned ``_grid_rank`` processes on cuda:0 over gloo: their
+    results by rank, and the paths they wrote."""
     import multiprocessing as mp
     import socket
 
-    from tf_face_toolbox_tpu_torch import bench
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, f"{tag}_rank{r}.pt") for r in range(4)]
+    procs = [ctx.Process(target=_grid_rank,
+                         args=(r, 4, port, steps, paths[r], heads))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=900)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    expect([p.exitcode for p in procs] == [0] * 4,
+           f"gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(path, weights_only=True) for path in paths]
+    expect(all(r["max"] == [3.0, 0.0] for r in ranks),
+           f"gloo MAX on cuda:0 gave {[r['max'] for r in ranks]}")
+    return ranks, paths
+
+
+def _grid_against_reference(ranks: list, paths: list, name: str, cfg,
+                            steps: int) -> dict:
+    """The four ranks' runs of head ``name``: the replicated tensors equal
+    on all four ranks and each model index's shards on its two data
+    ranks (max |diff|), and each step against ``replica_loop_step(
+    model=2)`` in this process from the ranks' state before it (the
+    first from the same seed): losses, per-leaf update cosine with the
+    classifier and centers reassembled, BN running statistics in bf16
+    steps, the head's scalars' relative difference."""
     from tf_face_toolbox_tpu_torch import bench_train as bt
     from tf_face_toolbox_tpu_torch.parallel.mesh import Topology
     from tf_face_toolbox_tpu_torch.parallel.reference import (
         replica_loop_step)
     from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
+
+    states = [r[name]["state"] for r in ranks]
+    rep = [{k: v for k, v in s.items() if k not in _SHARD_KEYS}
+           for s in states]
+    diff, where = max(_max_diff(rep[0], rep[r]) for r in range(1, 4))
+    own = [{k: states[r][k] for k in _SHARD_KEYS if k in states[r]}
+           for r in range(4)]
+    shard_diff = max(_max_diff(own[r], own[r + 2]) for r in range(2))[0]
+    expect(diff == 0 and shard_diff == 0,
+           f"{name}: the ranks differ by {diff} at {where}, the shards by "
+           f"{shard_diff}")
+    # bf16 weights that four ranks' f32 sums leave an ulp apart would
+    # otherwise move later steps
+    saved = [f"{p}.{name}" for p in paths[:2]]
+    cos, unmoved, ref_losses = {}, set(), []
+    stats_ulps = loss_rel = head_rel = 0.0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k, (x, y) in enumerate(_dp_batches(cfg, steps)):
+            if k == 0:
+                state, net = create_train_state(
+                    cfg, 0, mesh=Topology(data=2, model=2),
+                    whole_classifier=True, device="cuda")
+            else:
+                state, net = _state_at(cfg, saved, k - 1)
+            before = _snapshot(state)
+            state, m = replica_loop_step(net, cfg, state, x, y, 4, model=2)
+            ref_losses.append(float(m["loss"]))
+            ref = _snapshot(state)
+            del state, net
+            got = torch.load(f"{saved[0]}.{k}", weights_only=True)
+            shard = torch.load(f"{saved[1]}.{k}", weights_only=True)
+            for key in _SHARD_KEYS:
+                if key in got:
+                    got[key] = torch.cat([got[key], shard[key]])
+            for key, want in ref.items():
+                if key.startswith(("params/", "classifier", "head/centers")) \
+                        and not key.endswith(bt.NOISE_ONLY):
+                    a = (got[key] - before[key]).double().ravel()
+                    b = (want - before[key]).double().ravel()
+                    if not a.any() and not b.any():
+                        unmoved.add(key)
+                        continue
+                    c = float(a @ b / (a.norm() * b.norm()))
+                    cos[key] = min(cos.get(key, 1.0), c)
+                elif key.startswith("head/"):
+                    head_rel = max(head_rel, ((got[key] - want).abs()
+                                              / want.abs()).max().item())
+                elif key.startswith("batch_stats/"):
+                    scale = torch.clamp_min(want.abs(),
+                                            0.01 * want.abs().max())
+                    ulps = ((got[key] - want).abs()
+                            / bf16_ulp(scale)).max().item()
+                    stats_ulps = max(stats_ulps, ulps)
+            loss_rel = max(loss_rel, abs(ranks[0][name]["losses"][k]
+                                         - ref_losses[-1])
+                           / abs(ref_losses[-1]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    unmoved -= cos.keys()
+    worst = min(cos, key=cos.get)
+    launches = [r[name]["launches"] for r in ranks]
+    expect(launches == [steps] * 4, f"{name}: kernel 1 launches {launches}")
+    expect(cos[worst] >= 0.999, f"{name}: update cosine {cos[worst]} at "
+                                f"{worst}")
+    expect(stats_ulps <= 2.0, f"{name}: BN running statistics {stats_ulps} "
+                              "bf16 steps off")
+    expect(loss_rel <= 0.01, f"{name}: losses {ranks[0][name]['losses']} vs "
+                             f"{ref_losses}")
+    expect(head_rel <= 1e-3, f"{name}: head state {head_rel} apart")
+    return {"min_cos": cos[worst], "worst_leaf": worst,
+            "compared_leaves": len(cos), "unmoved_leaves": len(unmoved),
+            "stats_ulps": stats_ulps, "loss_rel": loss_rel,
+            "head_rel": head_rel, "launches": launches,
+            "ranks_max_diff": diff, "shards_max_diff": shard_diff,
+            "losses": ranks[0][name]["losses"], "ref_losses": ref_losses,
+            "seconds": ranks[0][name]["seconds"]}
+
+
+def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
+    """Phase 14: the class-sharded Partial-FC head (BASELINE config 7)."""
+    from tf_face_toolbox_tpu_torch import bench
 
     t0 = time.time()
     say(f"[14 partial fc] {bench.gpu_info()}")
@@ -1566,143 +1743,156 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
     for head, extra in (("sampled", []),
                         ("exact", ["--pfc_sample_rate", "1"])):
         t1 = time.time()
-        r = timing[head] = _bench_train(["--preset", "large_id_pfc_v5e8",
-                                         "--steps", "10", "--warmup", "3",
-                                         *extra])
-        kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
-            r["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
-        say(f"  (a) bench_train --preset large_id_pfc_v5e8 {' '.join(extra)}"
-            f" ({head} head, {r['classifier_columns']:,} classifier rows "
-            f"scored a step): {r['faces_per_sec']:.1f} faces/s "
-            f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x phase 11's "
-            f"config 4 {single_faces_per_sec:.1f}), {r['ms_per_step']:.2f} "
-            f"ms/step; peak memory {r['peak_memory_gb']:.2f} GB; profiled "
-            f"{r['profiled_wall_ms_per_step']:.2f} ms/step wall, "
-            f"{r['device_ms_per_step']:.2f} device, idle "
-            f"{r['idle_share']:.1%}; head share {r['head_share']:.2%}; "
-            f"device ms by kind: {kinds}; {time.time() - t1:.1f} s")
-        expect(np.isfinite(r["loss"]), f"{head} head's loss {r['loss']}")
+        timing[head] = _bench_train(["--preset", "large_id_pfc_v5e8",
+                                     "--steps", "10", "--warmup", "3",
+                                     *extra])
+        _say_bench(f"(a) bench_train --preset large_id_pfc_v5e8 "
+                   f"{' '.join(extra)}", timing[head], single_faces_per_sec)
+        say(f"      {time.time() - t1:.1f} s")
     ratio = (timing["sampled"]["faces_per_sec"]
              / timing["exact"]["faces_per_sec"])
     say(f"  (a) sampled / exact faces/s: {ratio:.4f}")
 
     # (b) four ranks on cuda:0 over gloo, data 2 x model 2
     t1 = time.time()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    paths = [os.path.join(work, f"pfc_rank{r}.pt") for r in range(4)]
-    procs = [ctx.Process(target=_pfc_rank, args=(r, 4, port, 3, paths[r]))
-             for r in range(4)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(timeout=900)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-    expect([p.exitcode for p in procs] == [0] * 4,
-           f"gloo ranks exited {[p.exitcode for p in procs]}")
-    ranks = [torch.load(path, weights_only=True) for path in paths]
-    expect(all(r["max"] == [3.0, 0.0] for r in ranks),
-           f"gloo MAX on cuda:0 gave {[r['max'] for r in ranks]}")
+    heads = [("exact", _pfc_config(1.0)), ("sampled", _pfc_config(0.1))]
+    ranks, paths = _run_grid(work, "pfc", heads, 3)
     out = {}
-    for head, rate in (("exact", 1.0), ("sampled", 0.1)):
-        states = [r[head]["state"] for r in ranks]
-        rep = [{k: v for k, v in s.items() if k not in _SHARD_KEYS}
-               for s in states]
-        diff, where = max(_max_diff(rep[0], rep[r]) for r in range(1, 4))
-        shard_diff = max(_max_diff({k: states[r][k] for k in _SHARD_KEYS},
-                                   {k: states[r + 2][k] for k in _SHARD_KEYS})
-                         for r in range(2))[0]
-        expect(diff == 0 and shard_diff == 0,
-               f"{head}: the ranks differ by {diff} at {where}, the shards "
-               f"by {shard_diff}")
-        # each step of the plain version from the ranks' state before it
-        # (the first from the same seed): bf16 weights that four ranks'
-        # f32 sums leave an ulp apart would otherwise move later steps
-        cfg = _pfc_config(rate)
-        saved = [f"{p}.{head}" for p in paths[:2]]
-        cos, unmoved, ref_losses = {}, set(), []
-        stats_ulps = loss_rel = 0.0
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            for k, (x, y) in enumerate(_dp_batches(cfg, 3)):
-                if k == 0:
-                    state, net = create_train_state(
-                        cfg, 0, mesh=Topology(data=2, model=2),
-                        whole_classifier=True, device="cuda")
-                else:
-                    state, net = _state_at(cfg, saved, k - 1)
-                before = _snapshot(state)
-                state, m = replica_loop_step(net, cfg, state, x, y, 4,
-                                             model=2)
-                ref_losses.append(float(m["loss"]))
-                ref = _snapshot(state)
-                del state, net
-                got = torch.load(f"{saved[0]}.{k}", weights_only=True)
-                shard = torch.load(f"{saved[1]}.{k}", weights_only=True)
-                for key in _SHARD_KEYS:
-                    got[key] = torch.cat([got[key], shard[key]])
-                for key, want in ref.items():
-                    if key.startswith(("params/", "classifier")) and not \
-                            key.endswith(bt.NOISE_ONLY):
-                        a = (got[key] - before[key]).double().ravel()
-                        b = (want - before[key]).double().ravel()
-                        if not a.any() and not b.any():
-                            unmoved.add(key)
-                            continue
-                        c = float(a @ b / (a.norm() * b.norm()))
-                        cos[key] = min(cos.get(key, 1.0), c)
-                    elif key.startswith("batch_stats/"):
-                        scale = torch.clamp_min(want.abs(),
-                                                0.01 * want.abs().max())
-                        ulps = ((got[key] - want).abs()
-                                / bf16_ulp(scale)).max().item()
-                        stats_ulps = max(stats_ulps, ulps)
-                loss_rel = max(loss_rel, abs(ranks[0][head]["losses"][k]
-                                             - ref_losses[-1])
-                               / abs(ref_losses[-1]))
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        torch.cuda.empty_cache()
-        unmoved -= cos.keys()
-        worst = min(cos, key=cos.get)
-        rank_losses = ranks[0][head]["losses"]
-        launches = [r[head]["launches"] for r in ranks]
-        say(f"  (b) {head} head{' at 0.1 (budget 4,672)' if rate < 1 else ''}"
+    for head, cfg in heads:
+        r = out[head] = _grid_against_reference(ranks, paths, head, cfg, 3)
+        say(f"  (b) {head} head{' at 0.1 (budget 4,672)' if head == 'sampled' else ''}"
             f": 4 gloo ranks on cuda:0 (2 x 2), config 7's r50 face stem and "
             f"schedule, 16 rows a rank, 93,431 classes (46,716 a shard), 3 "
-            f"bf16 steps: replicated tensors max |diff| {diff}, shards across "
-            f"data ranks {shard_diff}; losses "
-            f"{[round(v, 4) for v in rank_losses]} vs replica_loop_step("
+            f"bf16 steps: replicated tensors max |diff| {r['ranks_max_diff']},"
+            f" shards across data ranks {r['shards_max_diff']}; losses "
+            f"{[round(v, 4) for v in r['losses']]} vs replica_loop_step("
             f"model=2) from the ranks' state before each step "
-            f"{[round(v, 4) for v in ref_losses]} (rel {loss_rel:.2e}); "
-            f"update cosine min over the steps {cos[worst]:.6f} ({worst}) "
-            f"over {len(cos)} leaves, {len(unmoved)} unmoved in both; BN "
-            f"running statistics within {stats_ulps:.2f} bf16 steps; kernel "
-            f"1 launches {launches}; rank 0's steps (host clock, the gloo "
-            f"exchanges through the host included) "
-            f"{[round(v, 3) for v in ranks[0][head]['seconds']]} s")
-        expect(launches == [3] * 4, f"{head}: kernel 1 launches {launches}")
-        expect(cos[worst] >= 0.999, f"{head}: update cosine {cos[worst]} at "
-                                    f"{worst}")
-        expect(stats_ulps <= 2.0, f"{head}: BN running statistics "
-                                  f"{stats_ulps} bf16 steps off")
-        expect(loss_rel <= 0.01, f"{head}: losses {rank_losses} vs "
-                                 f"{ref_losses}")
-        out[head] = {"min_cos": cos[worst], "stats_ulps": stats_ulps,
-                     "loss_rel": loss_rel, "launches": launches,
-                     "ranks_max_diff": diff, "shards_max_diff": shard_diff}
+            f"{[round(v, 4) for v in r['ref_losses']]} (rel "
+            f"{r['loss_rel']:.2e}); update cosine min over the steps "
+            f"{r['min_cos']:.6f} ({r['worst_leaf']}) over "
+            f"{r['compared_leaves']} leaves, {r['unmoved_leaves']} unmoved in "
+            f"both; BN running statistics within {r['stats_ulps']:.2f} bf16 "
+            f"steps; kernel 1 launches {r['launches']}; rank 0's steps (host "
+            f"clock, the gloo exchanges through the host included) "
+            f"{[round(v, 3) for v in r['seconds']]} s")
     say(f"  (b) {time.time() - t1:.1f} s; phase 14: {time.time() - t0:.1f} s")
     out.update(cli_launches=cli_launches, timing=timing,
                seconds=time.time() - t0)
     return out
+
+
+def _heads_config(**overrides):
+    """Phase 15(c)'s configs: preset 8 (AdaFace, 3 sub-centers, random
+    erase 0.25, its cosine schedule) at 16 rows a rank of four, kernel 1
+    on the augment, with ``overrides``."""
+    import dataclasses
+
+    from tf_face_toolbox_tpu_torch import configs
+
+    return dataclasses.replace(configs.get_config("adaface_noisy_data"),
+                               global_batch=64, pallas_input=True,
+                               **overrides)
+
+
+def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
+    """Phase 15: the loss heads (BASELINE preset 8 and the other heads)."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.pipeline import (
+        FaceShardSource, balanced_batch_iterator)
+
+    t0 = time.time()
+    say(f"[15 loss heads] {bench.gpu_info()}")
+    # (a) preset 8 through cli.train at full width, then its rate
+    step, logged, cli_launches = train_cli(
+        ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "5"], timeout=600)
+    losses, means = logged["loss"], logged.get("adaface_norm_mean", [])
+    say(f"  (a) cli.train --preset adaface_noisy_data --pallas_input (r50 "
+        f"face stem, bf16, 10,572 classes x 3 sub-centers, batch 256, random "
+        f"erase 0.25, cosine LR; synthetic faces): done step={step}, losses "
+        f"{[round(v, 4) for v in losses]}, adaface_norm_mean "
+        f"{[round(v, 4) for v in means]}, kernel 1 launches {cli_launches} "
+        f"in 20 steps; {time.time() - t0:.1f} s")
+    expect(step == 20, f"preset 8 stopped at step {step}")
+    expect(cli_launches == 20,
+           f"kernel 1 launched {cli_launches} times in 20 steps")
+    expect(len(losses) == 4 and all(np.isfinite(losses)),
+           f"preset-8 losses {losses}")
+    expect(len(means) == 4 and all(np.isfinite(means)) and means[-1] != 20.0,
+           f"AdaFace's EMA mean {means} did not move from 20")
+    t1 = time.time()
+    timing = _bench_train(["--preset", "adaface_noisy_data", "--steps", "10",
+                           "--warmup", "3"])
+    _say_bench("(a) bench_train --preset adaface_noisy_data", timing,
+               single_faces_per_sec)
+    say(f"      {time.time() - t1:.1f} s")
+
+    # (b) the other heads at config 4's width: one step from the same
+    # state through kernel 1 and through the plain augment chain
+    t1 = time.time()
+    images = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 10572, (256,), generator=g, device="cuda")
+    # a P x K batch of 64 identities x 4 faces from phase 11's shard
+    pk = next(balanced_batch_iterator(
+        FaceShardSource(os.path.join(work, "train.faceshard")),
+        ids_per_batch=64, images_per_id=4))
+    counts = np.unique(pk["label"], return_counts=True)[1]
+    expect(len(counts) == 64 and (counts == 4).all(),
+           f"P x K batch: {len(counts)} identities, counts {set(counts)}")
+    routes = {}
+    for head, cfg, (x, y) in (
+            ("magface", bt.config4(margin_mode="magface", margin_m3=0.0),
+             (images, labels)),
+            ("curricular", bt.config4(margin_mode="curricular",
+                                      margin_m2=0.5, margin_m3=0.0),
+             (images, labels)),
+            ("cosface+center+triplet (P x K 64 x 4)",
+             bt.config4(center_weight=0.01, triplet_weight=0.1),
+             (torch.as_tensor(pk["image"]).cuda(),
+              torch.as_tensor(pk["label"]).long().cuda()))):
+        r = routes[head] = bt.step_routes(cfg, x, y)
+        say(f"  (b) {head}, one step, kernel vs plain route: loss "
+            f"{r['loss']['kernel']:.5f} / {r['loss']['plain']:.5f} (rel "
+            f"{r['loss_rel']:.2e}), update cosine min {r['min_cos']:.6f} "
+            f"({r['worst_leaf']}) over {r['compared_leaves']} leaves, "
+            f"{r['unmoved_leaves']} unmoved in both (plain twice: "
+            f"{r['repeat_min_cos']:.6f}); launches {r['launches']}")
+        expect(r["loss_rel"] <= 0.01, f"{head}: routes' losses {r['loss']}")
+        expect(r["min_cos"] >= 0.999, f"{head}: update cosine "
+                                      f"{r['min_cos']} at {r['worst_leaf']}")
+        expect(r["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0},
+               f"{head}: route launches {r['launches']}")
+    del images, labels, pk
+    torch.cuda.empty_cache()
+    say(f"  (b) {time.time() - t1:.1f} s")
+
+    # (c) four ranks on cuda:0 over gloo, data 2 x model 2
+    t1 = time.time()
+    heads = [("adaface+center", _heads_config(center_weight=0.01)),
+             ("curricular", _heads_config(margin_mode="curricular",
+                                          margin_m2=0.5, margin_m3=0.0))]
+    ranks, paths = _run_grid(work, "heads", heads, 3)
+    grid = {}
+    for head, cfg in heads:
+        r = grid[head] = _grid_against_reference(ranks, paths, head, cfg, 3)
+        say(f"  (c) {head}: 4 gloo ranks on cuda:0 (2 x 2), preset 8's r50 "
+            f"face stem, 3 sub-centers, random erase and schedule, 16 rows a "
+            f"rank, 10,572 classes (5,286 a shard), 3 bf16 steps: replicated "
+            f"tensors max |diff| {r['ranks_max_diff']}, shards (classifier, "
+            f"centers) across data ranks {r['shards_max_diff']}; losses "
+            f"{[round(v, 4) for v in r['losses']]} vs replica_loop_step("
+            f"model=2) from the ranks' state before each step "
+            f"{[round(v, 4) for v in r['ref_losses']]} (rel "
+            f"{r['loss_rel']:.2e}); update cosine min {r['min_cos']:.6f} "
+            f"({r['worst_leaf']}) over {r['compared_leaves']} leaves; BN "
+            f"running statistics within {r['stats_ulps']:.2f} bf16 steps; "
+            f"head state rel {r['head_rel']:.2e}; kernel 1 launches "
+            f"{r['launches']}")
+    say(f"  (c) {time.time() - t1:.1f} s; phase 15: {time.time() - t0:.1f} s")
+    return {"cli_launches": cli_launches, "timing": timing,
+            "routes": routes, "grid": grid, "seconds": time.time() - t0}
 
 
 def main() -> None:
@@ -1950,6 +2140,9 @@ def main() -> None:
     dp = phase_data_parallel(work, train["time"]["faces_per_sec"])
     # ---- 14. the class-sharded Partial-FC head (config 7)
     pfc = phase_partial_fc(work, train["time"]["faces_per_sec"])
+    # ---- 15. the loss heads (preset 8, MagFace, Curricular, center,
+    # triplet)
+    heads = phase_loss_heads(g, work, train["time"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -2000,7 +2193,16 @@ def main() -> None:
          "partial_fc_launches": pfc["cli_launches"],
          "partial_fc_steps": 20,
          "partial_fc_rank_launches": {h: pfc[h]["launches"]
-                                      for h in ("exact", "sampled")}},
+                                      for h in ("exact", "sampled")},
+         # phase 15: preset 8 through cli.train (20 steps), one step a
+         # head through each route, and each of four gloo ranks on
+         # cuda:0 (3 steps a head)
+         "loss_heads_launches": heads["cli_launches"],
+         "loss_heads_steps": 20,
+         "loss_heads_route_launches": {
+             h: r["launches"]["kernel"] for h, r in heads["routes"].items()},
+         "loss_heads_rank_launches": {h: r["launches"]
+                                      for h, r in heads["grid"].items()}},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

@@ -4,9 +4,8 @@ Mirrors tests/test_configs.py: all eight presets exist; the eval-only
 dicts are the JAX ones; each train preset has the JAX TrainConfig's
 field values (bf16 compute); the single-GPU preset builds and trains a
 step at a cut size; the data-parallel and Partial-FC presets are served
-with their batch a device times the ranks; the presets whose paths are
-not ported yet raise naming their ROADMAP.md item when asked for, never
-at import.
+with their batch a device times the ranks; the AdaFace preset builds
+and trains a step at a cut size; no preset raises at import.
 """
 
 import dataclasses
@@ -33,10 +32,10 @@ EVAL = ["extract_verify_cpu", "se_resnet_extract", "variant_backbones",
         "accuracy_serving_bf16"]
 TRAIN = ["casia_single_chip", "v5e8_data_parallel", "large_id_pfc_v5e8",
          "adaface_noisy_data"]
-# presets whose path is not ported yet -> the item their refusal names;
-# large_id_pfc_v5e8 named item 11 until the Partial-FC head was ported
+# presets whose path was to port -> the item their refusal named, until
+# it was ported: item 11 (the Partial-FC head), item 9 (the loss heads)
 REFUSED = {"large_id_pfc_v5e8": "11", "adaface_noisy_data": "9"}
-SERVED = {"large_id_pfc_v5e8"}
+SERVED = {"large_id_pfc_v5e8", "adaface_noisy_data"}
 
 
 def test_all_presets_present():
@@ -53,16 +52,19 @@ def test_eval_presets_are_the_jax_dicts(name):
 @pytest.mark.parametrize("name", TRAIN)
 def test_train_presets_have_the_jax_field_values(name):
     """Every field the preset sets, and every default it leaves, equals
-    the JAX preset's; the compute dtype is bf16 on both sides. (The
-    MagFace and AdaFace sub-configs are item 9's: the port's fields hold
-    None until then.)"""
+    the JAX preset's (the MagFace and AdaFace sub-configs field by
+    field); the compute dtype is bf16 on both sides."""
     want = jax_configs.get_config(name)
     kwargs = configs.TRAIN_PRESETS[name]
     for field in dataclasses.fields(TrainConfig):
-        if field.name in ("dtype", "magface", "adaface"):
+        if field.name == "dtype":
             continue
         value = kwargs.get(field.name, field.default)
-        assert value == getattr(want, field.name), field.name
+        if field.name in ("magface", "adaface"):
+            assert dataclasses.asdict(value) == dataclasses.asdict(
+                getattr(want, field.name)), field.name
+        else:
+            assert value == getattr(want, field.name), field.name
     assert want.dtype == jnp.bfloat16
     assert kwargs.get("network") in list_networks()
 
@@ -129,12 +131,34 @@ def test_the_data_parallel_preset_trains_a_step_on_one_rank():
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_presets_raise_naming_their_item(name):
     """A preset whose path is still to port raises naming its item; one
-    whose item has landed (config 7, item 11) builds instead: 256 rows a
-    device times the ranks, every other field as published."""
+    whose item has landed builds instead: config 7 (item 11) at 256 rows
+    a device times the ranks, every other field as published; preset 8
+    (item 9: AdaFace on CosFace's 0.35, 3 sub-centers, random erase,
+    cosine LR) at its published batch, whose head state a cut-size step
+    moves."""
     if name not in SERVED:
         with pytest.raises(NotImplementedError,
                            match=f"item {REFUSED[name]}"):
             configs.get_config(name)
+        return
+    if name == "adaface_noisy_data":
+        preset = configs.get_config(name, world=4)
+        assert preset.dtype == torch.bfloat16
+        assert (preset.margin_mode, preset.margin_m3, preset.subcenters,
+                preset.random_erase, preset.lr_schedule,
+                preset.global_batch) == ("adaface", 0.35, 3, 0.25, "cosine",
+                                         256)
+        cfg = dataclasses.replace(preset, network="resnet_tiny",
+                                  embedding_dim=16, num_classes=24,
+                                  image_size=12, crop_from=16, global_batch=8)
+        state, net = create_train_state(cfg, 0, device="cpu")
+        assert state.classifier.shape == (72, 16)
+        images = np.random.default_rng(0).integers(0, 256, (8, 16, 16, 3),
+                                                   np.uint8)
+        state, m = make_train_step(net, cfg, state)(state, images,
+                                                    np.arange(8) % 24)
+        assert np.isfinite(float(m["loss"]))
+        assert float(m["adaface_norm_mean"]) != 20.0
         return
     published = configs.get_config(name)
     assert published.global_batch == 2048 and published.dtype == torch.bfloat16

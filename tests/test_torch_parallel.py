@@ -327,9 +327,9 @@ def test_augment_streams_by_rank(monkeypatch):
         state.step = 4
         parts = StepParts(net, cfg, state, mesh)
         # the same 8 rows on every rank
-        loss, _ = parts.local(state, *parts.rows(images[:16], labels[:16]),
-                              parts.rank)
-        losses.append(float(loss))
+        terms, _, _ = parts.local(
+            state, *parts.rows(images[:16], labels[:16]), parts.rank)
+        losses.append(float(terms["margin"]))
     today = (trainer._seed(5, 4, trainer._AUGMENT),
              trainer._seed(5, 4, trainer._ERASE))
     assert seeds[0] == seeds[1] == today

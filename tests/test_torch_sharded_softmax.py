@@ -218,17 +218,31 @@ def test_sampled_pfc_budget_validation():
 
 def test_adaptive_margins_raise_naming_item_9():
     """MagFace's and AdaFace's per-sample margins (extra_m2 / extra_m3)
-    are item 9's, in both heads."""
+    raised naming item 9 in every head until it was ported; now each
+    head takes them: zero margins on ArcFace's m2 give its loss bit for
+    bit, others change it (their values against JAX:
+    tests/test_torch_adaptive_losses.py)."""
     cfg = MarginConfig.arcface()
-    e, w, y = torch.randn(4, 8), torch.randn(12, 8), torch.arange(4)
-    extra = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ss.sharded_margin_softmax_loss(e, w, y, cfg, extra_m2=extra)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ss.local_margin_logits(e, w, y, cfg, extra_m3=extra)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ss.sampled_sharded_margin_softmax_loss(
-            e, w, y, cfg, torch.Generator(), 4, extra_m3=extra)
+    gen = torch.Generator()
+    e, w, y = torch.randn(4, 8, generator=gen), torch.randn(
+        12, 8, generator=gen), torch.arange(4)
+    zero, some = torch.zeros(4), torch.full((4,), 0.2)
+
+    def heads(**extra):
+        return (ss.sharded_margin_softmax_loss(e, w, y, cfg, **extra),
+                ss.local_margin_logits(e, w, y, cfg, **extra)[0],
+                ss.sampled_sharded_margin_softmax_loss(
+                    e, w, y, cfg, torch.Generator().manual_seed(1), 4,
+                    **extra))
+
+    plain = heads()
+    for extra in (dict(extra_m2=zero), dict(extra_m3=zero),
+                  dict(extra_m2=zero, extra_m3=zero)):
+        for a, b in zip(heads(**extra), plain, strict=True):
+            assert torch.equal(a, b)
+    for extra in (dict(extra_m2=some), dict(extra_m3=some)):
+        for a, b in zip(heads(**extra), plain, strict=True):
+            assert not torch.equal(a, b)
 
 
 def _jax_draws(key, model, c_local):

@@ -390,16 +390,25 @@ def test_fresh_init_follows_the_jax_initialisers():
 
 
 def test_unported_fields_raise_naming_their_item():
+    """The fields of paths still to port raise naming their item; those
+    of items since ported build: sampled Partial-FC (item 11), and the
+    loss heads (item 9: adaface, center and triplet raised here until
+    then; their numbers are held against JAX in
+    tests/test_torch_adaptive_trainer.py)."""
     for kw, item in ((dict(optimizer="adamw"), "10c"),
-                     (dict(margin_mode="adaface"), "9"),
-                     (dict(center_weight=0.1), "9"),
-                     (dict(triplet_weight=0.1), "9"),
                      (dict(quantized="qat"), "18"),
                      (dict(stem="space2depth"), "4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             TrainConfig(**kw)
-    # sampled Partial-FC (item 11) is served: the config builds
     assert TrainConfig(pfc_sample_rate=0.1).pfc_sample_rate == 0.1
+    heads = {"margin_mode": "adaface", "center_weight": 0.1,
+             "triplet_weight": 0.1}
+    for name, value in heads.items():
+        assert getattr(TrainConfig(**{name: value}), name) == value
+    state, _ = create_train_state(TrainConfig(**BASE, **heads), 0,
+                                  device="cpu")
+    assert sorted(state.head_state) == ["adaface", "centers"]
+    assert state.head_state["centers"].shape == (CLASSES, 16)
     cfg = TrainConfig(**BASE)
     state, net = create_train_state(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10c"):

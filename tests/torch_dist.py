@@ -202,9 +202,22 @@ def batches(nan_at=None, steps=STEPS, seed=7, u8=False, classes=CLASSES,
     return out
 
 
+def head_snapshot(head_state) -> dict | None:
+    """Host copies of a state's loss-head state, flat: ``adaface/norm_mean``,
+    ``adaface/norm_std``, ``curricular/t``, ``centers`` (None without
+    one)."""
+    from tf_face_toolbox_tpu_torch.train.state import head_leaves
+
+    if not head_state:
+        return None
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in head_leaves(head_state).items()}
+
+
 def snapshot(state) -> dict:
     """Host copies of a state in the JAX key space and layouts: variables,
-    classifier, momentum (as ``momentum/<key>``), EMA, and the step."""
+    classifier, momentum (as ``momentum/<key>``), EMA, the loss-head
+    state (``head_snapshot``) and the step."""
     from tf_face_toolbox_tpu_torch.interop import port
 
     def named_to_flat(named):
@@ -225,6 +238,7 @@ def snapshot(state) -> dict:
                                         cls_buf.cpu().numpy().copy())},
             "ema": (named_to_flat(state.ema_params)
                     if state.ema_params is not None else None),
+            "head": head_snapshot(state.head_state),
             "step": state.step, "count": state.opt_state["count"]}
 
 
@@ -323,6 +337,9 @@ def join_shards(snaps: list) -> dict:
     cls = [s["momentum"]["classifier"] for s in snaps]
     out["momentum"] = {**snaps[0]["momentum"], "classifier": (
         None if cls[0] is None else np.concatenate(cls))}
+    if out.get("head") and "centers" in out["head"]:
+        out["head"] = {**out["head"], "centers": np.concatenate(
+            [s["head"]["centers"] for s in snaps])}
     return out
 
 
@@ -389,14 +406,31 @@ def loop_run(topo, train_dir: str, num_steps: int, cfg_kw: dict,
             "evals": evals, "metrics": result.last_metrics}
 
 
+def _blocks(mesh, emb, w, labels, *rows_arrays):
+    """This rank's data block of ``emb``, ``labels`` and each of
+    ``rows_arrays`` (None stays None) as tensors, and its model shard of
+    ``w``; ``emb`` and the shard require grad."""
+    rows = emb.shape[0] // mesh.data
+    d, m = mesh.data_index, mesh.model_index
+    shard = w.shape[0] // mesh.model
+    block = slice(d * rows, (d + 1) * rows)
+    e = torch.tensor(emb[block], requires_grad=True)
+    ws = torch.tensor(w[m * shard:(m + 1) * shard], requires_grad=True)
+    y = torch.as_tensor(labels[block]).long()
+    return (e, ws, y, *(None if a is None else torch.tensor(a[block])
+                        for a in rows_arrays))
+
+
 def sharded_head(topo, model: int, emb, w, labels, margin: dict,
                  total_classes=None, subcenters=1, budget=None,
-                 data_sync=False, seeds=None, draws=None, repeats=1):
+                 data_sync=False, seeds=None, draws=None, repeats=1,
+                 extra_m2=None, extra_m3=None):
     """The class-sharded head on the ranks' (world / ``model``,
     ``model``) grid: each data index takes its block of the rows of
-    ``emb`` / ``labels`` (all of them at data 1), each model index its
-    shard of ``w`` (numpy). Exact, or sampled at ``budget`` with this
-    shard's generator seeded ``seeds[model index]`` (the seeds of the
+    ``emb`` / ``labels`` (and of the per-sample margins ``extra_m2`` /
+    ``extra_m3``; all of them at data 1), each model index its shard of
+    ``w`` (numpy). Exact, or sampled at ``budget`` with this shard's
+    generator seeded ``seeds[model index]`` (the seeds of the
     ``repeats`` draws follow on from it). Backward of the loss over the
     model size; returns (loss, its emb gradient, its shard gradient), the
     gradients averaged over ``repeats`` draws."""
@@ -405,28 +439,59 @@ def sharded_head(topo, model: int, emb, w, labels, margin: dict,
 
     mesh = grid(topo, model)
     cfg = MarginConfig(**margin)
-    rows = emb.shape[0] // mesh.data
-    d, m = mesh.data_index, mesh.model_index
-    shard = w.shape[0] // model
-    e = torch.tensor(emb[d * rows:(d + 1) * rows], requires_grad=True)
-    ws = torch.tensor(w[m * shard:(m + 1) * shard], requires_grad=True)
-    y = torch.as_tensor(labels[d * rows:(d + 1) * rows]).long()
+    m = mesh.model_index
+    e, ws, y, m2, m3 = _blocks(mesh, emb, w, labels, extra_m2, extra_m3)
     losses = []
     with installed_draws(draws):
         for i in range(repeats):
             if budget is None:
                 loss = ss.sharded_margin_softmax_loss(
                     e, ws, y, cfg, mesh, total_classes=total_classes,
-                    subcenters=subcenters)
+                    extra_m2=m2, extra_m3=m3, subcenters=subcenters)
             else:
                 gen = torch.Generator().manual_seed(seeds[m] + i * model)
                 loss = ss.sampled_sharded_margin_softmax_loss(
                     e, ws, y, cfg, gen, budget, mesh,
-                    total_classes=total_classes, data_sync=data_sync)
+                    total_classes=total_classes, extra_m2=m2,
+                    extra_m3=m3, data_sync=data_sync)
             (loss / model).backward()
             losses.append(loss.item())
     return (float(np.mean(losses)), e.grad.numpy() / repeats,
             ws.grad.numpy() / repeats)
+
+
+def center_head(topo, model: int, emb, centers, labels, alpha: float):
+    """The class-sharded center loss and update on the (world / ``model``,
+    ``model``) grid, blocks as ``sharded_head``'s: (the loss, its emb
+    gradient (backward over the model size), this rank's updated center
+    shard)."""
+    from tf_face_toolbox_tpu_torch.parallel import sharded_softmax as ss
+
+    mesh = grid(topo, model)
+    e, c, y = _blocks(mesh, emb, centers, labels)
+    loss = ss.sharded_center_loss(e, c, y, mesh)
+    (loss / model).backward()
+    new = ss.sharded_center_update(e, c, y, mesh, alpha=alpha)
+    return loss.item(), e.grad.numpy(), new.detach().numpy()
+
+
+def curricular_head(topo, model: int, emb, w, labels, margin: dict,
+                    t: float, total_classes=None, subcenters=1,
+                    data_sync=False):
+    """The class-sharded CurricularFace on the (world / ``model``,
+    ``model``) grid, blocks as ``sharded_head``'s: (the loss, t', its
+    emb gradient, its shard gradient; backward over the model size)."""
+    from tf_face_toolbox_tpu_torch.ops.losses import MarginConfig
+    from tf_face_toolbox_tpu_torch.parallel import sharded_softmax as ss
+
+    mesh = grid(topo, model)
+    e, ws, y = _blocks(mesh, emb, w, labels)
+    loss, t_new = ss.sharded_curricular_loss(
+        e, ws, y, MarginConfig(**margin), torch.tensor(t), mesh,
+        total_classes=total_classes, subcenters=subcenters,
+        data_sync=data_sync)
+    (loss / model).backward()
+    return loss.item(), t_new.item(), e.grad.numpy(), ws.grad.numpy()
 
 
 def checkpoint_round_trip(topo, train_dir: str, model: int,
@@ -465,9 +530,10 @@ def checkpoint_round_trip(topo, train_dir: str, model: int,
 
 def state_at(snap: dict, cfg, mesh=None, whole=False, device="cpu"):
     """A port state at ``snap`` (a snapshot in the JAX key space, the
-    port's or the JAX trainer's): variables, global classifier (this
-    rank's shard of it, or all of it with ``whole``), momentum buffers,
-    EMA, step and count. Returns (state, net)."""
+    port's or the JAX trainer's): variables, global classifier and
+    center table (this rank's shards of them, or all with ``whole``),
+    momentum buffers, EMA, the rest of the loss-head state, step and
+    count. Returns (state, net)."""
     from tf_face_toolbox_tpu_torch.interop import port
     from tf_face_toolbox_tpu_torch.train.trainer import create_train_state
 
@@ -490,6 +556,14 @@ def state_at(snap: dict, cfg, mesh=None, whole=False, device="cpu"):
             for name, e in state.ema_params.items():
                 key, kind = port.jax_key(name, e)
                 e.copy_(port.from_jax_layout(snap["ema"][key], kind))
+    for key, value in (snap.get("head") or {}).items():
+        value = torch.tensor(np.asarray(value, np.float32), device=device)
+        if key == "centers":
+            shard = state.head_state["centers"].shape[0]
+            state.head_state[key] = value[index * shard:(index + 1) * shard]
+        else:
+            name, leaf = key.split("/")
+            state.head_state[name][leaf] = value
     state.step = snap["step"]
     state.opt_state["count"] = snap.get("count", snap["step"])
     return state, net

@@ -9,11 +9,14 @@ step's two augment routes held against each other, and remat's trade.
     torchrun --standalone --nproc_per_node <GPUs> -m \
         tf_face_toolbox_tpu_torch.bench_train --preset large_id_pfc_v5e8 \
         --mesh_model <N>
+    python -m tf_face_toolbox_tpu_torch.bench_train \
+        --preset adaface_noisy_data
 
 BASELINE config 4 at full width (or ``--preset``'s config: 5 is the
 same network and head; 7 the same network with the class-sharded head
 over 93,431 classes, sampled at 0.1, or exact with ``--pfc_sample_rate
-1``): ``resnet_v1_50`` (face stem, 512-d, bf16 compute, f32 master
+1``; 8 AdaFace over 10,572 classes x 3 sub-centers, random erase 0.25,
+cosine LR): ``resnet_v1_50`` (face stem, 512-d, bf16 compute, f32 master
 weights), CosFace over 10,572 classes, SGD, synthetic uint8 faces (120 x
 120, cropped to 112) through the host and device prefetch, kernel 1 on
 the augment; ``--batch`` rows a GPU. Under torchrun every rank trains
@@ -23,8 +26,9 @@ steps with CUDA events after ``warmup``, then traces 5 more with
 torch.profiler (device time by kernel kind, collectives included; the
 head's cosine GEMMs, top-k and gathers as one kind; the idle share),
 and counts the step's operations from the conv and Dense shapes and
-the classifier columns scored. ``--remat`` builds the network with that
-``remat`` argument. Prints one JSON line. There is no CPU mode: a
+the classifier columns scored; ``head`` names the loss head.
+``--remat`` builds the network with that ``remat`` argument. Prints one
+JSON line. There is no CPU mode: a
 measurement that finds no card fails.
 """
 
@@ -38,6 +42,7 @@ import time
 
 import torch
 
+from tf_face_toolbox_tpu_torch.train.state import head_leaves
 from tf_face_toolbox_tpu_torch.train.trainer import (
     StepParts,
     TrainConfig,
@@ -57,6 +62,19 @@ NOISE_ONLY = "EmbeddingHead_0.Dense_0.bias"
 
 def config4(**overrides) -> TrainConfig:
     return TrainConfig(**{**CONFIG4, **overrides})
+
+
+def head_kind(cfg: TrainConfig) -> str:
+    """The loss head ``cfg`` trains, in words."""
+    parts = ["sampled" if cfg.pfc_sample_rate < 1 else "exact",
+             "fixed margin" if cfg.margin_mode == "fixed" else cfg.margin_mode]
+    if cfg.subcenters > 1:
+        parts.append(f"{cfg.subcenters} sub-centers")
+    if cfg.center_weight > 0:
+        parts.append("center loss")
+    if cfg.triplet_weight > 0:
+        parts.append("triplet")
+    return ", ".join(parts)
 
 
 def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
@@ -170,6 +188,7 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     peak = torch.cuda.max_memory_allocated()
     out = {"batch": cfg.global_batch, "ranks": world,
            "model": parts.model, "classes": cfg.num_classes,
+           "head": head_kind(cfg),
            "pfc_sample_rate": cfg.pfc_sample_rate, "budget": parts.budget,
            "classifier_columns": columns, "steps": steps,
            "warmup": warmup, "remat": remat,
@@ -274,6 +293,13 @@ def remat_grads(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
     return out
 
 
+def _leaves(state) -> dict:
+    """The parameters, the classifier and the loss heads' state by name."""
+    return {**state.params, "classifier": state.classifier,
+            **{f"head/{k}": v
+               for k, v in head_leaves(state.head_state).items()}}
+
+
 def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
                 *, seed: int = 0, device="cuda") -> dict:
     """One step from the same variables (``seed``) and generator state
@@ -281,7 +307,9 @@ def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
     chain, and the plain route once more: the losses, and each leaf's
     update (new - old) cosine between the kernel and the plain route
     (and between the two plain runs: the comparison's noise floor), in
-    float64. Leaves no gradient reaches stay put in both (counted, not
+    float64; the leaves are the parameters, the classifier and the loss
+    heads' state (``head/<name>``: the centers, AdaFace's statistics,
+    t). Leaves no gradient reaches stay put in both (counted, not
     compared), as does ``NOISE_ONLY``'s noise. cuDNN runs its
     deterministic algorithms meanwhile, so that only the routes differ.
     """
@@ -296,8 +324,8 @@ def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
                               ("plain_again", False)):
             c = dataclasses.replace(cfg, pallas_input=pallas)
             state, net = create_train_state(c, seed, device=device)
-            leaves = {**state.params, "classifier": state.classifier}
-            before = {k: p.detach().clone() for k, p in leaves.items()}
+            before = {k: p.detach().clone()
+                      for k, p in _leaves(state).items()}
             step_fn = make_train_step(net, c, state)
             n0 = fused_preprocess.launches
             state, m = step_fn(state, images, labels)
@@ -305,7 +333,7 @@ def step_routes(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
             launches[route] = fused_preprocess.launches - n0
             losses[route] = float(m["loss"])
             updates[route] = {k: (p.detach() - before[k]).double().ravel()
-                              for k, p in leaves.items()}
+                              for k, p in _leaves(state).items()}
             del state, net, step_fn, before
             torch.cuda.empty_cache()
     finally:

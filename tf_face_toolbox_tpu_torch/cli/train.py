@@ -21,14 +21,22 @@ several GPUs refuses and prints the torchrun line (``--device cuda:0``
 trains on one).
 
     # BASELINE config 5 on every GPU of a host (global batch 256 a GPU)
-    torchrun --standalone --nproc_per_node 8 -m \
-        tf_face_toolbox_tpu_torch.cli.train --preset v5e8_data_parallel \
+    torchrun --standalone --nproc_per_node 8 -m \\
+        tf_face_toolbox_tpu_torch.cli.train --preset v5e8_data_parallel \\
         --multihost --pallas_input --train_dir /tmp/dp
 
     # BASELINE config 7: 93,431 classes over a 2 x 4 grid, sampled PFC
-    torchrun --standalone --nproc_per_node 8 -m \
-        tf_face_toolbox_tpu_torch.cli.train --preset large_id_pfc_v5e8 \
+    torchrun --standalone --nproc_per_node 8 -m \\
+        tf_face_toolbox_tpu_torch.cli.train --preset large_id_pfc_v5e8 \\
         --mesh_model 4 --multihost --pallas_input --train_dir /tmp/pfc
+
+    # BASELINE preset 8: AdaFace, 3 sub-centers, random erase, cosine LR
+    python -m tf_face_toolbox_tpu_torch.cli.train \\
+        --preset adaface_noisy_data --pallas_input --train_dir /tmp/ada
+
+    # center loss and batch-hard triplet on P x K batches of a shard
+    python -m tf_face_toolbox_tpu_torch.cli.train --data=faces.faceshard \\
+        --center_loss=0.003 --triplet_loss=0.1 --balanced_pk=64,4
 
     # CASIA-WebFace-shaped run (BASELINE config 4), synthetic faces
     python -m tf_face_toolbox_tpu_torch.cli.train --data=synthetic \\
@@ -63,13 +71,6 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
 # flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
 _NOT_PORTED = {
     "drop_path": (0.0, "17"),
-    "magface_la": (10.0, "9"), "magface_ua": (110.0, "9"),
-    "magface_lm": (0.45, "9"), "magface_um": (0.8, "9"),
-    "magface_lambda_g": (35.0, "9"),
-    "adaface_m": (0.4, "9"), "adaface_h": (0.333, "9"),
-    "center_loss": (0.0, "9"), "center_alpha": (0.5, "9"),
-    "triplet_loss": (0.0, "9"), "triplet_margin": (0.3, "9"),
-    "balanced_pk": ("", "9"),
     "distill_from": ("", "10c"), "distill_network": ("resnet_v1_50", "10c"),
     "distill_stem": ("face", "10c"), "distill_head": ("gap", "10c"),
     "distill_alpha": (1.0, "10c"), "distill_use_ema": (False, "10c"),
@@ -133,13 +134,43 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--margin", default="cosface",
                    choices=["softmax", "arcface", "cosface", "sphereface",
                             "magface", "adaface", "curricular"],
-                   help="margin-softmax variant (magface, adaface, "
-                        "curricular: item 9)")
+                   help="margin-softmax variant; magface and adaface are "
+                        "per-sample margins on zero base margins, "
+                        "curricular modulates hard negatives over an "
+                        "ArcFace margin")
     p.add_argument("--margin_scale", type=float, default=64.0)
     p.add_argument("--margin_value", type=float, default=-1.0,
-                   help="margin (-1 = the variant's default)")
+                   help="margin (-1 = the variant's default; curricular: "
+                        "its ArcFace margin, 0.5)")
+    p.add_argument("--magface_la", type=float, default=10.0,
+                   help="MagFace magnitude lower bound")
+    p.add_argument("--magface_ua", type=float, default=110.0,
+                   help="MagFace magnitude upper bound")
+    p.add_argument("--magface_lm", type=float, default=0.45,
+                   help="MagFace margin at l_a")
+    p.add_argument("--magface_um", type=float, default=0.8,
+                   help="MagFace margin at u_a")
+    p.add_argument("--magface_lambda_g", type=float, default=35.0,
+                   help="MagFace magnitude-regularizer weight")
     p.add_argument("--subcenters", type=int, default=1,
                    help="sub-center ArcFace K")
+    p.add_argument("--adaface_m", type=float, default=0.4,
+                   help="AdaFace margin magnitude")
+    p.add_argument("--adaface_h", type=float, default=0.333,
+                   help="AdaFace norm concentration")
+    p.add_argument("--center_loss", type=float, default=0.0,
+                   help="center-loss weight (Wen et al. 2016; 0 = off)")
+    p.add_argument("--center_alpha", type=float, default=0.5,
+                   help="the centers' delta-rule step")
+    p.add_argument("--triplet_loss", type=float, default=0.0,
+                   help="batch-hard triplet weight (Hermans et al. 2017; "
+                        "0 = off), mined within a data row's batch")
+    p.add_argument("--triplet_margin", type=float, default=0.3)
+    p.add_argument("--balanced_pk", default="",
+                   help="'P,K': batches of P identities x K images of a "
+                        "FaceShard --data (P * K = the batch a rank; the "
+                        "python loader), so the triplet and center losses "
+                        "always see positives")
     _bool_flag(p, "bf16", True, "bfloat16 compute (--nobf16: float32)")
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--seed", type=int, default=0, help="init/data seed")
@@ -224,6 +255,11 @@ def preset_flags(cfg) -> dict:
     m1, m2, m3 = cfg.margin_m1, cfg.margin_m2, cfg.margin_m3
     margin, value = (("arcface", m2) if m2 else ("cosface", m3) if m3 else
                      ("sphereface", m1) if m1 != 1.0 else ("softmax", -1.0))
+    if cfg.margin_mode == "curricular":
+        margin, value = "curricular", m2
+    elif cfg.margin_mode != "fixed":
+        # the base margins travel apart: --margin_value does not apply
+        margin, value = cfg.margin_mode, -1.0
     flags = dict(
         network=cfg.network, stem=cfg.stem, head=cfg.head_variant,
         dropout=cfg.dropout_rate, embedding_dim=cfg.embedding_dim,
@@ -241,7 +277,12 @@ def preset_flags(cfg) -> dict:
         bf16=cfg.dtype == torch.bfloat16,
         ema_decay=cfg.ema_decay, pallas_input=cfg.pallas_input,
         accum_steps=cfg.accum_steps, random_erase=cfg.random_erase,
-        input_norm=cfg.input_norm)
+        input_norm=cfg.input_norm, magface_la=cfg.magface.l_a,
+        magface_ua=cfg.magface.u_a, magface_lm=cfg.magface.l_m,
+        magface_um=cfg.magface.u_m, magface_lambda_g=cfg.magface.lambda_g,
+        adaface_m=cfg.adaface.m, adaface_h=cfg.adaface.h,
+        center_loss=cfg.center_weight, center_alpha=cfg.center_alpha,
+        triplet_loss=cfg.triplet_weight, triplet_margin=cfg.triplet_margin)
     if cfg.lr_schedule == "cosine":
         flags["num_steps"] = cfg.lr_total_steps
     return flags
@@ -250,7 +291,9 @@ def preset_flags(cfg) -> dict:
 def apply_preset(args, argv, world: int) -> None:
     """Fill the flags ``argv`` leaves unset from ``args.preset`` (its batch
     a GPU times ``world``); a preset whose path is not ported raises
-    naming its item."""
+    naming its item. A preset's MagFace or AdaFace mode keeps its base
+    margins (preset 8: CosFace's 0.35 under AdaFace's terms) unless
+    ``--margin`` is given."""
     from tf_face_toolbox_tpu_torch import configs
 
     try:
@@ -261,6 +304,8 @@ def apply_preset(args, argv, world: int) -> None:
     for name, value in preset_flags(cfg).items():
         if name not in given:
             setattr(args, name, value)
+    if cfg.margin_mode in ("magface", "adaface") and "margin" not in given:
+        args.base_margins = (cfg.margin_m1, cfg.margin_m2, cfg.margin_m3)
 
 
 def check_launch(args, gpus: int, env=None) -> None:
@@ -289,9 +334,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"--{name} is not ported yet (ROADMAP.md §1 "
                              f"item {item})")
-    if args.margin in ("magface", "adaface", "curricular"):
-        raise SystemExit(f"--margin={args.margin} is not ported yet "
-                         "(ROADMAP.md §1 item 9)")
     if args.loader == "native_dct":
         raise SystemExit("--loader=native_dct is not ported yet "
                          "(ROADMAP.md §1 item 17)")
@@ -300,16 +342,33 @@ def _refuse_unported(args) -> None:
 def build_config(args, num_classes: int):
     import torch
 
+    from tf_face_toolbox_tpu_torch.ops.losses import (
+        AdaFaceConfig, MagFaceConfig)
     from tf_face_toolbox_tpu_torch.train.trainer import TrainConfig
 
-    m1, m2, m3 = _MARGINS[args.margin]
-    if args.margin_value >= 0:
-        if args.margin == "arcface":
-            m2 = args.margin_value
-        elif args.margin == "cosface":
-            m3 = args.margin_value
-        elif args.margin == "sphereface":
-            m1 = args.margin_value
+    margin_mode = "fixed"
+    if args.margin in ("magface", "adaface"):
+        if args.margin_value >= 0:
+            raise SystemExit(
+                f"--margin_value does not apply to --margin={args.margin} "
+                "(its margins are per-sample adaptive); tune --magface_lm/"
+                "--magface_um or --adaface_m instead")
+        # the papers' losses: zero base margins, per-sample terms
+        margin_mode = args.margin
+        m1, m2, m3 = getattr(args, "base_margins", (1.0, 0.0, 0.0))
+    elif args.margin == "curricular":
+        # the paper's ArcFace margin 0.5 on the target column
+        margin_mode, m1, m3 = "curricular", 1.0, 0.0
+        m2 = args.margin_value if args.margin_value >= 0 else 0.5
+    else:
+        m1, m2, m3 = _MARGINS[args.margin]
+        if args.margin_value >= 0:
+            if args.margin == "arcface":
+                m2 = args.margin_value
+            elif args.margin == "cosface":
+                m3 = args.margin_value
+            elif args.margin == "sphereface":
+                m1 = args.margin_value
     try:
         return TrainConfig(
             network=args.network, stem=args.stem, head_variant=args.head,
@@ -325,7 +384,15 @@ def build_config(args, num_classes: int):
             grad_clip_norm=args.grad_clip_norm,
             skip_nonfinite=args.skip_nonfinite,
             margin_scale=args.margin_scale, margin_m1=m1, margin_m2=m2,
-            margin_m3=m3, subcenters=args.subcenters,
+            margin_m3=m3, margin_mode=margin_mode,
+            magface=MagFaceConfig(
+                l_a=args.magface_la, u_a=args.magface_ua,
+                l_m=args.magface_lm, u_m=args.magface_um,
+                lambda_g=args.magface_lambda_g),
+            adaface=AdaFaceConfig(m=args.adaface_m, h=args.adaface_h),
+            center_weight=args.center_loss, center_alpha=args.center_alpha,
+            triplet_weight=args.triplet_loss,
+            triplet_margin=args.triplet_margin, subcenters=args.subcenters,
             pfc_sample_rate=args.pfc_sample_rate,
             dtype=torch.bfloat16 if args.bf16 else torch.float32,
             augment=True, crop_from=args.crop_from or args.image_size + 8,
@@ -445,13 +512,37 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
 
 
+def _balanced_pk(args, host_batch: int) -> tuple[int, int] | None:
+    """``--balanced_pk``'s (P, K), checked against the data, the loader
+    and the batch a rank; None when it is not set."""
+    if not args.balanced_pk:
+        return None
+    try:
+        p, k = (int(v) for v in args.balanced_pk.split(","))
+    except ValueError:
+        raise SystemExit("--balanced_pk must be 'P,K' "
+                         f"(got {args.balanced_pk!r})")
+    if args.data == "synthetic" or "," in args.data:
+        raise SystemExit("--balanced_pk samples the identities of ONE "
+                         "FaceShard --data; it does not compose with "
+                         f"--data={args.data}")
+    if args.loader not in ("auto", "python"):
+        raise SystemExit("--balanced_pk is a python-loader sampler "
+                         f"(got --loader={args.loader})")
+    if p * k != host_batch:
+        raise SystemExit(f"--balanced_pk={p},{k}: P*K={p * k} must equal "
+                         f"the batch a rank {host_batch}")
+    return p, k
+
+
 def _train(args, argv, topo) -> None:
     import signal
     import threading
 
     from tf_face_toolbox_tpu_torch.data.pipeline import (
-        FaceShardSource, batch_iterator, device_prefetch, host_prefetch,
-        mixed_batch_iterator, mixture_sources, native_batch_iterator)
+        FaceShardSource, balanced_batch_iterator, batch_iterator,
+        device_prefetch, host_prefetch, mixed_batch_iterator,
+        mixture_sources, native_batch_iterator)
     from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
         fused_preprocess)
     from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
@@ -469,6 +560,7 @@ def _train(args, argv, topo) -> None:
     host_batch = args.global_batch // world
     latest = (CheckpointManager(args.train_dir).latest_step()
               if args.train_dir else None) or 0
+    pk = _balanced_pk(args, host_batch)
     if args.data == "synthetic":
         # restarts from its seed on resume, as the JAX CLI's does
         cfg = build_config(args, args.num_classes or 100)
@@ -523,7 +615,12 @@ def _train(args, argv, topo) -> None:
         if args.loader == "auto":
             from tf_face_toolbox_tpu_torch.data.native import native_available
             use_native = native_available()
-        if use_native:
+        if pk is not None:
+            # step-indexed (no epochs): resumed by the global step alone
+            batches = balanced_batch_iterator(
+                source, ids_per_batch=pk[0], images_per_id=pk[1],
+                start_step=latest, resize_to=(cfg.crop_from, cfg.crop_from))
+        elif use_native:
             batches = native_batch_iterator(
                 source, host_batch, out_h=cfg.crop_from,
                 out_w=cfg.crop_from, start_epoch=start_epoch,

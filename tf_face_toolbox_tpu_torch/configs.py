@@ -3,9 +3,9 @@
 Counterpart of ``tf_face_toolbox_tpu/configs.py``, with its names and
 values. The eval-only presets are dicts, as there. A train preset is
 kept as the keyword arguments of the port's ``TrainConfig`` (bf16
-compute) and built when asked for, so a preset whose path is not
-ported yet raises then, naming its ROADMAP.md item (AdaFace: 9, through
-``TrainConfig``'s own refusals), never at import.
+compute) and built when asked for: a refusal of ``TrainConfig``'s
+(naming a ROADMAP.md item) would come then, never at import. All four
+train presets build.
 
 The presets published for 8 devices (config 5, data-parallel; config 7,
 the class-sharded Partial-FC head on a 2 x 4 mesh) are served at the

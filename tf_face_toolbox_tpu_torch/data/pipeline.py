@@ -5,8 +5,9 @@ Counterpart of ``tf_face_toolbox_tpu/data/pipeline.py``: an epoch is a
 seeded permutation of record ids (exact resume from (epoch, step)),
 decode runs on host threads or in the native C++ loader, and
 augmentation is left to the train step on the device. Several shards
-train as one weighted mixture (``mixed_batch_iterator``). The balanced
-P x K sampler is not ported yet (ROADMAP.md §1 item 9).
+train as one weighted mixture (``mixed_batch_iterator``); P identities
+of K images each make a batch for the metric losses
+(``balanced_batch_iterator``).
 """
 
 from __future__ import annotations
@@ -170,6 +171,62 @@ def batch_iterator(source: FaceShardSource, batch_size: int, *,
                        "epoch": epoch, "step": step}
                 step += 1
             epoch, step = epoch + 1, 0
+    finally:
+        if pool is not None:
+            pool.close()
+
+
+def balanced_batch_iterator(source: FaceShardSource, *,
+                            ids_per_batch: int, images_per_id: int,
+                            start_step: int = 0, num_threads: int = 4,
+                            resize_to: tuple[int, int] | None = None
+                            ) -> Iterator[dict]:
+    """P x K identity-balanced batches (P identities, K images of each),
+    so the triplet and center losses always see positives.
+
+    Step s draws from ``np.random.default_rng((source.seed, s))``: P of
+    the identities with at least K of this host's records, then K of
+    each one's records, in the JAX sampler's calls and order, so the
+    record ids are the JAX package's for the same shard and host. It is
+    resumed by ``start_step`` alone (no epochs: ``'epoch'`` is 0).
+    ``resize_to=(h, w)``: ``batch_iterator``'s decode geometry.
+    """
+    labels = source.index.labels
+    host_set = set(source._host_ids.tolist())
+    by_id: dict[int, list] = {}
+    for rid, lab in enumerate(labels):
+        if rid in host_set:
+            by_id.setdefault(int(lab), []).append(rid)
+    eligible = [lab for lab, rids in by_id.items()
+                if len(rids) >= images_per_id]
+    if len(eligible) < ids_per_batch:
+        raise ValueError(
+            f"only {len(eligible)} identities have >= {images_per_id} "
+            f"images; need {ids_per_batch}")
+    eligible = np.asarray(sorted(eligible))
+    id_arrays = {lab: np.asarray(by_id[lab]) for lab in eligible}
+    transform = ((lambda im: _resize_u8(im, *resize_to))
+                 if resize_to is not None else None)
+    pool = _DecodePool(source, num_threads) if num_threads > 1 else None
+    step = start_step
+    try:
+        while True:
+            rng = np.random.default_rng((source.seed, step))
+            chosen = rng.choice(eligible, ids_per_batch, replace=False)
+            ids = np.concatenate([
+                rng.choice(id_arrays[lab], images_per_id, replace=False)
+                for lab in chosen])
+            if pool is not None:
+                records = pool.decode(ids, transform)
+            else:
+                records = [source.record(int(i)) for i in ids]
+                if transform is not None:
+                    records = [(transform(img), lab)
+                               for img, lab in records]
+            yield {"image": np.stack([r[0] for r in records]),
+                   "label": np.asarray([r[1] for r in records], np.int32),
+                   "epoch": 0, "step": step}
+            step += 1
     finally:
         if pool is not None:
             pool.close()

@@ -99,6 +99,16 @@ def data_pmean(value: torch.Tensor, mesh) -> torch.Tensor:
     return value
 
 
+def data_psum(value: torch.Tensor, mesh) -> torch.Tensor:
+    """``value``'s sum over the data axis (a new tensor, not
+    differentiable): the global batch's statistics of the loss heads
+    (AdaFace's norm moments, the center sums)."""
+    value = value.detach().clone()
+    if mesh is not None:
+        _mean_([value], mesh, "data", 1)
+    return value
+
+
 class _ModelSum(torch.autograd.Function):
     """psum over a model row; its backward sums the cotangent over the
     row too (the transpose JAX takes inside ``shard_map``)."""

@@ -1,9 +1,9 @@
 """Class-sharded (Partial-FC) margin softmax over the model axis.
 
-Counterpart of ``tf_face_toolbox_tpu/parallel/sharded_softmax.py``
-(its exact and sampled heads; the center and curricular heads, and the
-per-sample margins ``extra_m2``/``extra_m3`` of MagFace and AdaFace,
-are ROADMAP.md §1 item 9's). The classifier's classes are split over
+Counterpart of ``tf_face_toolbox_tpu/parallel/sharded_softmax.py``:
+the exact and sampled margin heads (with MagFace's and AdaFace's
+per-sample ``extra_m2`` / ``extra_m3``), CurricularFace, and the center
+loss and its update. The classifier's classes are split over
 the ``model`` ranks of a data row: rank m holds classes [m * C_local,
 (m + 1) * C_local) (K class-major rows each with sub-centers), scores
 every row of the row's batch against them, and the softmax combines
@@ -19,6 +19,11 @@ This is the one-device ``margin_softmax_loss`` exactly, without the
 backward sums the cotangent over the row), so a rank's loss divided by
 the model size gives each shard its exact gradient.
 
+The center table (C_pad, D) is split over the model axis as the
+classifier is: each sample's center lives on one shard, and a psum over
+the row assembles the per-sample distances; the update's sums are taken
+over the global batch (a sum over the data axis).
+
 ``mesh`` is a ``parallel.mesh.Topology`` (None: one shard, every class).
 """
 
@@ -31,21 +36,16 @@ import torch.nn.functional as F
 
 from tf_face_toolbox_tpu_torch.ops.losses import (
     MarginConfig,
+    apply_center_sums,
+    center_sums,
     cosine_logits,
+    curricular_logits,
     margined_target,
     subcenter_pool,
 )
 from tf_face_toolbox_tpu_torch.parallel import collectives
 
 _NEG = -1e30   # a masked logit: exp(_NEG - max) is 0, never inf * 0
-
-
-def _refuse_adaptive(extra_m2, extra_m3) -> None:
-    if extra_m2 is not None or extra_m3 is not None:
-        raise NotImplementedError(
-            "per-sample margins (extra_m2 / extra_m3: MagFace, AdaFace) in "
-            "the class-sharded head are not ported yet (ROADMAP.md §1 "
-            "item 9)")
 
 
 def _index(mesh) -> int:
@@ -60,13 +60,38 @@ def _ownership(labels: torch.Tensor, c_local: int, index: int):
     return torch.where(owned, local, 0), owned
 
 
+def _one_hot(labels: torch.Tensor, c_local: int, index: int) -> torch.Tensor:
+    """(N, C_local) f32: 1 at each label's column on shard ``index``, a
+    zero row where another shard owns the label."""
+    safe, owned = _ownership(labels, c_local, index)
+    return F.one_hot(safe, c_local).float() * owned[:, None].float()
+
+
+def column_weight(index: int, c_local: int, total_classes: int | None,
+                   device) -> torch.Tensor:
+    """(C_local,): 1, or 0 for a column at or past ``total_classes`` (the
+    padding of C up to a multiple of the shards)."""
+    if total_classes is None:
+        return torch.ones(c_local, device=device)
+    cols = index * c_local + torch.arange(c_local, device=device)
+    return (cols < total_classes).float()
+
+
+def _clip(cos: torch.Tensor) -> torch.Tensor:
+    # arccos's domain: rounding in the GEMM can spill past +-1
+    return torch.clamp(cos, -1.0 + 1e-7, 1.0 - 1e-7)
+
+
 def _margin_logits(cos: torch.Tensor, one_hot: torch.Tensor,
-                   cfg: MarginConfig) -> torch.Tensor:
+                   cfg: MarginConfig, extra_m2=None, extra_m3=None
+                   ) -> torch.Tensor:
     """The margin on the label's column (the mask, since a label may live
-    on another shard), then the scale."""
-    cos_c = torch.clamp(cos, -1.0 + 1e-7, 1.0 - 1e-7)
-    return cfg.scale * torch.where(one_hot > 0, margined_target(cos_c, cfg),
-                                   cos)
+    on another shard), then the scale; ``extra_m2`` / ``extra_m3``: (N,)
+    per-sample additions, the same on every shard of the row."""
+    target = margined_target(
+        _clip(cos), cfg, None if extra_m2 is None else extra_m2[:, None],
+        None if extra_m3 is None else extra_m3[:, None])
+    return cfg.scale * torch.where(one_hot > 0, target, cos)
 
 
 def local_margin_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
@@ -78,29 +103,30 @@ def local_margin_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
 
     ``embeddings``: (N, D), every row of the data row's batch;
     ``w_shard``: (C_local * K, D); ``labels``: (N,) global class ids.
+    ``extra_m2`` / ``extra_m3``: optional (N,) per-sample margin
+    additions (MagFace, AdaFace), the same on every shard of the row.
     Returns (logits (N, C_local) f32, one_hot (N, C_local) f32).
     """
-    _refuse_adaptive(extra_m2, extra_m3)
     logits, _, one_hot = exact_logits(embeddings, w_shard, labels, cfg,
-                                      _index(mesh), None, subcenters)
+                                      _index(mesh), None, subcenters,
+                                      extra_m2, extra_m3)
     return logits, one_hot
 
 
 def exact_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
                  labels: torch.Tensor, cfg: MarginConfig, index: int,
-                 total_classes: int | None, subcenters: int = 1
+                 total_classes: int | None, subcenters: int = 1,
+                 extra_m2=None, extra_m3=None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shard ``index``'s (logits (N, C_local), weight (C_local,): 1, or
     0 for a column at or past ``total_classes``, the padding of C up to
     a multiple of the shards, one_hot (N, C_local))."""
     c_local = w_shard.shape[0] // subcenters
-    safe, owned = _ownership(labels, c_local, index)
-    one_hot = F.one_hot(safe, c_local).float() * owned[:, None].float()
+    one_hot = _one_hot(labels, c_local, index)
     cos = subcenter_pool(cosine_logits(embeddings, w_shard), subcenters)
-    cols = index * c_local + torch.arange(c_local, device=w_shard.device)
-    weight = (torch.ones(c_local, device=w_shard.device)
-              if total_classes is None else (cols < total_classes).float())
-    return _margin_logits(cos, one_hot, cfg), weight, one_hot
+    weight = column_weight(index, c_local, total_classes, w_shard.device)
+    return (_margin_logits(cos, one_hot, cfg, extra_m2, extra_m3), weight,
+            one_hot)
 
 
 def _shifted_sums(masked: torch.Tensor, weight: torch.Tensor,
@@ -153,10 +179,11 @@ def sharded_margin_softmax_loss(embeddings: torch.Tensor,
                                 subcenters: int = 1) -> torch.Tensor:
     """Exact cross-entropy over class shards: the mean NLL over the N
     rows (the same on every rank of the row). ``total_classes``: the true
-    class count when C was padded to a multiple of the shards."""
-    _refuse_adaptive(extra_m2, extra_m3)
+    class count when C was padded to a multiple of the shards;
+    ``extra_m2`` / ``extra_m3``: (N,) per-sample margin additions."""
     return masked_nll(*exact_logits(embeddings, w_shard, labels, cfg,
-                                    _index(mesh), total_classes, subcenters),
+                                    _index(mesh), total_classes, subcenters,
+                                    extra_m2, extra_m3),
                       mesh)
 
 
@@ -204,7 +231,8 @@ def check_budget(budget: int, c_local: int, n_pool: int) -> None:
 def sampled_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
                    labels: torch.Tensor, pos_labels: torch.Tensor,
                    cfg: MarginConfig, uniforms: torch.Tensor, budget: int,
-                   index: int, total_classes: int | None, gather=None
+                   index: int, total_classes: int | None, gather=None,
+                   extra_m2=None, extra_m3=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shard ``index``'s sampled columns: every class of ``pos_labels``
     it owns, then the valid columns of least ``uniforms``, pads last
@@ -212,7 +240,8 @@ def sampled_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
     column order. Returns (logits (N, budget), weight (budget,): 1 for a
     positive, 1/q for a valid negative (q its inclusion probability), 0
     for a pad, one_hot (N, budget)). ``gather(w_shard, sampled)`` reads
-    the sampled rows (default: indexing)."""
+    the sampled rows (default: indexing); ``extra_m2`` / ``extra_m3``:
+    (N,) per-sample margin additions."""
     c_local = w_shard.shape[0]
     device = w_shard.device
     offset = index * c_local
@@ -234,7 +263,8 @@ def sampled_logits(embeddings: torch.Tensor, w_shard: torch.Tensor,
     pos_of_class[sampled] = torch.arange(budget, device=device)
     one_hot = (F.one_hot(pos_of_class[safe], budget).float()
                * owned[:, None].float())
-    logits = _margin_logits(cosine_logits(embeddings, w_sub), one_hot, cfg)
+    logits = _margin_logits(cosine_logits(embeddings, w_sub), one_hot, cfg,
+                            extra_m2, extra_m3)
 
     drawn = torch.minimum(budget - num_pos, valid_local - num_pos)
     pool = torch.clamp_min(valid_local - num_pos, 1)
@@ -260,9 +290,9 @@ def sampled_sharded_margin_softmax_loss(
     the same set, and the shard is read through the compact-exchange
     gather: its gradient comes back averaged over the data axis, and the
     caller must not average it again. Needs ``budget >= min(pool,
-    C_local)`` (pool: the rows whose positives are kept).
+    C_local)`` (pool: the rows whose positives are kept). ``extra_m2`` /
+    ``extra_m3``: (N,) per-sample margin additions.
     """
-    _refuse_adaptive(extra_m2, extra_m3)
     c_local = w_shard.shape[0]
     pos_labels = labels
     gather = None
@@ -275,5 +305,87 @@ def sampled_sharded_margin_softmax_loss(
     logits, weight, one_hot = sampled_logits(
         embeddings, w_shard, labels, pos_labels, cfg,
         draw_uniforms(generator, c_local), budget, _index(mesh),
-        total_classes, gather)
+        total_classes, gather, extra_m2, extra_m3)
     return masked_nll(logits, weight, one_hot, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The class-sharded center loss and CurricularFace. One-device oracles:
+# ops/losses.center_loss, center_update, curricular_loss.
+# ---------------------------------------------------------------------------
+
+
+def sharded_center_loss(embeddings: torch.Tensor, c_shard: torch.Tensor,
+                        labels: torch.Tensor, mesh=None) -> torch.Tensor:
+    """1/2 * mean ||e_i - c_{y_i}||^2 with the centers split over the
+    model row: ``embeddings`` (N, D) the row's gathered rows (the same on
+    each of its ranks), ``c_shard`` (C_local, D) this rank's centers,
+    detached. Each sample's distance comes from its owner's shard, summed
+    over the row (differentiable)."""
+    safe, owned = _ownership(labels, c_shard.shape[0], _index(mesh))
+    d = embeddings.to(torch.float32) - c_shard.detach()[safe]
+    per = torch.sum(d * d, dim=-1) * owned.float()
+    return 0.5 * collectives.model_psum(per, mesh).mean()
+
+
+def sharded_center_update(embeddings: torch.Tensor, c_shard: torch.Tensor,
+                          labels: torch.Tensor, mesh=None,
+                          alpha: float = 0.5) -> torch.Tensor:
+    """The delta rule on this rank's centers, a new (C_local, D) tensor:
+    c_j - alpha * sum_{y_i=j}(c_j - e_i) / (1 + n_j), the class sums and
+    counts of the row's gathered rows summed over the data axis (one
+    all-reduce), so every data rank applies the global batch's update
+    (the centers are the same down a data column, split along a row)."""
+    c_local = c_shard.shape[0]
+    safe, owned = _ownership(labels, c_local, _index(mesh))
+    sums = center_sums(embeddings, safe, owned, c_local)
+    return apply_center_sums(c_shard, collectives.data_psum(sums, mesh),
+                             alpha)
+
+
+def target_cosines(embeddings: torch.Tensor, w_shard: torch.Tensor,
+                   labels: torch.Tensor, index: int, subcenters: int = 1
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shard ``index``'s clipped cosines (N, C_local) (sub-centers pooled
+    before the clip), its label mask (N, C_local) and its part of each
+    row's target cosine (N,): 0 where another shard owns the label, so
+    the parts of a row's shards sum to the target cosine."""
+    c_local = w_shard.shape[0] // subcenters
+    one_hot = _one_hot(labels, c_local, index)
+    cos_c = _clip(subcenter_pool(cosine_logits(embeddings, w_shard),
+                                 subcenters))
+    return cos_c, one_hot, (cos_c * one_hot).sum(dim=-1)
+
+
+def curricular_t(target_cos: torch.Tensor, t: torch.Tensor,
+                 mesh=None, data_sync: bool = False) -> torch.Tensor:
+    """t' = 0.01 * r + 0.99 * t, r the mean detached target cosine (over
+    the data axis too with ``data_sync``: the global batch's)."""
+    r = target_cos.detach().mean()
+    if data_sync:
+        r = collectives.data_pmean(r, mesh)
+    return 0.01 * r + 0.99 * t
+
+
+def sharded_curricular_loss(embeddings: torch.Tensor, w_shard: torch.Tensor,
+                            labels: torch.Tensor, cfg: MarginConfig,
+                            t: torch.Tensor, mesh=None,
+                            total_classes: int | None = None,
+                            subcenters: int = 1, data_sync: bool = False
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Class-sharded CurricularFace: (mean NLL over the row's rows, t').
+
+    The target cosine lives on one shard: a psum over the row gives it
+    to every shard (differentiable) for the hard-negative test. t' is
+    taken from it (``curricular_t``) and used in the same step; the
+    caller keeps it as the next step's t.
+    """
+    index = _index(mesh)
+    cos_c, one_hot, part = target_cosines(embeddings, w_shard, labels,
+                                          index, subcenters)
+    target_cos = collectives.model_psum(part, mesh)
+    t_new = curricular_t(target_cos, t, mesh, data_sync)
+    logits = curricular_logits(cos_c, one_hot, target_cos, t_new, cfg)
+    weight = column_weight(index, one_hot.shape[1], total_classes,
+                           w_shard.device)
+    return masked_nll(logits, weight, one_hot, mesh), t_new

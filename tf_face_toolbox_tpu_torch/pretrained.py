@@ -24,9 +24,10 @@ def load_variables(checkpoint_dir: str, network: str, embedding_dim: int,
     ...), which ``serving.make_serving_apply`` and
     ``interop.port.load_jax_variables`` take. The port's checkpoint
     names every tensor, so it is read raw, with no template: the
-    classifier is not needed to serve. ``use_ema`` selects the EMA
-    weight set (with the running BN statistics); ``step`` pins a
-    retained checkpoint (None = the latest).
+    classifier and the loss heads' state are not needed to serve.
+    ``use_ema`` selects the EMA weight set (with the running BN
+    statistics); ``step`` pins a retained checkpoint (None = the
+    latest).
     """
     from tf_face_toolbox_tpu_torch.interop.port import (
         load_jax_variables, named_to_flat)
@@ -37,11 +38,6 @@ def load_variables(checkpoint_dir: str, network: str, embedding_dim: int,
     meta = mgr.metadata(step)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
-    heads = mgr.head_state_children(meta)
-    if heads:
-        raise NotImplementedError(
-            f"checkpoint with loss-head state {sorted(heads)}: the adaptive "
-            "heads are not ported yet (ROADMAP.md §1 item 9)")
     raw = mgr.restore_raw(meta["step"])
     params = raw["params"]
     if use_ema:
@@ -51,7 +47,13 @@ def load_variables(checkpoint_dir: str, network: str, embedding_dim: int,
     flat = named_to_flat({**params, **raw["batch_stats"]})
     net = create_network(network, embedding_dim=embedding_dim, dtype=dtype,
                          stem=stem, head_variant=head, input_size=image_size)
-    logging.info("restored step %d from %s (%d identities, ema=%s)",
-                 raw["step"], checkpoint_dir, raw["classifier"].shape[0],
-                 use_ema)
+    # the classifier holds C * K rows, the center table (where one was
+    # trained) C: the identity count and the sub-centers from the shapes
+    rows = raw["classifier"].shape[0]
+    centers = raw.get("head_state", {}).get("centers")
+    num_classes = rows if centers is None else centers.shape[0]
+    logging.info("restored step %d from %s (%d identities, %d sub-centers, "
+                 "loss-head state %s, ema=%s)", raw["step"], checkpoint_dir,
+                 num_classes, rows // num_classes,
+                 sorted(mgr.head_state_children(meta)) or "none", use_ema)
     return load_jax_variables(net, flat).eval(), flat

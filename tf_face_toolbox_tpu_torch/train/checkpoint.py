@@ -10,7 +10,9 @@ read without jax; weights cross between the packages through the
                              state_dict name, the classifier in its
                              global (C*K, D) shape, the SGD momentum
                              buffers by parameter name ("classifier"
-                             for the classifier's), the EMA of params
+                             for the classifier's), the EMA of params,
+                             the loss heads' state (the center table
+                             in its global (C_pad, D) shape)
     <dir>/<step>/meta.json   step, the optimizer's count (apart from
                              the step: a skipped step holds it), rng,
                              has_ema, the head-state children and the
@@ -24,12 +26,12 @@ A step is written to ``<dir>/.<step>.tmp`` and renamed into place with
 Runs over several ranks (``mesh``, a ``parallel.mesh.Topology``): every
 rank calls the same methods; the ranks of each model row gather their
 classifier shards and the shards' momentum into the global (C_pad * K,
-D) shape, then rank 0 writes, after a barrier, and a second barrier
-follows, so that no rank lists a step still in its temporary directory.
-Every rank restores onto its own device, the classifier and its
-momentum re-sliced by its model index; a saved global row count other
-than this run's raises. ``save_best`` acts on rank 0's reading of the
-bar.
+D) shape, and their center shards into (C_pad, D), then rank 0 writes,
+after a barrier, and a second barrier follows, so that no rank lists a
+step still in its temporary directory. Every rank restores onto its own
+device, the classifier, its momentum and the centers re-sliced by its
+model index; a saved global row count other than this run's raises.
+``save_best`` acts on rank 0's reading of the bar.
 """
 
 from __future__ import annotations
@@ -139,13 +141,17 @@ class CheckpointManager:
                 momentum["classifier"], self.mesh)
         classifier = collectives.model_all_gather(
             state.classifier.detach(), self.mesh)
+        head = dict(state.head_state or {})
+        if "centers" in head:
+            head["centers"] = collectives.model_all_gather(
+                head["centers"].detach(), self.mesh)
         if self._main:
-            self._write(state, step, classifier, momentum)
+            self._write(state, step, classifier, momentum, head)
         collectives.barrier(self.mesh)
         return True
 
     def _write(self, state: TrainState, step: int, classifier: torch.Tensor,
-               momentum: dict) -> bool:
+               momentum: dict, head: dict) -> bool:
         final = os.path.join(self._dir, str(step))
         if os.path.isdir(final):
             return False
@@ -155,8 +161,8 @@ class CheckpointManager:
                    "momentum": _host(momentum)}
         if state.ema_params is not None:
             tensors["ema_params"] = _host(state.ema_params)
-        if state.head_state:
-            tensors["head_state"] = _host(state.head_state)
+        if head:
+            tensors["head_state"] = _host(head)
         meta = {"step": int(step), "count": int(state.opt_state["count"]),
                 "rng": int(state.rng),
                 "has_ema": state.ema_params is not None,
@@ -269,7 +275,7 @@ class CheckpointManager:
                 f"{model}, times the sub-centers): restore with the "
                 "--num_classes and --subcenters the run was started with")
 
-        def own(t):      # this rank's rows of a global classifier tensor
+        def own(t, shard=shard):    # this rank's rows of a global tensor
             return t[index * shard:(index + 1) * shard]
 
         _fill(st.params, saved["params"], "params")
@@ -281,9 +287,20 @@ class CheckpointManager:
                 saved["momentum"]["classifier"]).clone()
         if st.ema_params is not None:
             _fill(st.ema_params, saved["ema_params"], "ema_params")
-        if st.head_state:
-            for child, tree in st.head_state.items():
-                _fill(tree, saved["head_state"][child], f"head_state/{child}")
+        for child, tree in (st.head_state or {}).items():
+            src = saved["head_state"][child]
+            if child != "centers":
+                _fill(tree, src, f"head_state/{child}")
+                continue
+            # the center table: global in the file, a shard in the state
+            c_shard = tree.shape[0]
+            if src.shape[0] != c_shard * model:
+                raise ValueError(
+                    f"checkpoint centers have {src.shape[0]} rows, this "
+                    f"run's {c_shard * model} (classes padded to the model "
+                    f"axis of {model}): restore with the --num_classes the "
+                    "run was started with")
+            _fill({child: tree}, {child: own(src, c_shard)}, "head_state")
         opt = st.opt_state["optimizer"]
         trained = _trained(st)
         extra = sorted(saved["momentum"].keys() - trained.keys())
@@ -308,8 +325,8 @@ class CheckpointManager:
     def restore_raw(self, step: int | None = None) -> dict:
         """The checkpoint as saved, on the host, with no template: the
         tensors with their own shapes (``params``, ``batch_stats``,
-        ``classifier``, ``momentum``, ``ema_params`` when saved) and the
-        ``step``, ``count`` and ``rng``. The warm-start loader
+        ``classifier``, ``momentum``, ``ema_params`` and ``head_state``
+        when saved) and the ``step``, ``count`` and ``rng``. The warm-start loader
         (``train.finetune``) needs exactly this: a shape that differs
         from the new run's is a graft-time skip, not a restore error."""
         step = self._step(step)

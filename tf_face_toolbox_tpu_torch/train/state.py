@@ -32,4 +32,20 @@ class TrainState:
     # stream, which the port does not reproduce.
     rng: int
     ema_params: dict[str, torch.Tensor] | None = None   # EMA of params
-    head_state: dict[str, Any] | None = None  # adaptive heads (item 9)
+    # the loss heads' state, None without one: {"adaface": {"norm_mean",
+    # "norm_std"}, "curricular": {"t"}, "centers": (C_pad / model, D)
+    # f32, this rank's shard of the center table}
+    head_state: dict[str, Any] | None = None
+
+
+def head_leaves(head_state: dict | None) -> dict[str, torch.Tensor]:
+    """A loss-head state's tensors by path: ``adaface/norm_mean``,
+    ``adaface/norm_std``, ``curricular/t``, ``centers`` (none without
+    one)."""
+    out = {}
+    for name, value in (head_state or {}).items():
+        if isinstance(value, dict):
+            out.update({f"{name}/{k}": v for k, v in value.items()})
+        else:
+            out[name] = value
+    return out

@@ -17,19 +17,24 @@ step, on each rank:
    ``TrainContext``); gathers the f32 embeddings and labels of its model
    row; takes the exact or, with ``pfc_sample_rate`` < 1, the sampled
    sharded margin-softmax loss against its f32 shard (the row's mean),
-   and backward of that loss over the model size (the psums inside it
+   or CurricularFace's, with MagFace's or AdaFace's per-sample margins
+   and the center and triplet losses on the gathered rows added, and
+   backward of that objective over the model size (the psums inside it
    sum each rank's cotangent, JAX's algebra);
 4. exchanges, as the JAX step does (``parallel/collectives.py``): the
    backbone's gradient summed over the model row and averaged over the
    data axis; the classifier shard's averaged over its data column (the
    sampled head averaged its compact gradient in backward already); the
-   loss and the running statistics averaged over every rank;
+   loss's parts and the running statistics averaged over every rank;
 5. then, in order, on the same values on every rank: the global
    gradient norm (the shards' squared norms summed over the model row),
    ``grad_clip_norm``, SGD (weight decay on conv and Dense kernels and
-   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, and
-   ``skip_nonfinite`` on the averaged loss and norm (so every rank skips
-   together; nothing but ``step`` changes).
+   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, the loss
+   heads' state (``head_state``: AdaFace's norm statistics and
+   CurricularFace's t as the head computed them, the center shard by
+   the delta rule over the global batch), and ``skip_nonfinite`` on the
+   averaged loss and norm (so every rank skips together; nothing but
+   ``step`` changes).
 
 ``accum_steps`` splits a rank's rows into micro-batches whose forwards
 advance the BN statistics one after another; their gradients are summed
@@ -39,9 +44,9 @@ stream) on ranks above 0 (JAX folds the device's position into its
 step key), not JAX's threefry stream; the sampled head's keys from
 (state.rng, step, 0x9FC, model index), the same on every data rank.
 
-The adaptive margins (item 9), other optimizers and distillation (item
-10c), and quantization-aware training (item 18) are not ported yet:
-their fields raise naming the item.
+The other optimizers and distillation (item 10c) and quantization-aware
+training (item 18) are not ported yet: their fields raise naming the
+item.
 """
 
 from __future__ import annotations
@@ -58,13 +63,24 @@ from tf_face_toolbox_tpu_torch.models import create_network, init_parameters
 from tf_face_toolbox_tpu_torch.models.layers import BatchNorm, TrainContext
 from tf_face_toolbox_tpu_torch.ops import preprocess as pp
 from tf_face_toolbox_tpu_torch.ops.losses import (
+    AdaFaceConfig,
+    MagFaceConfig,
     MarginConfig,
+    adaface_margins,
+    adaface_norms,
+    adaface_stats_init,
+    batch_hard_triplet_loss,
+    curricular_t_init,
     init_classifier_weights,
+    magface_margins,
 )
 from tf_face_toolbox_tpu_torch.parallel import collectives
 from tf_face_toolbox_tpu_torch.parallel.mesh import rank_batch_size
 from tf_face_toolbox_tpu_torch.parallel.sharded_softmax import (
     sampled_sharded_margin_softmax_loss,
+    sharded_center_loss,
+    sharded_center_update,
+    sharded_curricular_loss,
     sharded_margin_softmax_loss,
 )
 from tf_face_toolbox_tpu_torch.train.schedule import cosine, staircase
@@ -72,6 +88,7 @@ from tf_face_toolbox_tpu_torch.train.state import TrainState
 
 # generator streams of a step (the JAX trainer's fold_in tags)
 _AUGMENT, _ERASE, _DROPOUT, _PFC = 0, 0xE5A5E, 0x0D12, 0x9FC
+_MODES = ("fixed", "magface", "adaface", "curricular")
 
 
 def _not_ported(what: str, item: str):
@@ -107,13 +124,15 @@ class TrainConfig:
     margin_m1: float = 1.0
     margin_m2: float = 0.0
     margin_m3: float = 0.35           # CosFace default
-    margin_mode: str = "fixed"        # magface/adaface/curricular: item 9
-    magface: Any = None               # MagFaceConfig (item 9)
-    adaface: Any = None               # AdaFaceConfig (item 9)
+    # fixed | magface | adaface | curricular; magface and adaface add
+    # their per-sample terms to m1/m2/m3, curricular's margin is m2
+    margin_mode: str = "fixed"
+    magface: MagFaceConfig = MagFaceConfig()
+    adaface: AdaFaceConfig = AdaFaceConfig()
     subcenters: int = 1
-    center_weight: float = 0.0        # item 9
-    center_alpha: float = 0.5
-    triplet_weight: float = 0.0       # item 9
+    center_weight: float = 0.0        # center loss, added to the margin's
+    center_alpha: float = 0.5         # the centers' delta-rule step
+    triplet_weight: float = 0.0       # batch-hard triplet, a data row's
     triplet_margin: float = 0.3
     pfc_sample_rate: float = 1.0      # sampled Partial-FC; 1 = exact
     dtype: Any = torch.float32        # torch.bfloat16 on the card
@@ -134,13 +153,9 @@ class TrainConfig:
                 raise ValueError(f"unknown optimizer '{self.optimizer}'; "
                                  "have sgd|adam|adamw|lars")
             _not_ported(f"optimizer={self.optimizer!r}", "10c")
-        if self.margin_mode != "fixed":
-            if self.margin_mode not in ("magface", "adaface", "curricular"):
-                raise ValueError(f"unknown margin_mode '{self.margin_mode}';"
-                                 " have fixed|magface|adaface|curricular")
-            _not_ported(f"margin_mode={self.margin_mode!r}", "9")
-        if self.center_weight > 0 or self.triplet_weight > 0:
-            _not_ported("center and triplet losses", "9")
+        if self.margin_mode not in _MODES:
+            raise ValueError(f"unknown margin_mode '{self.margin_mode}'; "
+                             "have fixed|magface|adaface|curricular")
         if self.quantized:
             _not_ported("quantization-aware training", "18")
         if self.drop_path_rate > 0:
@@ -157,6 +172,18 @@ class TrainConfig:
                 "sampled Partial-FC (pfc_sample_rate < 1) cannot pool "
                 "sub-centers: uniform row sampling would split classes - "
                 "use the exact head (pfc_sample_rate=1) with subcenters")
+        if self.pfc_sample_rate < 1.0 and self.margin_mode == "curricular":
+            raise ValueError(
+                "sampled Partial-FC cannot combine with curricular: the "
+                "hard-negative modulation is defined over ALL negatives - "
+                "use the exact head (pfc_sample_rate=1)")
+        if self.accum_steps > 1 and (self.margin_mode != "fixed"
+                                     or self.center_weight > 0):
+            raise ValueError(
+                "accum_steps>1 supports stateless losses only: adaptive "
+                "margin modes (magface/adaface/curricular) and center loss "
+                "update per-STEP head state, which micro-batches would "
+                "apply K times per step")
 
     @property
     def margin(self) -> MarginConfig:
@@ -237,7 +264,11 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
     network and global classifier, which one checksum exchange checks
     (it raises on every rank otherwise). ``whole_classifier``: keep the
     global classifier (the state of ``parallel.reference``'s plain
-    version of the step). Returns (state, net).
+    version of the step). The loss heads' state (``head_state``, None
+    without one): AdaFace's norm statistics (mean 20, std 100),
+    CurricularFace's t (0), and f32 zero centers of the C_pad classes,
+    split over the model axis as the classifier is (whole with
+    ``whole_classifier``). Returns (state, net).
     """
     if net is None:
         net = build_network(cfg)
@@ -268,11 +299,22 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
         w = w[m * shard:(m + 1) * shard].clone()
     w.requires_grad_(True)
     opt = make_optimizer(cfg, net, w)
+    head_state = {}
+    if cfg.margin_mode == "adaface":
+        head_state["adaface"] = adaface_stats_init(device)
+    elif cfg.margin_mode == "curricular":
+        head_state["curricular"] = curricular_t_init(device)
+    if cfg.center_weight > 0:
+        c_pad = padded_classes(cfg.num_classes, model)
+        head_state["centers"] = torch.zeros(
+            (c_pad if whole_classifier else c_pad // model,
+             cfg.embedding_dim), dtype=torch.float32, device=device)
     state = TrainState(
         step=0, params=params, batch_stats=buffers, classifier=w,
         opt_state={"optimizer": opt, "count": 0}, rng=seed,
         ema_params=({k: p.detach().clone() for k, p in params.items()}
-                    if cfg.ema_decay > 0 else None))
+                    if cfg.ema_decay > 0 else None),
+        head_state=head_state or None)
     return state, net
 
 
@@ -310,6 +352,27 @@ def _grad_norm(grads: list[torch.Tensor], mesh=None) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def adaface_moments(norms: torch.Tensor, mesh=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global batch's mean and std (ddof=1) of AdaFace's norms: sums
+    over a model row's rows (the same on each of its ranks) summed over
+    the data axis, in two passes."""
+    # the count by a fill on the device: a host tensor's copy would wait
+    # for the queued forward
+    total = collectives.data_psum(torch.stack(
+        [norms.sum(), norms.new_full((), float(norms.numel()))]), mesh)
+    mean = total[0] / total[1]
+    ss = collectives.data_psum(((norms - mean) ** 2).sum(), mesh)
+    return mean, torch.sqrt(ss / torch.clamp_min(total[1] - 1.0, 1.0))
+
+
+def mean_terms(steps: list[dict]) -> dict:
+    """Each term's mean over the micro-batches' ``objective`` terms,
+    detached (one micro-batch: its values exactly)."""
+    return {name: torch.stack([t[name].detach() for t in steps]).mean()
+            for name in steps[0]}
+
+
 def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
                     state: TrainState, *, mesh=None, input_format: str = "u8",
                     teacher=None) -> Callable:
@@ -322,27 +385,31 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
     global batch, of which this rank takes its rows, or this rank's
     rows alone; every rank calls ``step_fn`` once a step. The state is
     updated in place and returned. Metrics (the same on every rank):
-    ``loss`` (the global batch's), ``grad_norm`` (before the clip) and,
-    with ``skip_nonfinite``, ``skipped_nonfinite`` as tensors or
-    floats; ``learning_rate`` = the schedule at ``state.step`` (the
-    applied rate follows the optimizer's count, which a skipped step
-    holds).
+    ``loss`` (the global batch's objective: the margin loss plus the
+    weighted auxiliary terms), ``grad_norm`` (before the clip),
+    ``center_loss``, ``triplet_loss``, ``magface_reg_loss`` (each term
+    unweighted, where on), ``adaface_norm_mean`` and ``curricular_t``
+    (the head state after the step) and, with ``skip_nonfinite``,
+    ``skipped_nonfinite``, as tensors or floats; ``learning_rate`` = the
+    schedule at ``state.step`` (the applied rate follows the optimizer's
+    count, which a skipped step holds).
     """
     parts = StepParts(net, cfg, state, mesh, input_format=input_format,
                       teacher=teacher)
 
     def step_fn(state: TrainState, images, labels):
         images, labels = parts.rows(images, labels)
-        loss, stats = parts.local(state, images, labels, parts.rank)
+        terms, stats, update = parts.local(state, images, labels, parts.rank)
         grads = parts.grads(state)
         collectives.sync_gradients(grads[:-1], mesh)
         if parts.budget is None:
             # the sampled head averaged its compact gradient in backward
             collectives.sync_classifier_gradients(grads[-1:], mesh)
-        loss = collectives.replicate_mean(loss, mesh)
+        mean = collectives.replicate_mean(torch.stack(list(terms.values())),
+                                          mesh)
         collectives.sync_batch_stats([t for pair in stats.values()
                                       for t in pair], mesh)
-        return parts.apply(state, loss, stats)
+        return parts.apply(state, dict(zip(terms, mean)), stats, update)
 
     return step_fn
 
@@ -350,11 +417,11 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
 class StepParts:
     """A step in two halves around the exchange: ``local`` (one rank's
     augment, forward and backward, its gradients left in ``.grad``) and
-    ``apply`` (norm, clip, skip, SGD, statistics, EMA). The train step
-    runs them with the collectives between; the plain version
+    ``apply`` (norm, clip, skip, SGD, statistics, EMA, head state). The
+    train step runs them with the collectives between; the plain version
     (``parallel.reference.replica_loop_step``) runs ``prepare``, the
-    forward and ``budget``'s head for every rank in one process and
-    averages by hand."""
+    forward and ``objective`` for every rank in one process and averages
+    by hand."""
 
     def __init__(self, net: torch.nn.Module, cfg: TrainConfig,
                  state: TrainState, mesh=None, *, input_format: str = "u8",
@@ -387,6 +454,10 @@ class StepParts:
             pool = cfg.global_batch // cfg.accum_steps
             self.budget = min(max(math.ceil(cfg.pfc_sample_rate * c_local),
                                   pool), c_local)
+        # each auxiliary term's weight in the objective
+        self.weights = {"magface_reg": cfg.magface.lambda_g,
+                        "center": cfg.center_weight,
+                        "triplet": cfg.triplet_weight}
         self.net, self.cfg = net, cfg
         self.sched = make_schedule(cfg)
         self.device = state.classifier.device
@@ -431,61 +502,107 @@ class StepParts:
         return _generator(self.device, state.rng, state.step, _PFC,
                           model_index)
 
+    def objective(self, state: TrainState, emb: torch.Tensor,
+                  labels: torch.Tensor, margin_loss: Callable,
+                  moments=None) -> tuple[torch.Tensor, dict, dict]:
+        """A model row's objective from its gathered f32 rows ``emb`` and
+        ``labels`` (JAX's ``margin_branch``): MagFace's margins and
+        regularizer, or AdaFace's margins from the global batch's norm
+        ``moments`` (``adaface_moments``); the center loss against the
+        centers and the triplet loss mined within the row; and
+        ``margin_loss(extra_m2, extra_m3)``, the margin head's loss (with
+        CurricularFace, (loss, t')). Returns (objective, terms: each part
+        by name, "margin" first, update: the head state to write after
+        the step)."""
+        cfg = self.cfg
+        terms, update = {}, {}
+        extra_m2 = extra_m3 = None
+        if cfg.margin_mode == "magface":
+            extra_m2, terms["magface_reg"] = magface_margins(emb, cfg.magface)
+        elif cfg.margin_mode == "adaface":
+            extra_m2, extra_m3, update["adaface"] = adaface_margins(
+                adaface_norms(emb), state.head_state["adaface"], cfg.adaface,
+                *moments)
+        if cfg.center_weight > 0:
+            terms["center"] = sharded_center_loss(
+                emb, state.head_state["centers"], labels, self.mesh)
+            update["centers"] = (emb.detach(), labels)
+        if cfg.triplet_weight > 0:
+            terms["triplet"] = batch_hard_triplet_loss(emb, labels,
+                                                       cfg.triplet_margin)
+        margin = margin_loss(extra_m2, extra_m3)
+        if cfg.margin_mode == "curricular":
+            margin, t_new = margin
+            update["curricular"] = {"t": t_new}
+        total = margin
+        for name, value in terms.items():
+            total = total + self.weights[name] * value
+        return total, {"margin": margin, **terms}, update
+
     def head(self, state: TrainState, emb: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
-        """The mean margin-softmax loss of the model row's rows (the same
-        on each of its ranks): ``emb`` (f32) and ``labels`` of this rank,
-        gathered over the row, against this rank's classifier shard."""
+             labels: torch.Tensor) -> tuple[torch.Tensor, dict, dict]:
+        """``objective`` of this rank's model row: ``emb`` (f32) and
+        ``labels`` of this rank, gathered over the row, against this
+        rank's classifier and center shards (the same on each of the
+        row's ranks)."""
         cfg, mesh = self.cfg, self.mesh
         emb = collectives.model_all_gather(emb, mesh)
         labels = collectives.model_all_gather(labels, mesh)
-        if self.budget is None:
-            return sharded_margin_softmax_loss(
-                emb, state.classifier, labels, cfg.margin, mesh,
-                total_classes=cfg.num_classes, subcenters=cfg.subcenters)
-        return sampled_sharded_margin_softmax_loss(
-            emb, state.classifier, labels, cfg.margin,
-            self.pfc_generator(state, self.model_index), self.budget,
-            mesh, total_classes=cfg.num_classes, data_sync=True)
+        moments = (adaface_moments(adaface_norms(emb), mesh)
+                   if cfg.margin_mode == "adaface" else None)
+
+        def margin_loss(extra_m2, extra_m3):
+            if cfg.margin_mode == "curricular":
+                return sharded_curricular_loss(
+                    emb, state.classifier, labels, cfg.margin,
+                    state.head_state["curricular"]["t"], mesh,
+                    total_classes=cfg.num_classes,
+                    subcenters=cfg.subcenters, data_sync=True)
+            if self.budget is None:
+                return sharded_margin_softmax_loss(
+                    emb, state.classifier, labels, cfg.margin, mesh,
+                    total_classes=cfg.num_classes, extra_m2=extra_m2,
+                    extra_m3=extra_m3, subcenters=cfg.subcenters)
+            return sampled_sharded_margin_softmax_loss(
+                emb, state.classifier, labels, cfg.margin,
+                self.pfc_generator(state, self.model_index), self.budget,
+                mesh, total_classes=cfg.num_classes, extra_m2=extra_m2,
+                extra_m3=extra_m3, data_sync=True)
+
+        return self.objective(state, emb, labels, margin_loss, moments)
 
     def local(self, state: TrainState, images: torch.Tensor,
-              labels: torch.Tensor, rank: int) -> tuple[torch.Tensor, dict]:
+              labels: torch.Tensor, rank: int
+              ) -> tuple[dict, dict, dict]:
         """Rank ``rank``'s forward and backward on its rows: returns its
-        model row's mean loss and the BN modules' updated running
-        statistics; the gradients (of that mean over the model size) are
-        in the parameters' ``.grad``."""
+        model row's terms (``objective``'s, detached; averaged over the
+        micro-batches), the BN modules' updated running statistics and
+        the head-state update; the gradients (of the objective over the
+        model size) are in the parameters' ``.grad``."""
         ctx, x = self.prepare(state, images, rank)
-
-        def loss_of(xb, lb):
-            return self.head(state, self.net(xb, train=ctx).to(torch.float32),
-                             lb)
-
         for p in (*state.params.values(), state.classifier):
             p.grad = None
         k = self.cfg.accum_steps
-        if k == 1:
-            loss = loss_of(x, labels)
-            (loss / self.model).backward()
-            loss = loss.detach()
-        else:
-            losses = []
-            for xm, lm in zip(x.chunk(k), labels.chunk(k)):
-                micro = loss_of(xm, lm)
-                (micro / self.model).backward()
-                losses.append(micro.detach())
-            loss = torch.stack(losses).mean()
+        steps = []
+        for xm, lm in zip(x.chunk(k), labels.chunk(k)):
+            emb = self.net(xm, train=ctx).to(torch.float32)
+            total, terms, update = self.head(state, emb, lm)
+            (total / self.model).backward()
+            steps.append(terms)
+        if k > 1:
             torch._foreach_div_(self.grads(state), float(k))
-        return loss, ctx.stats
+        return mean_terms(steps), ctx.stats, update
 
     @staticmethod
     def grads(state: TrainState) -> list[torch.Tensor]:
         """The gradients of params, then the classifier's."""
         return [p.grad for p in (*state.params.values(), state.classifier)]
 
-    def apply(self, state: TrainState, loss: torch.Tensor,
-              stats: dict) -> tuple[TrainState, dict]:
-        """The update from the gradients in ``.grad``, the loss and the
-        running statistics, as they are after the exchange."""
+    def apply(self, state: TrainState, terms: dict, stats: dict,
+              update: dict | None = None) -> tuple[TrainState, dict]:
+        """The update from the gradients in ``.grad``, the objective's
+        terms (averaged over every rank), the running statistics and the
+        head-state update, as they are after the exchange."""
         cfg = self.cfg
         grads = self.grads(state)
         grad_norm = _grad_norm(grads, self.mesh)
@@ -494,6 +611,10 @@ class StepParts:
                 cfg.grad_clip_norm / torch.clamp_min(grad_norm, 1e-12), 1.0)
             torch._foreach_mul_(grads, scale)
 
+        loss = terms["margin"]
+        for name, weight in self.weights.items():
+            if name in terms:
+                loss = loss + weight * terms[name]
         metrics = {"loss": loss, "learning_rate": self.sched(state.step),
                    "grad_norm": grad_norm}
         ok = True
@@ -520,5 +641,28 @@ class StepParts:
                     torch._foreach_add_(
                         ema, [p.detach() for p in state.params.values()],
                         alpha=1.0 - d)
+            self._write_head(state, update or {})
+        for name in ("center", "triplet", "magface_reg"):
+            if name in terms:
+                metrics[f"{name}_loss"] = terms[name]
+        head = state.head_state or {}
+        if "adaface" in head:
+            metrics["adaface_norm_mean"] = head["adaface"]["norm_mean"]
+        if "curricular" in head:
+            metrics["curricular_t"] = head["curricular"]["t"]
         state.step += 1
         return state, metrics
+
+    def _write_head(self, state: TrainState, update: dict) -> None:
+        """The head state after an applied step: AdaFace's statistics and
+        t' as the head computed them, the centers by the delta rule over
+        the global batch (new tensors: a metric read before keeps its
+        value)."""
+        head = state.head_state
+        for name in ("adaface", "curricular"):
+            if name in update:
+                head[name] = {k: v.detach() for k, v in update[name].items()}
+        if "centers" in update:
+            emb, labels = update["centers"]
+            head["centers"] = sharded_center_update(
+                emb, head["centers"], labels, self.mesh, self.cfg.center_alpha)
