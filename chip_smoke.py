@@ -19,7 +19,9 @@ then the class-sharded Partial-FC head (BASELINE config 7: 93,431
 classes) at one rank and on four gloo ranks sharing the card; then the
 loss heads: BASELINE preset 8 (AdaFace, 3 sub-centers) by cli.train,
 MagFace, CurricularFace, center and triplet losses on a P x K batch,
-and AdaFace with center loss and CurricularFace on four gloo ranks.
+and AdaFace with center loss and CurricularFace on four gloo ranks;
+then SE-ResNet-50, ResNeXt-50, SE-ResNeXt-50, DenseNet-121 and the
+space2depth stem served, benchmarked and trained.
 Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
@@ -120,6 +122,24 @@ Phases:
     loss, then CurricularFace, 3 bf16 steps each, held as phase 14(b)
     holds config 7 (the centers split and compared as the classifier is;
     AdaFace's statistics and t within 1e-3)
+16. the ResNet family and DenseNet (BASELINE configs 2 and 3) at
+    published widths, bf16, seeded weights, 128 faces (256 images with
+    their mirrors) at 112x112: (a) se_resnet_50, resnext_50,
+    se_resnext_50 and densenet_121 (face stem), resnet_v1_50 at the face
+    stem beside them and at the space2depth stem, each through the route
+    cli.extract --engine auto takes (the folded engine, or the module
+    path for ResNeXt and DenseNet), held against the f32 module path
+    (cosine >= 0.999, batch-centered >= 0.95), its faces/s plain and e2e
+    (kernel 1 once a batch), peak memory and device time by kernel kind;
+    (b) resnet_v1_50 --stem space2depth --impl fused: 13 kernel 2
+    launches a batch, each fused stage (56x56 with its stride-1 entry
+    block, 28, 14, 7) against its plain version, the folded cuDNN stages
+    and the bound; se_resnet_50 fused launches kernel 2 zero times and
+    equals folded; (c) cli.extract --network densenet_121 --engine auto
+    on phase 5's shard: the fallback logged, cosine >= 0.999 against the
+    f32 module path; (d) cli.train --pallas_input, 5 steps, batch 64,
+    10,572 classes, on se_resnet_50 and densenet_121 (kernel 1 once a
+    step, finite losses) and their training rates (bench_train)
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -1895,6 +1915,268 @@ def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
             "routes": routes, "grid": grid, "seconds": time.time() - t0}
 
 
+# (network, stem) of phase 16(a): the new backbones at the extraction
+# CLI's default stem, resnet_v1_50 at that stem (the rate they are read
+# against), and resnet_v1_50 at the space2depth stem
+BACKBONES = (("resnet_v1_50", "face"), ("se_resnet_50", "face"),
+             ("resnext_50", "face"), ("se_resnext_50", "face"),
+             ("densenet_121", "face"), ("resnet_v1_50", "space2depth"))
+# kernel 2 at the space2depth stem, resnet_v1_50: the fused stages' bound
+# at 256 images, 5.70 GFLOP an image at 989 TFLOP/s bf16
+S2D_BOUND_MS = 1.475
+
+
+def auto_impl(network: str, stem: str) -> str:
+    """What ``cli.extract --engine auto`` serves a network through: the
+    folded engine where it accepts the net, else the module path."""
+    from tf_face_toolbox_tpu_torch.models import create_network
+    from tf_face_toolbox_tpu_torch.serving.engine import check_servable
+    try:
+        check_servable(create_network(network, stem=stem))
+    except ValueError:
+        return "module"
+    return "folded"
+
+
+def phase_backbones(g, u8: torch.Tensor, work: str,
+                    single_faces_per_sec: float) -> dict:
+    """Phase 16: the ResNet family and DenseNet (BASELINE configs 2 and
+    3) served, benchmarked and trained at published widths."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard, make_extract_fn
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+    from tf_face_toolbox_tpu_torch.ops import fused_preprocess as fp
+    from tf_face_toolbox_tpu_torch.serving import fused_block as fb
+    from tf_face_toolbox_tpu_torch.serving import make_serving_apply
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[16 backbones] {gpu}")
+    faces = u8[:128]
+    pixels = fp.fused_preprocess_reference(
+        faces, torch.zeros(128, device="cuda"), out_h=112, out_w=112)
+    # (a) each backbone through the route --engine auto takes, bf16,
+    # against the f32 module path; faces/s plain and e2e, peak memory,
+    # where the device time goes. The f32 module path itself is held
+    # against the same module on the host (4 faces): a random-weight
+    # DenseNet gives every face nearly the same embedding (face-to-face
+    # cosine ~0.9999), so its bf16 route's batch-centered cosine reads
+    # bf16 rounding, not a fault; there the f32 check is the one that
+    # catches a wrong layer
+    nets = {}
+    host_pixels = pixels[:4].cpu()
+    for network, stem in BACKBONES:
+        label = f"{network}/{stem}"
+        impl = auto_impl(network, stem)
+        net32 = create_network(network, stem=stem)
+        flat = random_variables(net32, 0)
+        load_jax_variables(net32, flat)
+        host = make_extract_fn(net32)(host_pixels)
+        ref = make_extract_fn(net32.to("cuda"))(pixels)
+        del net32
+        torch.cuda.empty_cache()
+        card = ref[:4].cpu()
+        host_cos = per_image_cos(card, host).min().item()
+        hmean = host.mean(0, keepdim=True)
+        host_centered = per_image_cos(card - hmean, host - hmean).min().item()
+        expect(host_cos >= 0.99999 and host_centered >= 0.99,
+               f"{label}: f32 module on the card vs on the host: cosine "
+               f"{host_cos}, batch-centered {host_centered}")
+        forward = bench.build_forward(impl=impl, network=network, stem=stem)
+        fp.fused_preprocess.launches = 0
+        fb.fused_bottleneck_block.launches = 0
+        emb = forward(pixels)
+        torch.cuda.synchronize()
+        cos = per_image_cos(emb, ref).min().item()
+        mean = ref.mean(0, keepdim=True)
+        centered = per_image_cos(emb - mean, ref - mean).min().item()
+        spread = per_image_cos(ref, ref[:1].expand_as(ref)).min().item()
+        expect(tuple(emb.shape) == (128, 512)
+               and bool(torch.isfinite(emb).all()), f"{label}: embeddings")
+        expect(cos >= 0.999, f"{label}: cosine vs f32 module {cos} < 0.999")
+        if impl == "folded":
+            # the folded engine is another computation than the module:
+            # the centered cosine catches a wrong block (phase 4's bar)
+            expect(centered >= 0.95, f"{label}: batch-centered cosine "
+                                     f"{centered} < 0.95")
+        expect(fb.fused_bottleneck_block.launches == 0,
+               f"{label}: {impl} launched kernel 2")
+        torch.cuda.reset_peak_memory_stats()
+        ms = bench.time_ms(forward, pixels, iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+        prof = bt.device_profile(forward, pixels, iters=3)
+        e2e = bench.build_forward(impl=impl, e2e=True, network=network,
+                                  stem=stem)
+        fp.fused_preprocess.launches = 0
+        emb_e2e = e2e(faces)
+        torch.cuda.synchronize()
+        e2e_launches = fp.fused_preprocess.launches
+        expect(e2e_launches == 1, f"{label} e2e: kernel 1 launched "
+                                  f"{e2e_launches} times, want 1")
+        e2e_cos = per_image_cos(emb_e2e, ref).min().item()
+        expect(e2e_cos >= 0.999, f"{label} e2e: cosine {e2e_cos} < 0.999")
+        e2e_ms = bench.time_ms(e2e, faces, iters=5, warmup=2)
+        nets[label] = {
+            "impl": impl, "min_cos": cos, "centered_min_cos": centered,
+            "face_to_face_min_cos": spread, "host_min_cos": host_cos,
+            "host_centered_min_cos": host_centered,
+            "faces_per_sec": 128 * 1e3 / ms, "ms_per_batch": ms,
+            "e2e_faces_per_sec": 128 * 1e3 / e2e_ms, "e2e_ms": e2e_ms,
+            "e2e_launches": e2e_launches, "e2e_min_cos": e2e_cos,
+            "peak_memory_gb": peak / 1e9,
+            **{k: v for k, v in prof.items() if k != "kernels_ms"},
+            "top_kernels_ms": prof["kernels_ms"][:5]}
+        kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof["device_ms_by_kind"].items(), key=lambda kv: -kv[1])[:3])
+        say(f"  (a) {label} via {impl}, bf16, 128 faces (256 images): cos "
+            f"vs f32 module min {cos:.6f} (centered {centered:.4f}; the f32 "
+            f"module's faces agree to cos {spread:.6f}; f32 module vs host "
+            f"cos {host_cos:.7f}, centered {host_centered:.5f}); "
+            f"{128 * 1e3 / ms:.1f} faces/s ({ms:.2f} ms/batch), e2e "
+            f"{128 * 1e3 / e2e_ms:.1f} faces/s (kernel 1 x{e2e_launches}, "
+            f"cos {e2e_cos:.6f}); peak {peak / 1e9:.2f} GB; device "
+            f"{prof['device_ms']:.2f} of {prof['wall_ms']:.2f} ms wall "
+            f"(idle {prof['idle_share']:.1%}): {kinds} ms; top "
+            f"{prof['kernels_ms'][0][1][:60]} "
+            f"{prof['kernels_ms'][0][0]:.2f} ms")
+        del forward, e2e
+        torch.cuda.empty_cache()
+    t1 = time.time()
+    say(f"  (a) {t1 - t0:.1f} s")
+
+    # (b) kernel 2 at the space2depth stem: 13 launches a batch, each
+    # stage held to its plain version, timed beside the folded cuDNN
+    # stages and the bound; an SE net's stages stay folded
+    forward = bench.build_forward(impl="fused", network="resnet_v1_50",
+                                  stem="space2depth")
+    fb.fused_bottleneck_block.launches = 0
+    emb = forward(pixels)
+    torch.cuda.synchronize()
+    s2d_launches = fb.fused_bottleneck_block.launches
+    expect(s2d_launches == 13, f"space2depth --impl fused: {s2d_launches} "
+                               "kernel 2 launches, want 13 (3 + 3 + 5 + 2)")
+    folded = bench.build_forward(impl="folded", network="resnet_v1_50",
+                                 stem="space2depth")(pixels)
+    cos = per_image_cos(emb, folded).min().item()
+    expect(cos >= 0.999, f"space2depth fused vs folded: cosine {cos}")
+    del forward
+    stages: list = []
+    for (shape, entry, tail, fold), name in zip(
+            stage_operands("resnet_v1_50", "space2depth", 0),
+            ("s2d 56x56", "s2d 28x28", "s2d 14x14", "s2d 7x7")):
+        x = torch.relu(torch.randn((256, *shape), generator=g, device="cuda")
+                       ).to(torch.bfloat16)
+        check_block_stack(name, x, entry, tail, fold, stages)
+    s2d_bound = sum(s["bound_ms"] for s in stages)
+    expect(abs(s2d_bound - S2D_BOUND_MS) < 0.01 * S2D_BOUND_MS,
+           f"space2depth stages' bound {s2d_bound} ms, reckoned "
+           f"{S2D_BOUND_MS} ms")
+    se = create_network("se_resnet_50", dtype=torch.bfloat16)
+    flat = random_variables(se, 0)
+    fb.fused_bottleneck_block.launches = 0
+    se_fused = make_serving_apply(se, flat, use_kernels=True)(
+        pixels.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    se_launches = fb.fused_bottleneck_block.launches
+    se_folded = make_serving_apply(se, flat)(pixels.to(torch.bfloat16))
+    expect(se_launches == 0, f"se_resnet_50 --engine fused: {se_launches} "
+                             "kernel 2 launches, want 0 (SE stages fold)")
+    expect(torch.equal(se_fused, se_folded),
+           "se_resnet_50 fused differs from folded")
+    s2d = {"launches": s2d_launches, "fused_vs_folded_min_cos": cos,
+           "ms": sum(s["ms"] for s in stages),
+           "graph_ms": sum(s["graph_ms"] for s in stages),
+           "plain_ms": sum(s["plain_ms"] for s in stages),
+           "library_route_ms": sum(s["library_route_ms"] for s in stages),
+           "library_route_graph_ms": sum(s["library_route_graph_ms"]
+                                         for s in stages),
+           "bound_ms": s2d_bound, "max_abs_err": max(
+               s["max_abs_err"] for s in stages),
+           "stages": [{k: v for k, v in st.items()
+                       if k != "library_route_range"} for st in stages],
+           "se_resnet_50_launches": se_launches}
+    say(f"  (b) resnet_v1_50/space2depth --impl fused: kernel 2 x"
+        f"{s2d_launches} a batch, cos vs folded {cos:.6f}; the 4 fused "
+        f"stages at 256 images: kernel {s2d['ms']:.3f} ms (graph "
+        f"{s2d['graph_ms']:.3f}), folded cuDNN stages {s2d['library_route_ms']:.3f} "
+        f"ms (graph {s2d['library_route_graph_ms']:.3f}), plain "
+        f"{s2d['plain_ms']:.3f} ms, bound {s2d_bound:.3f} ms "
+        f"({s2d_bound / s2d['graph_ms']:.1%} of it, graph); se_resnet_50 "
+        f"--engine fused: kernel 2 x{se_launches}, equal to folded; "
+        f"{time.time() - t1:.1f} s")
+    t2 = time.time()
+
+    # (c) cli.extract --engine auto on a DenseNet: the module path
+    shard = os.path.join(work, "faces.faceshard")
+    out = os.path.join(work, "densenet_emb.npy")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--network", "densenet_121", "--engine", "auto", "--data", shard,
+         "--output", out, "--crop_from", "120", "--batch", "128",
+         "--loader", "python", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0,
+           f"cli.extract densenet_121 failed:\n{proc.stderr[-3000:]}")
+    expect("serving engine not applicable" in proc.stderr,
+           "cli.extract densenet_121 --engine auto logged no fallback")
+    expect("kernel launches: fused_block=0" in proc.stdout,
+           f"cli.extract densenet_121: {proc.stdout[-500:]}")
+    got = np.load(out)
+    net32 = create_network("densenet_121")
+    want = extract_shard(net32, random_variables(net32, 0),
+                         FaceShardSource(shard), image_size=112,
+                         crop_from=120, batch=128, loader="python",
+                         device="cuda")
+    cli_cos = per_image_cos(torch.from_numpy(got),
+                            torch.from_numpy(want)).min().item()
+    expect(got.shape == (400, 512) and np.isfinite(got).all(),
+           f"cli.extract densenet_121 wrote {got.shape}")
+    expect(cli_cos >= 0.999, f"cli.extract densenet_121 (bf16) vs f32 "
+                             f"module: cosine {cli_cos} < 0.999")
+    say(f"  (c) cli.extract --network densenet_121 --engine auto: fallback "
+        f"to the module path logged, {got.shape}, cos vs f32 module min "
+        f"{cli_cos:.6f}; {time.time() - t2:.1f} s")
+    t3 = time.time()
+
+    # (d) training: cli.train --pallas_input (one kernel 1 launch a step),
+    # then the training rate
+    train = {}
+    for network in ("se_resnet_50", "densenet_121"):
+        step, logged, launches = train_cli(
+            ["--network", network, "--num_classes", "10572",
+             "--global_batch", "64", "--num_steps", "5", "--log_every", "1",
+             "--pallas_input", "--data", "synthetic"], timeout=600)
+        losses = logged["loss"]
+        expect(step == 5 and len(losses) == 5
+               and all(np.isfinite(v) for v in losses),
+               f"cli.train {network}: step {step}, losses {losses}")
+        expect(launches == 5, f"cli.train {network}: kernel 1 launched "
+                              f"{launches} times in 5 steps")
+        r = bt.time_training(bt.config4(network=network, global_batch=64),
+                             steps=10, warmup=3, profile_steps=2)
+        train[network] = {"launches": launches, "losses": losses,
+                          **{k: r[k] for k in (
+                              "faces_per_sec", "ms_per_step",
+                              "peak_memory_gb", "idle_share",
+                              "device_ms_per_step", "peak_share",
+                              "device_ms_by_kind")}}
+        say(f"  (d) {network}: training faces/s {r['faces_per_sec']:.1f} "
+            f"(batch 64, {r['ms_per_step']:.2f} ms/step; config 4's "
+            f"resnet_v1_50 at 256: {single_faces_per_sec:.1f}), peak "
+            f"{r['peak_memory_gb']:.2f} GB, idle {r['idle_share']:.1%}, "
+            f"{r['peak_share']:.1%} of the bf16 peak")
+        say(f"  (d) cli.train --network {network} --pallas_input, 5 steps, "
+            f"batch 64, 10,572 classes: losses "
+            f"{[round(v, 4) for v in losses]}, kernel 1 x{launches}")
+    say(f"  (d) {time.time() - t3:.1f} s; phase 16: {time.time() - t0:.1f} s")
+    return {"nets": nets, "space2depth": s2d, "cli_extract_min_cos": cli_cos,
+            "train": train, "seconds": time.time() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; there is no CPU path")
@@ -2143,6 +2425,8 @@ def main() -> None:
     # ---- 15. the loss heads (preset 8, MagFace, Curricular, center,
     # triplet)
     heads = phase_loss_heads(g, work, train["time"]["faces_per_sec"])
+    # ---- 16. SE-ResNet, ResNeXt, SE-ResNeXt, DenseNet, space2depth
+    backbones = phase_backbones(g, u8, work, train["time"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -2202,7 +2486,14 @@ def main() -> None:
          "loss_heads_route_launches": {
              h: r["launches"]["kernel"] for h, r in heads["routes"].items()},
          "loss_heads_rank_launches": {h: r["launches"]
-                                      for h, r in heads["grid"].items()}},
+                                      for h, r in heads["grid"].items()},
+         # phase 16: one launch a batch of each new backbone's e2e
+         # extraction, and one a step of its cli.train (5 steps)
+         "backbones_e2e_launches": {k: v["e2e_launches"] for k, v in
+                                    backbones["nets"].items()},
+         "backbones_train_launches": {k: v["launches"] for k, v in
+                                      backbones["train"].items()},
+         "backbones_train_steps": 5},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",
@@ -2223,7 +2514,11 @@ def main() -> None:
          "checkpoint_launches": ckpt["extract_launches"],
          "checkpoint_stages": [
              {k: v for k, v in st.items() if k != "library_route_range"}
-             for st in ckpt["face_stages"]]},
+             for st in ckpt["face_stages"]],
+         # phase 16: resnet_v1_50 at the space2depth stem (a stride-1
+         # entry block at 56x56), 256 images, and se_resnet_50 fused
+         # (its SE stages stay folded: 0 launches)
+         "space2depth": backbones["space2depth"]},
     ]
     for name, row, replaces in (("topk", t_topk, 118), ("topk_q", t_topk_q, 194)):
         kernels.append({

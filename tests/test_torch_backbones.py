@@ -1,0 +1,232 @@
+"""The port's SE-ResNet, ResNeXt, SE-ResNeXt, space2depth stem and DenseNet
+vs the JAX package, at tiny widths.
+
+Weights come from JAX init plus train-mode steps (non-trivial BN
+statistics), cross the flat ``.npz`` key space, and load into the port
+with ``load_jax_variables``; both forwards then see the same seeded
+inputs. f32: allclose(rtol=2e-4, atol=2e-4). bf16: per-face cosine >=
+0.999 and batch-centered cosine >= 0.95 against JAX's bf16 forward.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.util import jit_apply
+from tf_face_toolbox_tpu.interop.port import flatten_variables
+from tf_face_toolbox_tpu.models import create_network as jax_network
+from tf_face_toolbox_tpu.models import init_variables
+from tf_face_toolbox_tpu.models import list_networks as jax_list_networks
+from tf_face_toolbox_tpu.models import _REGISTRY as JAX_REGISTRY
+from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+from tf_face_toolbox_tpu_torch.models import (
+    _REGISTRY,
+    create_network,
+    list_networks,
+    random_variables,
+)
+from tf_face_toolbox_tpu_torch.models.densenet import DenseNet
+
+torch.set_num_threads(1)
+
+NEW = ("se_resnet_50", "se_resnet_101", "resnext_50", "resnext_101",
+       "se_resnext_50", "densenet_121", "densenet_169")
+_D = dict(embedding_dim=16)
+# family -> (registry name, tiny overrides, stem)
+FAMILIES = {
+    "se_resnet": ("se_resnet_50", dict(stage_sizes=(1, 1), width_per_group=8,
+                                       se_reduction=4, **_D), "imagenet"),
+    "resnext": ("resnext_50", dict(stage_sizes=(1, 1), groups=4,
+                                   width_per_group=4, **_D), "imagenet"),
+    "se_resnext": ("se_resnext_50", dict(stage_sizes=(1, 1), groups=4,
+                                         width_per_group=4, se_reduction=4,
+                                         **_D), "face"),
+    "space2depth": ("resnet_tiny", dict(stage_sizes=(1, 1), width_per_group=8,
+                                        **_D), "space2depth"),
+    "densenet_face": ("densenet_121", dict(stage_sizes=(2, 2), growth_rate=8,
+                                           **_D), "face"),
+    "densenet_imagenet": ("densenet_121", dict(stage_sizes=(2, 2),
+                                               growth_rate=8, **_D),
+                          "imagenet"),
+}
+
+
+def _warm_variables(net, rng, shape, steps: int = 2):
+    """tests/test_serving.py's warm-up (init, then train-mode steps on
+    N(0, (1.5 + i)^2) inputs so the BN statistics are non-trivial), with
+    the train-mode forward jitted."""
+    variables = init_variables(net, rng, shape)
+    fwd = jax.jit(lambda v, x: net.apply(v, x, train=True,
+                                         mutable=["batch_stats"])[1])
+    for i in range(steps):
+        x = jax.random.normal(jax.random.key(10 + i), shape) * (1.5 + i)
+        variables = {**variables, "batch_stats": fwd(variables, x)[
+            "batch_stats"]}
+    return variables
+
+
+def _sizes(family):
+    """An even input size and an odd one (space2depth takes even only)."""
+    return (32, 20) if family == "space2depth" else (32, 27)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(family, head, size, dtype="float32"):
+    name, kw, stem = FAMILIES[family]
+    jnet = jax_network(name, **kw, stem=stem, head_variant=head,
+                       dtype=getattr(jnp, dtype))
+    # the variables are f32 whatever the compute dtype: warm them once
+    variables = (_jax(family, head, size)[1] if dtype != "float32" else
+                 _warm_variables(jnet, jax.random.key(0), (2, size, size, 3)))
+    return jnet, variables
+
+
+def _port(family, head, size, variables, dtype=torch.float32):
+    name, kw, stem = FAMILIES[family]
+    tnet = create_network(name, **kw, stem=stem, head_variant=head,
+                          input_size=size, dtype=dtype)
+    return load_jax_variables(tnet, flatten_variables(variables))
+
+
+def _x(size, seed=0, n=2):
+    return np.random.default_rng(seed).standard_normal(
+        (n, size, size, 3)).astype(np.float32)
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+@pytest.mark.parametrize("head", ["gap", "flatten"])
+@pytest.mark.parametrize("which", ["even", "odd"])
+def test_forward_matches_jax_f32(family, head, which):
+    size = _sizes(family)[which == "odd"]
+    jnet, variables = _jax(family, head, size)
+    x = _x(size, seed=size)
+    want = np.asarray(jit_apply(jnet, variables, x))
+    with torch.inference_mode():
+        got = _port(family, head, size, variables)(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_forward_tracks_jax_bf16(family):
+    jnet, variables = _jax(family, "gap", 32, "bfloat16")
+    x = _x(32, seed=5, n=6)
+    want = np.asarray(jit_apply(jnet, variables, x), np.float64)
+    with torch.inference_mode():
+        got = _port(family, "gap", 32, variables, torch.bfloat16)(
+            torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    got = got.double().numpy()
+    assert _cos(got, want).min() >= 0.999
+    mean = want.mean(0, keepdims=True)
+    assert _cos(got - mean, want - mean).min() >= 0.95
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_random_variables_span_the_jax_key_space(family):
+    name, kw, stem = FAMILIES[family]
+    for head in ("gap", "flatten"):
+        jnet = jax_network(name, **kw, stem=stem, head_variant=head)
+        want = flatten_variables(init_variables(jnet, jax.random.key(0),
+                                                (1, 24, 24, 3)))
+        tnet = create_network(name, **kw, stem=stem, head_variant=head,
+                              input_size=24)
+        got = random_variables(tnet, seed=3)
+        assert {k: v.shape for k, v in got.items()} == \
+            {k: v.shape for k, v in want.items()}
+        assert all(v.dtype == np.float32 for v in got.values())
+        # every key consumed, every tensor filled, both ways
+        load_jax_variables(tnet, want)
+        load_jax_variables(tnet, got)
+
+
+def test_bridge_places_grouped_se_and_plain_conv_leaves():
+    """A grouped kernel (kh, kw, cin / groups, cout), a squeeze-excite
+    Dense (in, out) and DenseNet's bias-free plain convs land on the
+    tensors the port's forward reads; a missing DenseNet key raises."""
+    name, kw, stem = FAMILIES["se_resnext"]
+    flat = flatten_variables(init_variables(
+        jax_network(name, **kw, stem=stem), jax.random.key(1),
+        (1, 16, 16, 3)))
+    tnet = load_jax_variables(create_network(name, **kw, stem=stem), flat)
+    k = flat["params/BottleneckBlock_0/ConvBN_1/kernel"]
+    assert k.shape == (3, 3, 4, 16)          # 16 channels in 4 groups
+    np.testing.assert_array_equal(
+        tnet.BottleneckBlock_0.ConvBN_1.weight.detach().numpy(),
+        k.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        tnet.BottleneckBlock_0.SqueezeExcite_0.Dense_1.weight.detach()
+        .numpy(), flat["params/BottleneckBlock_0/SqueezeExcite_0/Dense_1/"
+                       "kernel"].T)
+    assert tnet.BottleneckBlock_0.SqueezeExcite_0.Dense_0.out_features == 8
+
+    name, kw, stem = FAMILIES["densenet_face"]
+    flat = flatten_variables(init_variables(
+        jax_network(name, **kw, stem=stem), jax.random.key(1),
+        (1, 16, 16, 3)))
+    tnet = load_jax_variables(create_network(name, **kw, stem=stem), flat)
+    np.testing.assert_array_equal(
+        tnet.Conv_0.weight.detach().numpy(),
+        flat["params/Conv_0/kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        getattr(tnet.DenseLayer_3, "_BNReLUConv_1").weight.detach().numpy(),
+        flat["params/DenseLayer_3/_BNReLUConv_1/kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        getattr(tnet, "_BNReLUConv_0").BatchNorm_0.running_var.numpy(),
+        flat["batch_stats/_BNReLUConv_0/BatchNorm_0/var"])
+    missing = dict(flat)
+    del missing["params/_BNReLUConv_0/kernel"]
+    with pytest.raises(ValueError, match="1 missing"):
+        load_jax_variables(tnet, missing)
+
+
+def test_registry_has_the_new_networks_with_jax_kwargs():
+    assert set(NEW) <= set(list_networks()) <= set(jax_list_networks())
+    for name in NEW:
+        jcls, jkw = JAX_REGISTRY[name]
+        cls, kw = _REGISTRY[name]
+        assert cls.__name__ == jcls.__name__ and kw == jkw, name
+    net = create_network("densenet_169")
+    assert isinstance(net, DenseNet) and not net.training
+    assert net.stage_sizes == (6, 12, 32, 32)
+    rx = create_network("resnext_101")
+    assert rx.BottleneckBlock_0.ConvBN_1.weight.shape == (128, 4, 3, 3)
+    assert rx.BottleneckBlock_0.ConvBN_2.weight.shape[0] == 256
+
+
+def test_unported_networks_and_options_still_raise():
+    for name, item in (("iresnet_50", "17"), ("dct_resnet_50", "17")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            create_network(name)
+    for name in ("resnet_tiny", "se_resnet_50", "densenet_121"):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            create_network(name, quantized="static")
+    with pytest.raises(ValueError, match="unknown stem"):
+        create_network("densenet_121", stem="space2depth")
+
+
+@pytest.mark.mid
+def test_se_resnet50_full_width_matches_jax():
+    """se_resnet_50 at its published widths (SE hidden 16 to 128) at a
+    small spatial input, against the JAX module (as
+    tests/test_torch_models.py::test_resnet50_full_width_matches_jax)."""
+    jnet = jax_network("se_resnet_50", stem="imagenet")
+    variables = _warm_variables(jnet, jax.random.key(0), (2, 64, 64, 3),
+                                steps=1)
+    tnet = load_jax_variables(create_network("se_resnet_50", stem="imagenet"),
+                              flatten_variables(variables))
+    x = _x(64, seed=1, n=1)
+    want = np.asarray(jit_apply(jnet, variables, x))
+    with torch.inference_mode():
+        got = tnet(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)

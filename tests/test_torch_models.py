@@ -125,7 +125,7 @@ def test_unported_networks_and_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_network("iresnet_50")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_network("resnet_tiny", groups=32)
+        create_network("resnet_tiny", quantized=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_network("resnet_tiny", stem="dct")
 

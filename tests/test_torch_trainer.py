@@ -391,16 +391,17 @@ def test_fresh_init_follows_the_jax_initialisers():
 
 def test_unported_fields_raise_naming_their_item():
     """The fields of paths still to port raise naming their item; those
-    of items since ported build: sampled Partial-FC (item 11), and the
-    loss heads (item 9: adaface, center and triplet raised here until
-    then; their numbers are held against JAX in
-    tests/test_torch_adaptive_trainer.py)."""
+    of items since ported build: sampled Partial-FC (item 11), the loss
+    heads (item 9: adaface, center and triplet raised here until then;
+    their numbers are held against JAX in
+    tests/test_torch_adaptive_trainer.py), and the space2depth stem (item
+    4; held against JAX in tests/test_torch_backbone_train.py)."""
     for kw, item in ((dict(optimizer="adamw"), "10c"),
-                     (dict(quantized="qat"), "18"),
-                     (dict(stem="space2depth"), "4")):
+                     (dict(quantized="qat"), "18")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             TrainConfig(**kw)
     assert TrainConfig(pfc_sample_rate=0.1).pfc_sample_rate == 0.1
+    assert TrainConfig(stem="space2depth").stem == "space2depth"
     heads = {"margin_mode": "adaface", "center_weight": 0.1,
              "triplet_weight": 0.1}
     for name, value in heads.items():

@@ -1,4 +1,4 @@
-"""Port bench: flip-averaged resnet_v1_50 extraction, faces/sec on one GPU.
+"""Port bench: flip-averaged extraction, faces/sec on one GPU.
 
 The counterpart of the root ``bench.py`` chain: a batch of faces and
 their mirrors go through one forward pass, then averaging and L2
@@ -6,12 +6,19 @@ normalization, with bf16 weights and compute at 112x112.
 
     python -m tf_face_toolbox_tpu_torch.bench --impl fused --batch 128
     python -m tf_face_toolbox_tpu_torch.bench --impl fused --e2e --batch 256
+    python -m tf_face_toolbox_tpu_torch.bench --network densenet_121 \
+        --impl module --stem face
 
-``--impl``: module = the nn.Module forward (cuDNN convs, BN unfolded);
-folded = BN folded into the convs; fused = folded + the fused-block
-kernel for every stride-1 block run. ``--e2e``: the input is raw uint8
-120x120 faces and the fused preprocess kernel (resize to 112 +
-standardize) is inside the measurement.
+``--network``: any ported backbone (resnet_v1_50 by default;
+se_resnet_50, resnext_50, se_resnext_50, densenet_121, ...); ``--stem``:
+imagenet, face or space2depth (the ResNet family's). ``--impl``: module
+= the nn.Module forward (cuDNN convs, BN unfolded); folded = BN folded
+into the convs; fused = folded + the fused-block kernel for every
+stride-1 block run outside a squeeze-excite stage. The folded engine
+does not serve ResNeXt or DenseNet: folded and fused exit naming why.
+``--e2e``: the input is raw uint8 120x120 faces and the fused
+preprocess kernel (resize to 112 + standardize) is inside the
+measurement.
 
 Times come from CUDA events around ``--iters`` back-to-back batches
 after ``--warmup`` batches, repeated ``--repeats`` times. Weights are
@@ -145,11 +152,19 @@ def main(argv=None) -> None:
                    help="uint8 120x120 in, fused preprocess kernel included")
     p.add_argument("--batch", type=int, default=128, help="faces per batch")
     p.add_argument("--network", default="resnet_v1_50")
-    p.add_argument("--stem", default="imagenet", choices=["imagenet", "face"])
+    p.add_argument("--stem", default="imagenet",
+                   choices=["imagenet", "face", "space2depth"])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--repeats", type=int, default=3)
     args = p.parse_args(argv)
+    if args.impl != "module":
+        from tf_face_toolbox_tpu_torch.models import create_network
+        from tf_face_toolbox_tpu_torch.serving.engine import check_servable
+        try:
+            check_servable(create_network(args.network, stem=args.stem))
+        except ValueError as e:
+            sys.exit(f"bench: --impl {args.impl}: {e}")
     if not torch.cuda.is_available():
         sys.exit("bench: torch sees no CUDA device; there is no CPU mode")
     print(json.dumps(run(impl=args.impl, e2e=args.e2e, batch=args.batch,

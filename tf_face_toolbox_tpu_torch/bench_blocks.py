@@ -50,7 +50,8 @@ def stage_operands(network: str = "resnet_v1_50", stem: str = "imagenet",
 
     net = create_network(network, dtype=torch.bfloat16, stem=stem)
     plan = build_plan(net, random_variables(net, seed))
-    size = 112 // 4 if stem == "imagenet" else 112
+    # the imagenet stem halves twice, space2depth once, face not at all
+    size = {"imagenet": 112 // 4, "space2depth": 112 // 2}.get(stem, 112)
     out = []
     for blocks in plan.stages:
         size = -(-size // blocks[0].conv2.strides)

@@ -39,6 +39,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Callable
 
 import torch
 
@@ -80,10 +81,9 @@ def head_kind(cfg: TrainConfig) -> str:
 def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
                   columns: int | None = None) -> float:
     """Operations (2 per multiply-add) of one image's forward: every conv
-    and Dense from its shapes, and the classifier GEMM over ``columns``
-    classifier rows (default every class's)."""
-    from tf_face_toolbox_tpu_torch.models.layers import ConvBN
-
+    (a module holding a 4-d ``weight``: ConvBN, grouped or not, and
+    DenseNet's plain convs) and Dense from its shapes, and the classifier
+    GEMM over ``columns`` classifier rows (default every class's)."""
     if columns is None:
         columns = cfg.num_classes * cfg.subcenters
     total = [2.0 * cfg.embedding_dim * columns]
@@ -96,7 +96,8 @@ def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
         total.append(2.0 * mod.in_features * mod.out_features)
 
     hooks = [m.register_forward_hook(conv_hook) for m in net.modules()
-             if isinstance(m, ConvBN)]
+             if getattr(m, "weight", None) is not None
+             and m.weight.dim() == 4]
     hooks += [m.register_forward_hook(dense_hook) for m in net.modules()
               if isinstance(m, torch.nn.Linear)]
     try:
@@ -110,6 +111,12 @@ def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
 
 
 REMAT = {"false": False, "true": True, "save_convs": "save_convs"}
+
+
+def _remat(remat) -> dict:
+    """The network's ``remat`` argument where one is asked for: a
+    DenseNet, like JAX's, has no such field."""
+    return {"remat": remat} if remat else {}
 
 
 def _kind(name: str) -> str:
@@ -135,6 +142,39 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def device_profile(fn: Callable, *args, iters: int) -> dict:
+    """Where the time of ``iters`` calls of ``fn(*args)`` goes on the
+    card (warm ``fn`` first), from torch.profiler: host wall ms a call,
+    device ms a call (every kernel's own time), the idle share (1 -
+    device / wall), device ms a call by kernel kind (``_kind``), and
+    every kernel's ms a call by name, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    by_kind: dict[str, float] = {}
+    kernels = []
+    for e in prof.key_averages():
+        # device kernels only: an aten op's own device time is its
+        # kernels', which are listed too
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3 / iters
+        kernels.append((ms, e.key))
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + ms
+    device_ms = sum(by_kind.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "device_ms_by_kind": by_kind,
+            "kernels_ms": sorted(kernels, reverse=True)}
+
+
 def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
                   profile_steps: int = 5, seed: int = 0, remat=False,
                   mesh=None, device="cuda") -> dict:
@@ -142,9 +182,6 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     ``steps`` after ``warmup``), peak memory, and device time by kernel
     and the idle share over ``profile_steps`` traced steps (none at 0).
     ``mesh``: this rank's topology; every rank calls this."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tf_face_toolbox_tpu_torch.cli.train import synthetic_batches
     from tf_face_toolbox_tpu_torch.data.pipeline import (
         device_prefetch, host_prefetch)
@@ -153,7 +190,7 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
         device = mesh.device
     rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     state, net = create_train_state(cfg, seed, mesh=mesh, device=device,
-                                    net=build_network(cfg, remat=remat))
+                                    net=build_network(cfg, **_remat(remat)))
     step_fn = make_train_step(net, cfg, state, mesh=mesh)
     parts = StepParts(net, cfg, state, mesh)
     # the classifier rows a step scores, over the model row's shards
@@ -200,34 +237,17 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     if not profile_steps:
         return out
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(profile_steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / profile_steps
-    by_kind: dict[str, float] = {}
-    top = []
-    for e in prof.key_averages():
-        # device kernels only: an aten op's own device time is its
-        # kernels', which are listed too
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        us = e.self_device_time_total
-        top.append((us / 1e3 / profile_steps, e.key))
-        kind = _kind(e.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / profile_steps
-    device_ms = sum(by_kind.values())
+    p = device_profile(run, 1, iters=profile_steps)
     # a rank's rows: the operations of one GPU's share of the step
     flops = (3 * forward_flops(net, cfg, device, columns)
              * cfg.global_batch / world)
-    out.update(profiled_wall_ms_per_step=wall_ms,
-               device_ms_per_step=device_ms,
-               idle_share=1 - device_ms / wall_ms,
-               device_ms_by_kind=by_kind,
-               head_share=by_kind.get("head (GEMMs, top-k, gather)", 0.0)
-               / device_ms,
-               top_kernels_ms=sorted(top, reverse=True)[:12],
+    out.update(profiled_wall_ms_per_step=p["wall_ms"],
+               device_ms_per_step=p["device_ms"],
+               idle_share=p["idle_share"],
+               device_ms_by_kind=p["device_ms_by_kind"],
+               head_share=p["device_ms_by_kind"].get(
+                   "head (GEMMs, top-k, gather)", 0.0) / p["device_ms"],
+               top_kernels_ms=p["kernels_ms"][:12],
                step_tflop=flops / 1e12,
                peak_share=flops / (ms / 1e3) / PEAK_BF16)
     return out
@@ -270,7 +290,7 @@ def remat_grads(cfg: TrainConfig, images: torch.Tensor, labels: torch.Tensor,
         for remat in (False, *remats):
             state, net = create_train_state(
                 cfg, seed, device=device,
-                net=build_network(cfg, remat=remat))
+                net=build_network(cfg, **_remat(remat)))
             parts = StepParts(net, cfg, state)
             parts.local(state, *parts.rows(images, labels), 0)
             names = [*state.params, "classifier"]

@@ -39,8 +39,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="output path; format by extension: .npy (default), "
                         ".npz, .mat (MATLAB v5), .bin (TFFB raw f32)")
     p.add_argument("--network", default="resnet_v1_50", help="backbone name")
-    p.add_argument("--stem", default="face", choices=["face", "imagenet"],
-                   help="backbone stem (must match the weights)")
+    p.add_argument("--stem", default="face",
+                   choices=["face", "imagenet", "space2depth"],
+                   help="backbone stem (must match the weights; "
+                        "space2depth is a ResNet-family option)")
     p.add_argument("--head", default="gap", choices=["gap", "flatten"],
                    help="embedding head variant (must match the weights)")
     p.add_argument("--embedding_dim", type=int, default=512)
@@ -53,10 +55,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="extraction batch size (faces)")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "module", "folded", "fused"],
-                   help="auto = folded; module = the nn.Module forward; "
-                        "folded = BN folded into conv weights and biases; "
-                        "fused = folded + stride-1 bottleneck blocks in "
-                        "the fused-block kernel")
+                   help="auto = folded where the engine serves the "
+                        "net (ResNet, SE-ResNet), else module; module = "
+                        "the nn.Module forward; folded = BN folded into "
+                        "conv weights and biases; fused = folded + "
+                        "stride-1 bottleneck blocks in the fused-block "
+                        "kernel")
     p.add_argument("--loader", default="auto",
                    choices=["auto", "native", "python"],
                    help="host decode: native = C++ pool, python = PIL "
@@ -86,6 +90,9 @@ def main(argv=None) -> None:
     if args.bundle:
         raise SystemExit("--bundle is not yet ported (ROADMAP.md §1 "
                          "item 16); pass --variables_npz")
+    if args.network.startswith("densenet") and args.stem == "space2depth":
+        raise SystemExit("--stem=space2depth is a resnet-family option; "
+                         "densenet supports stem=face|imagenet")
     if args.output_dtype == "float16" and args.output.endswith(".bin"):
         raise SystemExit("--output_dtype=float16 is not available for .bin "
                          "(TFFB is a fixed-f32 format)")
@@ -131,12 +138,20 @@ def main(argv=None) -> None:
             flat = random_variables(net, seed=0)
             logging.info("no --variables_npz: seeded random weights")
 
-    engine = "folded" if args.engine == "auto" else args.engine
-    if engine == "module":
+    apply_fn = None
+    if args.engine != "module":
+        try:
+            apply_fn = make_serving_apply(net, flat, device=device,
+                                          use_kernels=args.engine == "fused")
+        except ValueError as e:
+            if args.engine != "auto":
+                raise SystemExit(f"--engine {args.engine}: {e}") from e
+            # auto: nets outside the engine's scope (grouped convs,
+            # DenseNet's concat topology) serve through the module
+            logging.info("serving engine not applicable (%s); using the "
+                         "module path", e)
+    if apply_fn is None:
         apply_fn = load_jax_variables(net, flat).to(device)
-    else:
-        apply_fn = make_serving_apply(net, flat, device=device,
-                                      use_kernels=engine == "fused")
     before = fused_block.fused_bottleneck_block.launches
     emb = extract_shard(
         net, flat, FaceShardSource(args.data), image_size=args.image_size,

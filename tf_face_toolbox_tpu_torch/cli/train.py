@@ -470,6 +470,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     _refuse_unported(args)
+    if args.network.startswith("densenet") and args.stem == "space2depth":
+        raise SystemExit("--stem=space2depth is a resnet-family option; "
+                         "densenet supports stem=face|imagenet")
     if args.keep_best and not (args.eval_data and args.eval_pairs
                                and args.eval_every):
         raise SystemExit(

@@ -5,14 +5,17 @@ The JAX package hands weights over as a flat ``.npz`` of
 ``tf_face_toolbox_tpu/interop/port.py:149-180``). The port's modules
 carry the flax auto-names, so every key maps to one torch tensor:
 
-    params/P/kernel (ConvBN)        HWIO  -> P.weight  OIHW
+    params/P/kernel (a conv)        HWIO  -> P.weight  OIHW
     params/P/kernel (Dense)         (in, out) -> P.weight (out, in)
     params/P/bias   (Dense)         -> P.bias
     params/P/scale, params/P/bias   (BatchNorm) -> P.weight, P.bias
     batch_stats/P/mean, .../var     -> P.running_mean, P.running_var
 
-Loading is total both ways: every key is consumed and every parameter
-and buffer is set, or it raises.
+A conv is a ConvBN's kernel, a grouped one ((kh, kw, cin / groups,
+cout) <-> (cout, cin / groups, kh, kw)) included, or the kernel of a
+bias-free plain conv that sits on its module itself (DenseNet's
+``Conv_0`` and ``_BNReLUConv_i``). Loading is total both ways: every key
+is consumed and every parameter and buffer is set, or it raises.
 """
 
 from __future__ import annotations
@@ -22,8 +25,6 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 from torch import nn
-
-from tf_face_toolbox_tpu_torch.models.layers import BatchNorm, ConvBN
 
 
 def _to_mutable(tree):
@@ -106,16 +107,15 @@ def jax_key(name: str, tensor: torch.Tensor) -> tuple[str, str]:
 
 
 def jax_leaves(net: nn.Module) -> Iterator[tuple[str, torch.Tensor, str]]:
-    """(JAX key, torch tensor, kind) for every tensor of ``net``'s
-    ConvBN, Dense and BatchNorm modules, in module order; kind is "conv"
-    (HWIO<->OIHW), "dense" ((in,out)<->(out,in)) or "plain"."""
+    """(JAX key, torch tensor, kind) for every parameter and buffer of
+    ``net``, each named where its module holds it, in module order; kind
+    is "conv" (HWIO<->OIHW), "dense" ((in,out)<->(out,in)) or "plain"."""
     for name, mod in net.named_modules():
-        if isinstance(mod, (ConvBN, nn.Linear, BatchNorm)):
-            prefix = f"{name}." if name else ""
-            for leaf, t in (*mod.named_parameters(recurse=False),
-                            *mod.named_buffers(recurse=False)):
-                key, kind = jax_key(prefix + leaf, t)
-                yield key, t, kind
+        prefix = f"{name}." if name else ""
+        for leaf, t in (*mod.named_parameters(recurse=False),
+                        *mod.named_buffers(recurse=False)):
+            key, kind = jax_key(prefix + leaf, t)
+            yield key, t, kind
 
 
 def jax_shape(tensor: torch.Tensor, kind: str) -> tuple[int, ...]:

@@ -6,8 +6,9 @@ a fresh training init.
     embeddings = net(images)                       # (N, 512) float32
     init_parameters(net, seed=0)                   # before training
 
-Only the ResNet entries of the JAX registry are ported; the others
-raise NotImplementedError naming the ROADMAP.md item.
+The ResNet family (ResNet, SE-ResNet, ResNeXt, SE-ResNeXt) and DenseNet
+entries of the JAX registry are ported; the others raise
+NotImplementedError naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,13 +19,26 @@ from typing import Any
 import numpy as np
 import torch
 
+from tf_face_toolbox_tpu_torch.models.densenet import DenseNet
 from tf_face_toolbox_tpu_torch.models.resnet import ResNet
+
+# ResNeXt 32x4d: bottleneck width 128 at stage 0 with expansion 2
+_RESNEXT = dict(groups=32, width_per_group=4, expansion=2)
 
 # name -> (module class, fixed kwargs), as in the JAX registry
 _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
     "resnet_v1_50": (ResNet, dict(stage_sizes=(3, 4, 6, 3))),
     "resnet_v1_101": (ResNet, dict(stage_sizes=(3, 4, 23, 3))),
     "resnet_v1_152": (ResNet, dict(stage_sizes=(3, 8, 36, 3))),
+    "se_resnet_50": (ResNet, dict(stage_sizes=(3, 4, 6, 3), se_reduction=16)),
+    "se_resnet_101": (ResNet, dict(stage_sizes=(3, 4, 23, 3),
+                                   se_reduction=16)),
+    "resnext_50": (ResNet, dict(stage_sizes=(3, 4, 6, 3), **_RESNEXT)),
+    "resnext_101": (ResNet, dict(stage_sizes=(3, 4, 23, 3), **_RESNEXT)),
+    "se_resnext_50": (ResNet, dict(stage_sizes=(3, 4, 6, 3), **_RESNEXT,
+                                   se_reduction=16)),
+    "densenet_121": (DenseNet, dict(stage_sizes=(6, 12, 24, 16))),
+    "densenet_169": (DenseNet, dict(stage_sizes=(6, 12, 32, 32))),
     # Tiny variant for smoke tests, not a reference model.
     "resnet_tiny": (ResNet, dict(stage_sizes=(1,), width_per_group=16)),
 }
@@ -36,16 +50,17 @@ def list_networks() -> list[str]:
 
 def create_network(name: str, *, embedding_dim: int = 512,
                    dtype: torch.dtype = torch.float32,
-                   **overrides: Any) -> ResNet:
+                   **overrides: Any) -> ResNet | DenseNet:
     """Instantiate a backbone by name (eval mode).
 
-    ``overrides``: any ResNet field (stem, head_variant, stage_sizes,
-    width_per_group, input_size, ...).
+    ``overrides``: any field of the network's module (stem,
+    head_variant, stage_sizes, width_per_group, growth_rate,
+    input_size, ...).
     """
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"network '{name}' is not ported (ROADMAP.md §1 items 4 and "
-            f"17); available: {list_networks()}")
+            f"network '{name}' is not ported (ROADMAP.md §1 item 17); "
+            f"available: {list_networks()}")
     cls, kwargs = _REGISTRY[name]
     net = cls(**{**kwargs, **overrides, "embedding_dim": embedding_dim,
                  "dtype": dtype})
@@ -59,9 +74,10 @@ def random_variables(net: torch.nn.Module, seed: int = 0
 
     BatchNorm gets non-trivial statistics (mean ~ N(0, 0.2), var ~
     U(0.5, 2)) so folding them is exercised. The last BN of each
-    residual branch gets a scale of U(0.2, 0.5), as a trained net's
-    branches are small against the identity; with unit scales the
-    random net's activations grow block by block.
+    residual branch (``ConvBN_2``) gets a scale of U(0.2, 0.5), as a
+    trained net's branches are small against the identity; with unit
+    scales the random net's activations grow block by block. DenseNet
+    has no residual branch: all its scales are U(0.8, 1.2).
     """
     from tf_face_toolbox_tpu_torch.interop import port
 
@@ -102,10 +118,11 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Fresh training init, in place, with the JAX package's initialisers
     (``tf_face_toolbox_tpu/models/layers.py:31-32``):
 
-    - conv kernels: variance_scaling(2.0, "fan_out", truncated normal),
+    - conv kernels (ConvBN, grouped or not, and DenseNet's plain convs):
+      variance_scaling(2.0, "fan_out", truncated normal),
       fan_out = kh * kw * out;
-    - Dense kernels: variance_scaling(1.0, "fan_in", truncated normal);
-      Dense biases 0;
+    - Dense kernels (the head's and squeeze-excite's):
+      variance_scaling(1.0, "fan_in", truncated normal); Dense biases 0;
     - BatchNorm: scale 1 (0 for each residual branch's last BN, so a
       block starts as the identity), bias 0, running mean 0, var 1.
 

@@ -1,4 +1,5 @@
-"""Shared layers: ConvBN, BatchNorm, EmbeddingHead, l2_normalize.
+"""Shared layers: ConvBN, Conv, BatchNorm, SqueezeExcite, EmbeddingHead,
+l2_normalize.
 
 Counterpart of ``tf_face_toolbox_tpu/models/layers.py``. Activations
 are NHWC, as in the JAX package, and stay physically NHWC: a conv runs
@@ -50,13 +51,16 @@ def same_pad(h: int, w: int, k: int, s: int) -> tuple[int, int, int, int]:
 
 
 def conv2d_same_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
-                     bias: torch.Tensor | None = None) -> torch.Tensor:
-    """SAME conv of NHWC ``x`` with an OIHW ``weight``; NHWC result."""
+                     bias: torch.Tensor | None = None,
+                     groups: int = 1) -> torch.Tensor:
+    """SAME conv of NHWC ``x`` with an OIHW ``weight`` (O, I / groups,
+    kh, kw); NHWC result."""
     k = weight.shape[-1]
     top, bottom, left, right = same_pad(x.shape[1], x.shape[2], k, stride)
     if top or bottom or left or right:
         x = F.pad(x, (0, 0, left, right, top, bottom))
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
+                 groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -147,28 +151,82 @@ class BatchNorm(nn.Module):
         return y.to(out_dtype)
 
 
+def conv_weight(in_features: int, features: int, kernel_size: int,
+                 groups: int = 1) -> nn.Parameter:
+    fan_in = in_features // groups * kernel_size * kernel_size
+    return nn.Parameter(
+        torch.randn(features, in_features // groups, kernel_size, kernel_size)
+        * math.sqrt(2.0 / fan_in))
+
+
+class Conv(nn.Module):
+    """Bias-free SAME conv in the compute dtype (flax ``nn.Conv(...,
+    use_bias=False)``): its kernel is the module's own ``weight``, JAX
+    key ``.../kernel``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 strides: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.strides = strides
+        self.dtype = dtype
+        self.weight = conv_weight(in_features, features, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
+                                self.strides)
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) -> eval BatchNorm -> optional ReLU, NHWC."""
+    """Conv (no bias; ``groups`` splits the channels as
+    ``feature_group_count`` does) -> eval BatchNorm -> optional ReLU,
+    NHWC."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  strides: int = 1, relu: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__()
         self.strides = strides
         self.relu = relu
         self.dtype = dtype
-        fan_in = in_features * kernel_size * kernel_size
-        self.weight = nn.Parameter(
-            torch.randn(features, in_features, kernel_size, kernel_size)
-            * math.sqrt(2.0 / fan_in))
+        self.groups = groups
+        self.weight = conv_weight(in_features, features, kernel_size, groups)
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor,
                 train: TrainContext | None = None) -> torch.Tensor:
         y = conv2d_same_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
-                             self.strides)
+                             self.strides, groups=self.groups)
         y = self.BatchNorm_0(y, self.dtype, train)
         return torch.relu(y) if self.relu else y
+
+
+def squeeze_excite(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                   w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """Squeeze-and-excitation gate of NHWC ``x``: mean over H, W ->
+    Dense -> ReLU -> Dense -> sigmoid -> ``x * s``, all in ``x.dtype``
+    with flax ``nn.Dense(dtype=x.dtype)``'s rounding points (the product
+    rounds before the bias add). Weights are (out, in)."""
+    dt = x.dtype
+    # jnp.mean of a bf16 map sums in f32 and returns bf16
+    s = x.to(torch.float32).mean(dim=(1, 2)).to(dt)
+    s = torch.relu(s @ w0.to(dt).T + b0.to(dt))
+    s = torch.sigmoid(s @ w1.to(dt).T + b1.to(dt))
+    return x * s[:, None, None, :]
+
+
+class SqueezeExcite(nn.Module):
+    """flax ``SqueezeExcite``: a hidden width of max(C // reduction, 8),
+    its two Dense layers computed in the compute dtype."""
+
+    def __init__(self, features: int, reduction: int = 16):
+        super().__init__()
+        hidden = max(features // reduction, 8)
+        self.Dense_0 = nn.Linear(features, hidden)
+        self.Dense_1 = nn.Linear(hidden, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return squeeze_excite(x, self.Dense_0.weight, self.Dense_0.bias,
+                              self.Dense_1.weight, self.Dense_1.bias)
 
 
 class EmbeddingHead(nn.Module):

@@ -1,8 +1,10 @@
-"""ResNet backbones: bottleneck blocks, face and imagenet stems.
+"""ResNet-family backbones: ResNet, SE-ResNet, ResNeXt (one module).
 
-Counterpart of ``tf_face_toolbox_tpu/models/resnet.py`` for groups=1,
-no squeeze-excite and no quantization. Anything else raises
-NotImplementedError naming the ROADMAP.md item that ports it. Eval by
+Counterpart of ``tf_face_toolbox_tpu/models/resnet.py``: bottleneck
+blocks with a grouped 3x3 (``groups``, ResNeXt) and squeeze-excite
+after the last 1x1 (``se_reduction``, SE-ResNet); face, imagenet and
+space2depth stems. The dct stem and int8 serving raise
+NotImplementedError naming the ROADMAP.md item that ports them. Eval by
 default; ``net(images, train=TrainContext(...))`` runs train mode
 (models/layers.py).
 
@@ -24,23 +26,29 @@ from torch.utils import checkpoint
 from tf_face_toolbox_tpu_torch.models.layers import (
     ConvBN,
     EmbeddingHead,
+    SqueezeExcite,
     TrainContext,
     max_pool_same_nhwc,
 )
 
 
 class BottleneckBlock(nn.Module):
-    """1x1 -> 3x3 -> 1x1 bottleneck with residual add (NHWC)."""
+    """1x1 -> 3x3 (grouped) -> 1x1 [-> squeeze-excite] bottleneck with
+    residual add (NHWC)."""
 
     def __init__(self, in_features: int, features: int, strides: int,
-                 expansion: int = 4, dtype: torch.dtype = torch.float32):
+                 expansion: int = 4, dtype: torch.dtype = torch.float32,
+                 groups: int = 1, se_reduction: int = 0):
         super().__init__()
         out_features = features * expansion
         self.strides = strides
         self.ConvBN_0 = ConvBN(in_features, features, 1, dtype=dtype)
-        self.ConvBN_1 = ConvBN(features, features, 3, strides, dtype=dtype)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides, dtype=dtype,
+                               groups=groups)
         self.ConvBN_2 = ConvBN(features, out_features, 1, relu=False,
                                dtype=dtype)
+        if se_reduction > 0:
+            self.SqueezeExcite_0 = SqueezeExcite(out_features, se_reduction)
         if in_features != out_features or strides != 1:
             self.ConvBN_3 = ConvBN(in_features, out_features, 1, strides,
                                    relu=False, dtype=dtype)
@@ -49,6 +57,8 @@ class BottleneckBlock(nn.Module):
                 train: TrainContext | None = None) -> torch.Tensor:
         y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x, train), train),
                           train)
+        if hasattr(self, "SqueezeExcite_0"):
+            y = self.SqueezeExcite_0(y)
         residual = (self.ConvBN_3(x, train) if hasattr(self, "ConvBN_3")
                     else x)
         return torch.relu(residual + y)
@@ -61,7 +71,8 @@ def _unsupported(what: str, item: str):
 
 def block_strides(stage_idx: int, block_idx: int, stem: str) -> int:
     """The face stem keeps stage 0 at stride 2 (112 -> 56); the imagenet
-    stem already downsampled, so its stage 0 runs at stride 1."""
+    and space2depth stems already downsampled, so their stage 0 runs at
+    stride 1."""
     first = block_idx == 0
     return 2 if first and (stage_idx > 0 or stem == "face") else 1
 
@@ -84,21 +95,17 @@ class ResNet(nn.Module):
                  quantized: bool | str = False, remat: bool | str = False,
                  input_size: int = 112):
         super().__init__()
-        if groups != 1:
-            _unsupported("grouped convs (ResNeXt)", "4")
-        if se_reduction:
-            _unsupported("squeeze-excite (SE-ResNet)", "4")
         if quantized:
             _unsupported("int8 serving", "18")
         if remat not in (False, True, "save_convs"):
             raise ValueError(f"unknown remat {remat!r}; have False, True, "
                              "'save_convs'")
-        if stem in ("space2depth", "dct"):
-            _unsupported(f"the {stem} stem", "4" if stem == "space2depth"
-                         else "17")
-        if stem not in ("face", "imagenet"):
+        if stem == "dct":
+            _unsupported("the dct stem", "17")
+        if stem not in ("face", "imagenet", "space2depth"):
             raise ValueError(f"unknown stem: {stem}")
         self.stage_sizes = tuple(stage_sizes)
+        self.groups = groups
         self.remat = remat
         self.stem = stem
         self.head_variant = head_variant
@@ -107,6 +114,9 @@ class ResNet(nn.Module):
         size = input_size
         if stem == "face":
             self.ConvBN_0 = ConvBN(3, 64, 3, 1, dtype=dtype)
+        elif stem == "space2depth":
+            self.ConvBN_0 = ConvBN(12, 64, 3, 1, dtype=dtype)
+            size //= 2
         else:
             self.ConvBN_0 = ConvBN(3, 64, 7, 2, dtype=dtype)
             size = -(-size // 2)
@@ -122,7 +132,8 @@ class ResNet(nn.Module):
                 self.add_module(
                     f"BottleneckBlock_{counter}",
                     BottleneckBlock(channels, features, strides, expansion,
-                                    dtype=dtype))
+                                    dtype=dtype, groups=groups,
+                                    se_reduction=se_reduction))
                 channels = features * expansion
                 counter += 1
         self.num_blocks = counter
@@ -137,7 +148,10 @@ class ResNet(nn.Module):
     def forward(self, images: torch.Tensor,
                 train: TrainContext | None = None) -> torch.Tensor:
         """images: (N, H, W, 3) standardized pixels -> (N, D) f32."""
-        x = self.ConvBN_0(images.to(self.dtype), train)
+        x = images.to(self.dtype)
+        if self.stem == "space2depth":
+            x = space_to_depth(x)
+        x = self.ConvBN_0(x, train)
         if self.stem == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
         for block in self.blocks():
@@ -146,6 +160,16 @@ class ResNet(nn.Module):
             else:
                 x = block(x, train)
         return self.EmbeddingHead_0(x, train)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """The space2depth stem's re-layout (TResNet): each 2x2 pixel block
+    of NHWC ``x`` becomes 4 * C channels, (N, H, W, C) -> (N, H/2, W/2,
+    4C), in JAX's element order (row in the block, then column, then
+    channel). H and W must be even."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // 2, w // 2, 4 * c)
 
 
 def _save_conv_outputs(ctx, op, *args, **kwargs):

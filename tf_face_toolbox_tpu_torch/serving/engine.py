@@ -5,14 +5,17 @@ folds the JAX variables tree (the same weights the module path loads)
 into convs with biases; ``make_serving_apply`` returns
 ``apply(images) -> (N, D) f32 embeddings`` that runs
 
-- the stem, strided stage-entry blocks and head as folded convs
-  (cuDNN on the card, through ``F.conv2d``), and
+- the stem, strided stage-entry blocks, squeeze-excite blocks and head
+  as folded convs (cuDNN on the card, through ``F.conv2d``), and
 - with ``use_kernels=True``, every stage's run of stride-1 bottleneck
   blocks through the fused-block kernel (``fused_block.py``), one
-  launch per block.
+  launch per block. A stage that holds a squeeze-excite block stays
+  folded, as in JAX (the kernel has no SE).
 
-Scope: ResNet with groups=1, fp serving (the port's ResNet refuses
-anything else when it is built).
+Scope: the ResNet family with groups=1 (ResNet, SE-ResNet; face,
+imagenet and space2depth stems). ResNeXt's grouped 3x3 and DenseNet's
+concat topology are refused (``build_plan`` raises ValueError), as
+JAX's engine refuses them; they serve through the module path.
 """
 
 from __future__ import annotations
@@ -23,15 +26,41 @@ from typing import Any, Callable, Sequence
 import torch
 
 from tf_face_toolbox_tpu_torch.interop.port import unflatten_variables
-from tf_face_toolbox_tpu_torch.models.layers import max_pool_same_nhwc
-from tf_face_toolbox_tpu_torch.models.resnet import ResNet, block_strides
+from tf_face_toolbox_tpu_torch.models.layers import (
+    max_pool_same_nhwc,
+    squeeze_excite,
+)
+from tf_face_toolbox_tpu_torch.models.resnet import (
+    ResNet,
+    block_strides,
+    space_to_depth,
+)
 from tf_face_toolbox_tpu_torch.serving import fused_block
 from tf_face_toolbox_tpu_torch.serving.fold import (
     FoldedConv,
+    as_f32,
     bn_affine,
     fold_conv_bn,
     fold_dense_bn,
 )
+
+
+@dataclass(frozen=True)
+class SEWeights:
+    """A squeeze-excite block's two Dense layers, (out, in) in the
+    compute dtype (eval SE has no BatchNorm to fold)."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return squeeze_excite(x, self.w1, self.b1, self.w2, self.b2)
+
+    def to(self, device) -> "SEWeights":
+        return SEWeights(*(t.to(device) for t in
+                           (self.w1, self.b1, self.w2, self.b2)))
 
 
 @dataclass(frozen=True)
@@ -40,6 +69,7 @@ class BlockPlan:
     conv2: FoldedConv
     conv3: FoldedConv
     proj: FoldedConv | None
+    se: SEWeights | None = None
 
     @property
     def stride1(self) -> bool:
@@ -47,13 +77,16 @@ class BlockPlan:
 
     def apply_folded(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv3(self.conv2(self.conv1(x)))
+        if self.se is not None:
+            y = self.se(y)
         residual = self.proj(x) if self.proj is not None else x
         return torch.relu(residual + y)
 
     def to(self, device) -> "BlockPlan":
         return BlockPlan(self.conv1.to(device), self.conv2.to(device),
                          self.conv3.to(device),
-                         None if self.proj is None else self.proj.to(device))
+                         None if self.proj is None else self.proj.to(device),
+                         None if self.se is None else self.se.to(device))
 
 
 @dataclass(frozen=True)
@@ -73,6 +106,15 @@ def _fold_block(params: Any, stats: Any, *, strides: int,
     if "ConvBN_3" in params:
         proj = fold_conv_bn(params["ConvBN_3"], stats["ConvBN_3"],
                             strides=strides, relu=False, dtype=dtype)
+    se = None
+    if "SqueezeExcite_0" in params:
+        sep = params["SqueezeExcite_0"]
+        # JAX Dense kernels are (in, out): transposed to (out, in)
+        se = SEWeights(
+            w1=as_f32(sep["Dense_0"]["kernel"]).T.contiguous().to(dtype),
+            b1=as_f32(sep["Dense_0"]["bias"]).to(dtype),
+            w2=as_f32(sep["Dense_1"]["kernel"]).T.contiguous().to(dtype),
+            b2=as_f32(sep["Dense_1"]["bias"]).to(dtype))
     return BlockPlan(
         conv1=fold_conv_bn(params["ConvBN_0"], stats["ConvBN_0"],
                            dtype=dtype),
@@ -81,16 +123,27 @@ def _fold_block(params: Any, stats: Any, *, strides: int,
         conv3=fold_conv_bn(params["ConvBN_2"], stats["ConvBN_2"],
                            relu=False, dtype=dtype),
         proj=proj,
+        se=se,
     )
+
+
+def check_servable(net) -> None:
+    """Raise ValueError (JAX's messages) for a net outside the engine's
+    scope: anything but the ResNet family, or grouped convs."""
+    if not isinstance(net, ResNet):
+        raise ValueError(f"serving engine supports the ResNet family, got "
+                         f"{type(net).__name__}; use the module path")
+    if net.groups != 1:
+        raise ValueError("serving engine does not support grouped convs "
+                         "(ResNeXt); use the module path")
 
 
 def build_plan(net: ResNet, variables: dict) -> ServingPlan:
     """Fold a ResNet's variables ({params, batch_stats} tree, or the flat
     .npz key dict) into a ServingPlan; ``net`` supplies the static
-    config (stage sizes, stem, head, compute dtype)."""
-    if not isinstance(net, ResNet):
-        raise ValueError(f"serving engine supports the ResNet family, got "
-                         f"{type(net).__name__}; use the module path")
+    config (stage sizes, stem, head, compute dtype). Raises ValueError
+    for a net outside the engine's scope (``check_servable``)."""
+    check_servable(net)
     if not isinstance(next(iter(variables.values())), dict):
         variables = unflatten_variables(variables)
     dtype = net.dtype
@@ -151,8 +204,11 @@ def _plan_stage_fusion(blocks: Sequence[BlockPlan]) -> tuple:
     Returns (n_folded_prefix, entry_dict | None, tail_dict | None). The
     fused segment is the run ending at the stage's last block: an
     optional stride-1 entry (projection) block plus the identity blocks.
-    A strided entry block stays folded.
+    A strided entry block stays folded, and so does every block of a
+    stage that holds a squeeze-excite block.
     """
+    if any(blk.se is not None for blk in blocks):
+        return len(blocks), None, None
     entry = None
     start = 0
     if blocks[0].proj is not None and blocks[0].stride1:
@@ -209,7 +265,10 @@ def make_serving_apply(net: ResNet, variables: dict, *,
 
     @torch.inference_mode()
     def apply(images: torch.Tensor) -> torch.Tensor:
-        x = stem(images.to(device=device, dtype=cdtype))
+        x = images.to(device=device, dtype=cdtype)
+        if plan.stem_kind == "space2depth":
+            x = space_to_depth(x)
+        x = stem(x)
         if plan.stem_kind == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
         for blocks, (n_folded, entry, tail) in zip(stages, fusion):

@@ -23,7 +23,8 @@ import torch
 from tf_face_toolbox_tpu_torch.models.layers import BN_EPS, conv2d_same_nhwc
 
 
-def _f32(a) -> torch.Tensor:
+def as_f32(a) -> torch.Tensor:
+    """A host array (or JAX-tree leaf) as a float32 tensor (a copy)."""
     return torch.tensor(np.asarray(a, np.float32))
 
 
@@ -52,8 +53,9 @@ def bn_affine(bn_params: Any, bn_stats: Any
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eval BatchNorm as a per-channel affine (r, c) in f32:
     BN(x) = x * r + c with r = scale / sqrt(var + eps), c = bias - mean * r."""
-    r = _f32(bn_params["scale"]) * torch.rsqrt(_f32(bn_stats["var"]) + BN_EPS)
-    return r, _f32(bn_params["bias"]) - _f32(bn_stats["mean"]) * r
+    r = as_f32(bn_params["scale"]) * torch.rsqrt(as_f32(bn_stats["var"])
+                                                 + BN_EPS)
+    return r, as_f32(bn_params["bias"]) - as_f32(bn_stats["mean"]) * r
 
 
 def fold_conv_bn(convbn_params: Any, convbn_stats: Any, *, strides: int = 1,
@@ -61,7 +63,7 @@ def fold_conv_bn(convbn_params: Any, convbn_stats: Any, *, strides: int = 1,
     """Fold one ConvBN's {params, batch_stats} (JAX tree layout:
     ``{"kernel", "BatchNorm_0": {"scale", "bias"}}`` and
     ``{"BatchNorm_0": {"mean", "var"}}``) into a FoldedConv."""
-    kernel = _f32(convbn_params["kernel"])                  # HWIO
+    kernel = as_f32(convbn_params["kernel"])                # HWIO
     r, c = bn_affine(convbn_params["BatchNorm_0"], convbn_stats["BatchNorm_0"])
     return FoldedConv(
         kernel=(kernel * r).permute(3, 2, 0, 1).contiguous().to(dtype),
@@ -80,7 +82,7 @@ def fold_dense_bn(dense_params: Any, bn_params: Any, bn_stats: Any, *,
         = x @ (W * r) + ((b - mean) * r + beta)
     """
     r, _ = bn_affine(bn_params, bn_stats)
-    w = _f32(dense_params["kernel"])
-    b = _f32(dense_params["bias"])
+    w = as_f32(dense_params["kernel"])
+    b = as_f32(dense_params["bias"])
     return ((w * r).to(dtype),
-            (b - _f32(bn_stats["mean"])) * r + _f32(bn_params["bias"]))
+            (b - as_f32(bn_stats["mean"])) * r + as_f32(bn_params["bias"]))

@@ -160,8 +160,6 @@ class TrainConfig:
             _not_ported("quantization-aware training", "18")
         if self.drop_path_rate > 0:
             _not_ported("drop_path_rate (the ViT family)", "17")
-        if self.stem == "space2depth":
-            _not_ported("the space2depth stem", "4")
         if self.stem == "dct" or self.network.startswith("dct_"):
             _not_ported("DCT input", "17")
         if self.subcenters < 1:
