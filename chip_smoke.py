@@ -21,7 +21,13 @@ loss heads: BASELINE preset 8 (AdaFace, 3 sub-centers) by cli.train,
 MagFace, CurricularFace, center and triplet losses on a P x K batch,
 and AdaFace with center loss and CurricularFace on four gloo ranks;
 then SE-ResNet-50, ResNeXt-50, SE-ResNeXt-50, DenseNet-121 and the
-space2depth stem served, benchmarked and trained.
+space2depth stem served, benchmarked and trained; then the rest of
+extraction (resumable chunks, quality, data-parallel ranks), IJB
+templates at IJB-C's counts, and Adam, AdamW, LARS and distillation
+at config 4. Runs that time nothing (the cli.train and cli.extract runs,
+whose steps, launches and outputs are checked) go side by side with
+other untimed work; every timed run (bench, bench_train, time_training,
+the kernels' timings) has the card to itself.
 Phases:
 
 1. device: the card's name and power limit; TF32 off for f32 checks
@@ -78,7 +84,7 @@ Phases:
     --preset v5e8_data_parallel (faces/s, ms/step, idle share, peak
     memory, the NCCL all-reduce of the step's gradients, timed apart:
     the trainer skips it at one rank); (b) two ranks sharing cuda:0 over
-    gloo, r50 face stem, 32 rows a rank, 3 bf16 steps: the ranks' states
+    gloo, r50 face stem, 32 rows a rank, 2 bf16 steps: the ranks' states
     equal (max |diff| 0), and held against replica_loop_step in this
     process (per-leaf update cosine >= 0.999, BN running statistics
     within 2 bf16 steps of each value, or of 1% of its tensor's largest
@@ -95,14 +101,14 @@ Phases:
     config-4 rate; (b)
     four ranks sharing cuda:0 over gloo as data 2 x model 2, config 7
     (r50 face stem, its warmup schedule) at 16 rows a rank, 93,431
-    classes (46,716 a shard), 3 bf16 steps of the exact head, then 3 of
+    classes (46,716 a shard), 2 bf16 steps of the exact head, then 2 of
     the sampled one at 0.1 (budget 4,672), cuDNN deterministic:
     gloo's MAX on CUDA tensors (the head's pmax), the replicated tensors
     equal on all four ranks and each shard on its two data ranks (max
     |diff| 0), and held against replica_loop_step(model=2) in this
     process, each step from the ranks' state before it (losses within 1%,
     per-leaf update cosine >= 0.999 with the classifier reassembled from
-    its shards, BN running statistics within 2 bf16 steps); kernel 1 3
+    its shards, BN running statistics within 2 bf16 steps); kernel 1 2
     launches a rank a head
 15. the loss heads (BASELINE preset 8, ``adaface_noisy_data``): (a)
     cli.train --preset adaface_noisy_data --pallas_input for 20 steps
@@ -119,7 +125,7 @@ Phases:
     >= 0.999, the head state included); (c) four gloo ranks sharing
     cuda:0 as data 2 x model 2, preset 8 (r50 face stem, 3 sub-centers,
     random erase, its schedule) at 16 rows a rank: AdaFace with center
-    loss, then CurricularFace, 3 bf16 steps each, held as phase 14(b)
+    loss, then CurricularFace, 2 bf16 steps each, held as phase 14(b)
     holds config 7 (the centers split and compared as the classifier is;
     AdaFace's statistics and t within 1e-3)
 16. the ResNet family and DenseNet (BASELINE configs 2 and 3) at
@@ -140,6 +146,35 @@ Phases:
     f32 module path; (d) cli.train --pallas_input, 5 steps, batch 64,
     10,572 classes, on se_resnet_50 and densenet_121 (kernel 1 once a
     step, finite losses) and their training rates (bench_train)
+17. the rest of extraction at full width (resnet_v1_50, face stem,
+    512-d, bf16, seeded weights) on a packed shard of 16,384 synthetic
+    120x120 faces, python loader: (a) cli.extract --engine fused
+    --chunk_rows 4096 --batch 256, SIGKILLed once its second chunk's
+    sidecar is on disk, then run again: the rerun computes only the
+    chunks not recorded (at most the one in flight is recomputed; kernel
+    2 launches of each run), and the output agrees with an uninterrupted
+    one-shot run (per-face cosine >= 0.99999); (b) one file from two
+    disjoint --rows ranges (its first and last chunks); (c) the one-shot run's --output_quality
+    (through kernel 2): its first 32 faces against the f32 module path on
+    the host (cosine >= 0.999, quality within 5e-3); (d) --data_parallel
+    under torchrun (one NCCL rank) and two gloo ranks sharing the card,
+    a batch ragged against the ranks (bf16 module path, cosine >= 0.9999;
+    the ranks' returns equal, rank 0's resumable file equal to them),
+    each against the module path in this process
+18. IJB templates at IJB-C's 1:1 counts (469,375 faces, 23,124
+    templates, 15,658,489 pairs; synthetic embeddings):
+    aggregate_templates and verify_templates on the card against a
+    plain host computation (TAR equal, templates within 1e-5), then
+    cli.eval_templates on a 10^6-pair file; each stage's seconds
+19. Adam, AdamW and LARS at config 4: cli.train 20 steps under each
+    (kernel 1 once a step; the three runs side by side, as the two
+    distillation runs below), faces/s, device ms and peak memory under
+    each beside SGD's (time_training, 8 steps after 2); 3 f32 steps at
+    batch 32 from one state and one set of batches on the card and on
+    the host (TF32 off), the largest per-leaf difference over the
+    update (< 1 under Adam and AdamW, < 0.1 under LARS); an exact resume under Adam (max |diff| 0); distillation of
+    a fresh resnet_v1_50 from phase 12's checkpoint at alpha 1 and 0.5
+    (cli.train 20 steps: distill_loss falling at alpha 1; faces/s)
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -698,20 +733,55 @@ def phase_gallery_times(g) -> list:
     return rows
 
 
-def run_train_cli(args: list, timeout: int) -> tuple[int, list, int]:
-    """cli.train as a subprocess: (final step, logged losses, kernel 1
-    launches it counted)."""
-    step, logged, launches = train_cli(args, timeout)
-    return step, logged["loss"], launches
+def spawn(cmd: list) -> tuple:
+    """A subprocess started in the background from the checkout, its
+    output into temporary files (an unread pipe could fill and stall it):
+    for runs that time nothing, beside other work. ``collect`` ends it."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                            text=True), out, err
+
+
+def collect(started: tuple, timeout: int) -> subprocess.CompletedProcess:
+    """A ``spawn``ed subprocess's end: its exit code and output."""
+    proc, out, err = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    err.seek(0)
+    return subprocess.CompletedProcess(proc.args, proc.returncode,
+                                       out.read(), err.read())
+
+
+def start_train_cli(args: list) -> tuple:
+    """cli.train started in the background (``finish_train_cli``)."""
+    return args, spawn([sys.executable, "-m",
+                        "tf_face_toolbox_tpu_torch.cli.train", "--device",
+                        "cuda", *args])
 
 
 def train_cli(args: list, timeout: int) -> tuple[int, dict, int]:
     """cli.train as a subprocess: (final step, each logged metric's values
     by name, kernel 1 launches it counted)."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
-         "--device", "cuda", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    return finish_train_cli(start_train_cli(args), timeout)
+
+
+def train_clis(runs: list, timeout: int) -> list:
+    """``train_cli`` of each argument list of ``runs``, the subprocesses
+    side by side on the card (for runs that time nothing)."""
+    started = [start_train_cli(args) for args in runs]
+    return [finish_train_cli(s, timeout) for s in started]
+
+
+def finish_train_cli(started: tuple, timeout: int) -> tuple[int, dict, int]:
+    args, spawned = started
+    proc = collect(spawned, timeout)
     expect(proc.returncode == 0, f"cli.train {' '.join(args)} failed:\n"
                                  f"{proc.stderr[-3000:]}")
     out = proc.stdout.strip().splitlines()
@@ -820,21 +890,6 @@ def phase_train(g, work: str) -> dict:
     del images, labels
     torch.cuda.empty_cache()
 
-    # the main path: cli.train, config 4, 30 steps
-    t1 = time.time()
-    step, losses, launches = run_train_cli(
-        ["--network", "resnet_v1_50", "--stem", "face", "--data",
-         "synthetic", "--num_classes", "10572", "--global_batch", "256",
-         "--bf16", "--pallas_input", "--num_steps", "30", "--log_every",
-         "10"], timeout=900)
-    say(f"  cli.train config 4, 30 steps: done step={step}, losses "
-        f"{[round(v, 4) for v in losses]}, preprocess launches {launches}; "
-        f"{time.time() - t1:.1f} s")
-    expect(step == 30, f"cli.train stopped at step {step}")
-    expect(len(losses) == 3 and all(np.isfinite(losses)),
-           f"cli.train logged losses {losses}")
-    expect(launches == 30, f"kernel 1 launched {launches} times in 30 steps")
-
     # training faces/sec/GPU
     torch.cuda.empty_cache()
     t = bt.time_training(cfg, steps=20, warmup=5)
@@ -852,11 +907,19 @@ def phase_train(g, work: str) -> dict:
     say("  top kernels (ms/step): " + "; ".join(
         f"{ms:.2f} {name[:60]}" for ms, name in t["top_kernels_ms"]))
     expect(np.isfinite(t["loss"]), f"timed run's loss {t['loss']}")
+    torch.cuda.empty_cache()
 
-    # a packed shard through both loaders; the native one where its
-    # library builds (native/faceshard links libjpeg)
+    # the main path (cli.train, config 4, 30 steps) and a packed shard
+    # through both loaders (the native one where its library builds:
+    # native/faceshard links libjpeg), side by side: they time nothing
     from tf_face_toolbox_tpu_torch.data import native
 
+    t1 = time.time()
+    main = start_train_cli(
+        ["--network", "resnet_v1_50", "--stem", "face", "--data",
+         "synthetic", "--num_classes", "10572", "--global_batch", "256",
+         "--bf16", "--pallas_input", "--num_steps", "30", "--log_every",
+         "10"])
     shard = os.path.join(work, "train.faceshard")
     faces = torch.randint(0, 256, (512, 120, 120, 3), generator=g,
                           device="cuda", dtype=torch.uint8).cpu().numpy()
@@ -868,19 +931,27 @@ def phase_train(g, work: str) -> dict:
     except OSError as e:
         say(f"  --loader native not run: the native loader does not build "
             f"on this machine ({e}); the CPU tests run it")
-    for loader in loaders:
-        t1 = time.time()
-        step_s, losses_s, launches_s = run_train_cli(
-            ["--network", "resnet_v1_50", "--stem", "face", "--data", shard,
-             "--loader", loader, "--global_batch", "128", "--bf16",
-             "--pallas_input", "--num_steps", "3", "--log_every", "1"],
-            timeout=600)
+    packed = train_clis([
+        ["--network", "resnet_v1_50", "--stem", "face", "--data", shard,
+         "--loader", loader, "--global_batch", "128", "--bf16",
+         "--pallas_input", "--num_steps", "3", "--log_every", "1"]
+        for loader in loaders], timeout=600)
+    step, logged, launches = finish_train_cli(main, timeout=900)
+    losses = logged["loss"]
+    say(f"  cli.train config 4, 30 steps: done step={step}, losses "
+        f"{[round(v, 4) for v in losses]}, preprocess launches {launches}")
+    expect(step == 30, f"cli.train stopped at step {step}")
+    expect(len(losses) == 3 and all(np.isfinite(losses)),
+           f"cli.train logged losses {losses}")
+    expect(launches == 30, f"kernel 1 launched {launches} times in 30 steps")
+    for loader, (step_s, logged_s, launches_s) in zip(loaders, packed):
+        losses_s = logged_s["loss"]
         say(f"  cli.train packed shard (512 faces, 64 ids), --loader "
             f"{loader}, batch 128: done step={step_s}, losses "
-            f"{[round(v, 4) for v in losses_s]}, launches {launches_s}; "
-            f"{time.time() - t1:.1f} s")
+            f"{[round(v, 4) for v in losses_s]}, launches {launches_s}")
         expect(step_s == 3 and launches_s == 3 and len(losses_s) == 3
                and all(np.isfinite(losses_s)), f"--loader {loader} run")
+    say(f"  the cli.train runs side by side: {time.time() - t1:.1f} s")
 
     say(f"  phase 11: {time.time() - t0:.1f} s")
     return {"max_abs_err": err32, "ms": k_mean, "plain_ms": p_ms,
@@ -1296,13 +1367,18 @@ def _dp_rank(rank: int, world: int, port: int, cfg_kw: dict, steps: int,
         dist.destroy_process_group()
 
 
-def _torchrun(args: list, timeout: int) -> subprocess.CompletedProcess:
+def _start_torchrun(args: list) -> tuple:
     """``python -m torch.distributed.run`` (torchrun) of one rank on this
-    card; fails the smoke unless it exits 0."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", "-m", *args], cwd=ROOT,
-        capture_output=True, text=True, timeout=timeout)
+    card, in the background (``_torchrun`` waits for it)."""
+    return args, spawn([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "1", "-m", *args])
+
+
+def _torchrun(started: tuple, timeout: int) -> subprocess.CompletedProcess:
+    """A ``_start_torchrun`` run to its end; fails the smoke unless it
+    exits 0."""
+    args, spawned = started
+    proc = collect(spawned, timeout)
     expect(proc.returncode == 0, f"torchrun {' '.join(args[:3])} failed:\n"
                                  f"{proc.stdout[-2000:]}\n"
                                  f"{proc.stderr[-3000:]}")
@@ -1323,29 +1399,12 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
 
     t0 = time.time()
     say(f"[13 data parallel] {bench.gpu_info()}")
-    # (a) config 5 on the production path: torchrun, NCCL, one replica
-    proc = _torchrun(["tf_face_toolbox_tpu_torch.cli.train", "--preset",
-                      "v5e8_data_parallel", "--multihost", "--pallas_input",
-                      "--data", "synthetic", "--num_steps", "20",
-                      "--log_every", "10"], timeout=600)
-    out = proc.stdout.strip().splitlines()
-    expect(out and out[-1].startswith("done: step=20"),
-           f"torchrun cli.train printed {out[-3:]}")
-    launches = next(int(line.split("preprocess=")[1]) for line in out
-                    if line.startswith("kernel launches:"))
-    losses = [float(line.split("loss=")[1].split()[0])
-              for line in proc.stderr.splitlines()
-              if line.startswith("step ") and "loss=" in line]
-    say(f"  (a) torchrun cli.train --preset v5e8_data_parallel --multihost "
-        f"--pallas_input (NCCL, 1 rank of 256; the preset's 8 x 256 cut to "
-        f"the card's 1): {out[-1]}, losses {[round(v, 4) for v in losses]}, "
-        f"kernel 1 launches {launches} in 20 steps; {time.time() - t0:.1f} s")
-    expect(launches == 20, f"kernel 1 launched {launches} times in 20 steps")
-    expect(len(losses) == 2 and all(np.isfinite(losses)),
-           f"config-5 losses {losses}")
+    # (a) config 5 on the production path: torchrun, NCCL, one replica;
+    # bench_train timed alone first, then cli.train beside (b)
     t1 = time.time()
-    proc = _torchrun(["tf_face_toolbox_tpu_torch.bench_train", "--preset",
-                      "v5e8_data_parallel", "--steps", "20", "--warmup", "5"],
+    proc = _torchrun(_start_torchrun(
+        ["tf_face_toolbox_tpu_torch.bench_train", "--preset",
+         "v5e8_data_parallel", "--steps", "10", "--warmup", "3"]),
                      timeout=600)
     timing = json.loads(proc.stdout.strip().splitlines()[-1])
     kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
@@ -1365,9 +1424,14 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
         f"{timing['exchange']['ms']:.3f} ms at 1 rank (timed apart: the "
         f"trainer skips it at 1 rank); {time.time() - t1:.1f} s")
     expect(np.isfinite(timing["loss"]), f"timed run's loss {timing['loss']}")
-
-    # (b) two ranks on cuda:0 over gloo against replica_loop_step
     t1 = time.time()
+    dp_cli = _start_torchrun(
+        ["tf_face_toolbox_tpu_torch.cli.train", "--preset",
+         "v5e8_data_parallel", "--multihost", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "10"])
+
+    # (b) two ranks on cuda:0 over gloo against replica_loop_step, beside
+    # (a)'s cli.train
     cfg_kw = dict(bt.CONFIG4, global_batch=64)
     cfg = TrainConfig(**cfg_kw)
     with socket.socket() as sock:
@@ -1375,8 +1439,8 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
-    procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, cfg_kw, 3,
-                                                paths[r]))
+    procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, cfg_kw,
+                                                GRID_STEPS, paths[r]))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -1393,13 +1457,13 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
     ranks = [torch.load(path, weights_only=True) for path in paths]
     diff, where = _max_diff(ranks[0]["state"], ranks[1]["state"])
     expect(diff == 0, f"the two ranks' states differ by {diff} at {where}")
-    expect([r["launches"] for r in ranks] == [3, 3],
+    expect([r["launches"] for r in ranks] == [GRID_STEPS] * 2,
            f"kernel 1 launches on the ranks {[r['launches'] for r in ranks]}")
 
     state, net = create_train_state(cfg, 0, device="cuda")
     before = _snapshot(state)
     ref_losses = []
-    for x, y in _dp_batches(cfg, 3):
+    for x, y in _dp_batches(cfg, GRID_STEPS):
         state, m = replica_loop_step(net, cfg, state, x, y, 2)
         ref_losses.append(float(m["loss"]))
     ref = _snapshot(state)
@@ -1425,8 +1489,8 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
     worst = min(cos, key=cos.get)
     loss_rel = max(abs(a - b) / abs(b) for a, b in
                    zip(ranks[0]["losses"], ref_losses))
-    say(f"  (b) 2 gloo ranks on cuda:0, r50 face stem, 32 rows a rank, 3 "
-        f"bf16 steps: ranks' states max |diff| {diff} over {len(got)} "
+    say(f"  (b) 2 gloo ranks on cuda:0, r50 face stem, 32 rows a rank, "
+        f"{GRID_STEPS} bf16 steps: ranks' states max |diff| {diff} over {len(got)} "
         f"tensors; losses {[round(v, 4) for v in ranks[0]['losses']]} vs "
         f"replica_loop_step {[round(v, 4) for v in ref_losses]} (rel "
         f"{loss_rel:.2e}); update cosine min {cos[worst]:.6f} ({worst}) "
@@ -1441,6 +1505,23 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
                               "steps from replica_loop_step's")
     expect(loss_rel <= 0.01, f"losses {ranks[0]['losses']} vs {ref_losses}")
 
+    proc = _torchrun(dp_cli, timeout=600)
+    out = proc.stdout.strip().splitlines()
+    expect(out and out[-1].startswith("done: step=20"),
+           f"torchrun cli.train printed {out[-3:]}")
+    launches = next(int(line.split("preprocess=")[1]) for line in out
+                    if line.startswith("kernel launches:"))
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in proc.stderr.splitlines()
+              if line.startswith("step ") and "loss=" in line]
+    say(f"  (a) torchrun cli.train --preset v5e8_data_parallel --multihost "
+        f"--pallas_input (NCCL, 1 rank of 256; the preset's 8 x 256 cut to "
+        f"the card's 1), beside (b): {out[-1]}, losses "
+        f"{[round(v, 4) for v in losses]}, kernel 1 launches {launches} in "
+        f"20 steps; (a) and (b) {time.time() - t1:.1f} s")
+    expect(launches == 20, f"kernel 1 launched {launches} times in 20 steps")
+    expect(len(losses) == 2 and all(np.isfinite(losses)),
+           f"config-5 losses {losses}")
     # (c) remat at a replica's batch (config 4/5: 256)
     t1 = time.time()
     cfg4 = bt.config4()
@@ -1454,7 +1535,7 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
     remat = {}
     for name, value in bt.REMAT.items():
         torch.cuda.empty_cache()
-        remat[name] = bt.time_training(cfg4, steps=10, warmup=3,
+        remat[name] = bt.time_training(cfg4, steps=5, warmup=2,
                                        profile_steps=0, remat=value)
     for name in bt.REMAT:
         r = remat[name]
@@ -1611,6 +1692,11 @@ def _say_bench(label: str, r: dict, single_faces_per_sec: float) -> None:
     expect(np.isfinite(r["loss"]), f"{label}: loss {r['loss']}")
 
 
+# steps of the gloo ranks of phases 13(b), 14(b) and 15(c) (3 until the
+# smoke outgrew its time)
+GRID_STEPS = 2
+
+
 def _run_grid(work: str, tag: str, heads: list,
               steps: int) -> tuple[list, list]:
     """Four spawned ``_grid_rank`` processes on cuda:0 over gloo: their
@@ -1745,20 +1831,8 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
 
     t0 = time.time()
     say(f"[14 partial fc] {bench.gpu_info()}")
-    # (a) config 7 at the card's one rank: 93,431 classes, sampled at 0.1
-    step, losses, cli_launches = run_train_cli(
-        ["--preset", "large_id_pfc_v5e8", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "10"], timeout=600)
-    say(f"  (a) cli.train --preset large_id_pfc_v5e8 --pallas_input (1 rank "
-        f"of 256, the preset's 2 x 4 mesh cut to the card's 1; 93,431 "
-        f"classes, sampled at 0.1, budget 9,344): done step={step}, losses "
-        f"{[round(v, 4) for v in losses]}, kernel 1 launches {cli_launches} "
-        f"in 20 steps; {time.time() - t0:.1f} s")
-    expect(step == 20, f"config 7 stopped at step {step}")
-    expect(cli_launches == 20,
-           f"kernel 1 launched {cli_launches} times in 20 steps")
-    expect(len(losses) == 2 and all(np.isfinite(losses)),
-           f"config-7 losses {losses}")
+    # (a) config 7 at the card's one rank: 93,431 classes, sampled at 0.1;
+    # bench_train timed alone, then cli.train beside (b)
     timing = {}
     for head, extra in (("sampled", []),
                         ("exact", ["--pfc_sample_rate", "1"])):
@@ -1772,18 +1846,35 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
     ratio = (timing["sampled"]["faces_per_sec"]
              / timing["exact"]["faces_per_sec"])
     say(f"  (a) sampled / exact faces/s: {ratio:.4f}")
-
-    # (b) four ranks on cuda:0 over gloo, data 2 x model 2
     t1 = time.time()
+    pfc_cli = start_train_cli(
+        ["--preset", "large_id_pfc_v5e8", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "10"])
+
+    # (b) four ranks on cuda:0 over gloo, data 2 x model 2, beside (a)'s
+    # cli.train
     heads = [("exact", _pfc_config(1.0)), ("sampled", _pfc_config(0.1))]
-    ranks, paths = _run_grid(work, "pfc", heads, 3)
+    ranks, paths = _run_grid(work, "pfc", heads, GRID_STEPS)
+    step, logged, cli_launches = finish_train_cli(pfc_cli, timeout=600)
+    losses = logged["loss"]
+    say(f"  (a) cli.train --preset large_id_pfc_v5e8 --pallas_input (1 rank "
+        f"of 256, the preset's 2 x 4 mesh cut to the card's 1; 93,431 "
+        f"classes, sampled at 0.1, budget 9,344), beside (b): done "
+        f"step={step}, losses {[round(v, 4) for v in losses]}, kernel 1 "
+        f"launches {cli_launches} in 20 steps")
+    expect(step == 20, f"config 7 stopped at step {step}")
+    expect(cli_launches == 20,
+           f"kernel 1 launched {cli_launches} times in 20 steps")
+    expect(len(losses) == 2 and all(np.isfinite(losses)),
+           f"config-7 losses {losses}")
     out = {}
     for head, cfg in heads:
-        r = out[head] = _grid_against_reference(ranks, paths, head, cfg, 3)
+        r = out[head] = _grid_against_reference(ranks, paths, head, cfg,
+                                                GRID_STEPS)
         say(f"  (b) {head} head{' at 0.1 (budget 4,672)' if head == 'sampled' else ''}"
             f": 4 gloo ranks on cuda:0 (2 x 2), config 7's r50 face stem and "
-            f"schedule, 16 rows a rank, 93,431 classes (46,716 a shard), 3 "
-            f"bf16 steps: replicated tensors max |diff| {r['ranks_max_diff']},"
+            f"schedule, 16 rows a rank, 93,431 classes (46,716 a shard), "
+            f"{GRID_STEPS} bf16 steps: replicated tensors max |diff| {r['ranks_max_diff']},"
             f" shards across data ranks {r['shards_max_diff']}; losses "
             f"{[round(v, 4) for v in r['losses']]} vs replica_loop_step("
             f"model=2) from the ranks' state before each step "
@@ -1823,24 +1914,8 @@ def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
 
     t0 = time.time()
     say(f"[15 loss heads] {bench.gpu_info()}")
-    # (a) preset 8 through cli.train at full width, then its rate
-    step, logged, cli_launches = train_cli(
-        ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "5"], timeout=600)
-    losses, means = logged["loss"], logged.get("adaface_norm_mean", [])
-    say(f"  (a) cli.train --preset adaface_noisy_data --pallas_input (r50 "
-        f"face stem, bf16, 10,572 classes x 3 sub-centers, batch 256, random "
-        f"erase 0.25, cosine LR; synthetic faces): done step={step}, losses "
-        f"{[round(v, 4) for v in losses]}, adaface_norm_mean "
-        f"{[round(v, 4) for v in means]}, kernel 1 launches {cli_launches} "
-        f"in 20 steps; {time.time() - t0:.1f} s")
-    expect(step == 20, f"preset 8 stopped at step {step}")
-    expect(cli_launches == 20,
-           f"kernel 1 launched {cli_launches} times in 20 steps")
-    expect(len(losses) == 4 and all(np.isfinite(losses)),
-           f"preset-8 losses {losses}")
-    expect(len(means) == 4 and all(np.isfinite(means)) and means[-1] != 20.0,
-           f"AdaFace's EMA mean {means} did not move from 20")
+    # (a) preset 8's rate, timed alone, then its cli.train at full width
+    # beside (c)
     t1 = time.time()
     timing = _bench_train(["--preset", "adaface_noisy_data", "--steps", "10",
                            "--warmup", "3"])
@@ -1888,18 +1963,39 @@ def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
     torch.cuda.empty_cache()
     say(f"  (b) {time.time() - t1:.1f} s")
 
-    # (c) four ranks on cuda:0 over gloo, data 2 x model 2
+    # (c) four ranks on cuda:0 over gloo, data 2 x model 2, beside (a)'s
+    # cli.train
     t1 = time.time()
     heads = [("adaface+center", _heads_config(center_weight=0.01)),
              ("curricular", _heads_config(margin_mode="curricular",
                                           margin_m2=0.5, margin_m3=0.0))]
-    ranks, paths = _run_grid(work, "heads", heads, 3)
+    ada_cli = start_train_cli(
+        ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "5"])
+    ranks, paths = _run_grid(work, "heads", heads, GRID_STEPS)
+    step, logged, cli_launches = finish_train_cli(ada_cli, timeout=600)
+    losses, means = logged["loss"], logged.get("adaface_norm_mean", [])
+    say(f"  (a) cli.train --preset adaface_noisy_data --pallas_input (r50 "
+        f"face stem, bf16, 10,572 classes x 3 sub-centers, batch 256, random "
+        f"erase 0.25, cosine LR; synthetic faces), beside (c): done "
+        f"step={step}, losses {[round(v, 4) for v in losses]}, "
+        f"adaface_norm_mean {[round(v, 4) for v in means]}, kernel 1 "
+        f"launches {cli_launches} in 20 steps")
+    expect(step == 20, f"preset 8 stopped at step {step}")
+    expect(cli_launches == 20,
+           f"kernel 1 launched {cli_launches} times in 20 steps")
+    expect(len(losses) == 4 and all(np.isfinite(losses)),
+           f"preset-8 losses {losses}")
+    expect(len(means) == 4 and all(np.isfinite(means)) and means[-1] != 20.0,
+           f"AdaFace's EMA mean {means} did not move from 20")
     grid = {}
     for head, cfg in heads:
-        r = grid[head] = _grid_against_reference(ranks, paths, head, cfg, 3)
+        r = grid[head] = _grid_against_reference(ranks, paths, head, cfg,
+                                                 GRID_STEPS)
         say(f"  (c) {head}: 4 gloo ranks on cuda:0 (2 x 2), preset 8's r50 "
             f"face stem, 3 sub-centers, random erase and schedule, 16 rows a "
-            f"rank, 10,572 classes (5,286 a shard), 3 bf16 steps: replicated "
+            f"rank, 10,572 classes (5,286 a shard), {GRID_STEPS} bf16 steps: "
+            f"replicated "
             f"tensors max |diff| {r['ranks_max_diff']}, shards (classifier, "
             f"centers) across data ranks {r['shards_max_diff']}; losses "
             f"{[round(v, 4) for v in r['losses']]} vs replica_loop_step("
@@ -2145,11 +2241,13 @@ def phase_backbones(g, u8: torch.Tensor, work: str,
     # (d) training: cli.train --pallas_input (one kernel 1 launch a step),
     # then the training rate
     train = {}
-    for network in ("se_resnet_50", "densenet_121"):
-        step, logged, launches = train_cli(
-            ["--network", network, "--num_classes", "10572",
-             "--global_batch", "64", "--num_steps", "5", "--log_every", "1",
-             "--pallas_input", "--data", "synthetic"], timeout=600)
+    trained = ("se_resnet_50", "densenet_121")
+    # the two cli.train runs side by side (they time nothing)
+    runs = train_clis([["--network", network, "--num_classes", "10572",
+                        "--global_batch", "64", "--num_steps", "5",
+                        "--log_every", "1", "--pallas_input", "--data",
+                        "synthetic"] for network in trained], timeout=600)
+    for network, (step, logged, launches) in zip(trained, runs):
         losses = logged["loss"]
         expect(step == 5 and len(losses) == 5
                and all(np.isfinite(v) for v in losses),
@@ -2157,7 +2255,7 @@ def phase_backbones(g, u8: torch.Tensor, work: str,
         expect(launches == 5, f"cli.train {network}: kernel 1 launched "
                               f"{launches} times in 5 steps")
         r = bt.time_training(bt.config4(network=network, global_batch=64),
-                             steps=10, warmup=3, profile_steps=2)
+                             steps=6, warmup=2, profile_steps=1)
         train[network] = {"launches": launches, "losses": losses,
                           **{k: r[k] for k in (
                               "faces_per_sec", "ms_per_step",
@@ -2175,6 +2273,744 @@ def phase_backbones(g, u8: torch.Tensor, work: str,
     say(f"  (d) {time.time() - t3:.1f} s; phase 16: {time.time() - t0:.1f} s")
     return {"nets": nets, "space2depth": s2d, "cli_extract_min_cos": cli_cos,
             "train": train, "seconds": time.time() - t0}
+
+
+def _extract_cli(args: list, timeout: int = 600) -> subprocess.CompletedProcess:
+    """cli.extract as a subprocess on this card; fails the smoke unless
+    it exits 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--device", "cuda", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=timeout)
+    expect(proc.returncode == 0, f"cli.extract {' '.join(args)} failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def _kernel2_launches(text: str) -> int:
+    """The last ``fused_block=N`` a cli.extract run printed or logged."""
+    found = [int(line.rsplit("fused_block=", 1)[1].split(")")[0])
+             for line in text.splitlines() if "fused_block=" in line]
+    expect(bool(found), "cli.extract printed no kernel launches")
+    return found[-1]
+
+
+def _face_cos(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """(min per-face cosine, max |a - b|) of two embedding files."""
+    expect(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    cos = per_image_cos(torch.from_numpy(np.asarray(a)),
+                        torch.from_numpy(np.asarray(b)))
+    return cos.min().item(), float(np.abs(np.asarray(a) - b).max())
+
+
+def _extract_rank(rank: int, world: int, port: int, shard: str, npz: str,
+                  rows: int, batch: int, output: str, out_path: str) -> None:
+    """Phase 17(d): one rank of a gloo group on cuda:0 (a spawned
+    process): data-parallel extraction of the shard's first ``rows``
+    faces through the bf16 module path, with the quality scores, and the
+    resumable writer into ``output`` in chunks of two batches (rank 0
+    alone writes); its results to ``out_path``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import (
+        extract_shard, extract_shard_to_npy, make_extract_fn)
+    from tf_face_toolbox_tpu_torch.interop.port import (
+        flatten_variables, load_jax_variables, load_variables_npz)
+    from tf_face_toolbox_tpu_torch.models import create_network
+    from tf_face_toolbox_tpu_torch.parallel.mesh import init_distributed
+
+    topo = init_distributed("cuda:0", backend="gloo")
+    try:
+        flat = flatten_variables(load_variables_npz(npz))
+        net = load_jax_variables(create_network(
+            "resnet_v1_50", stem="face", dtype=torch.bfloat16), flat).to(
+                topo.device).eval()
+        src = FaceShardSource(shard)
+        kw = dict(image_size=112, crop_from=120, batch=batch,
+                  loader="python", rows=(0, rows), device=topo.device)
+        emb, quality = extract_shard(
+            net, flat, src, with_quality=True,
+            extract_fn=make_extract_fn(net, with_quality=True, mesh=topo),
+            **kw)
+        out = extract_shard_to_npy(
+            net, flat, src, output, chunk_rows=2 * batch,
+            extract_fn=make_extract_fn(net, mesh=topo), mesh=topo, **kw)
+        torch.save({"emb": torch.from_numpy(emb),
+                    "quality": torch.from_numpy(quality),
+                    "written": None if out is None
+                    else torch.from_numpy(np.array(out))}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_extract_resume(g, work: str) -> dict:
+    """Phase 17: the rest of extraction at full width (resnet_v1_50, face
+    stem, 512-d, bf16, seeded weights) on a packed shard of 16,384
+    synthetic 120x120 faces, python loader: cli.extract --engine fused
+    --chunk_rows 4096 --batch 256 killed (SIGKILL) once its second
+    chunk's sidecar is on disk and run again (it recomputes at most the
+    chunk in flight), against an uninterrupted one-shot run; one file
+    filled from two disjoint --rows ranges; --output_quality through the
+    fused engine against the f32 module path on the host; data-parallel
+    extraction on two gloo ranks sharing the card (a batch ragged against
+    the ranks) and cli.extract --data_parallel under torchrun (one NCCL
+    rank), each against the single-process module path."""
+    import multiprocessing as mp
+    import signal
+    import socket
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.data.format import pack_arrays
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard
+    from tf_face_toolbox_tpu_torch.interop.port import (
+        load_jax_variables, save_variables_npz)
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    say(f"[17 extraction] {bench.gpu_info()}")
+    n, chunk, batch = 16384, 4096, 256
+    shard = os.path.join(work, "extract17.faceshard")
+    faces = torch.randint(0, 256, (n, 120, 120, 3), generator=g,
+                          device="cuda", dtype=torch.uint8).cpu().numpy()
+    pack_arrays(shard, faces, [i % 1000 for i in range(n)])
+    del faces
+    npz = os.path.join(work, "r50_face_seed0.npz")
+    flat = random_variables(create_network("resnet_v1_50", stem="face"), 0)
+    save_variables_npz(npz, flat)
+    base = ["--stem", "face", "--variables_npz", npz, "--data", shard,
+            "--crop_from", "120", "--batch", str(batch), "--loader",
+            "python"]
+    times = {}
+
+    # an earlier run's files: its outputs and their finished sidecars
+    # would leave every run here nothing to compute
+    for f in os.listdir(work):
+        if f.startswith("x17_"):
+            os.remove(os.path.join(work, f))
+
+    def out(name):
+        return os.path.join(work, f"x17_{name}.npy")
+
+    # one shot, uninterrupted, with the quality scores, beside the chunked
+    # run and its rerun (no run here is timed)
+    t_one = time.time()
+    one, q_path = out("oneshot"), out("quality")
+    oneshot = spawn([sys.executable, "-m",
+                     "tf_face_toolbox_tpu_torch.cli.extract", "--device",
+                     "cuda", *base, "--engine", "fused", "--output", one,
+                     "--output_quality", q_path])
+    # chunked, SIGKILLed once the second chunk is recorded, then again
+    t1 = time.time()
+    chunked = out("chunked")
+    side = chunked + ".progress.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--device", "cuda", *base, "--engine", "fused", "--chunk_rows",
+         str(chunk), "--output", chunked], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    done_at_kill = []
+    while proc.poll() is None and time.time() - t1 < 600:
+        try:
+            with open(side) as f:
+                done_at_kill = json.load(f)["done"]
+        except (OSError, ValueError):
+            pass
+        if len(done_at_kill) >= 2:
+            os.kill(proc.pid, signal.SIGKILL)
+            break
+        time.sleep(0.05)
+    _, err1 = proc.communicate(timeout=60)
+    expect(proc.returncode == -signal.SIGKILL,
+           f"the chunked run was not killed (exit {proc.returncode}):\n"
+           f"{err1[-2000:]}")
+    with open(side) as f:
+        done_at_kill = json.load(f)["done"]
+    killed_launches = _kernel2_launches(err1)
+    times["killed run"] = time.time() - t1
+    # (d)'s data-parallel runs beside the rest of (a) and (b): 3 batches
+    # of 256 and a ragged 231, which two ranks pad to 232
+    dp_rows = 999
+    dp, dq = out("dp"), out("dp_quality")
+    dp_run = _start_torchrun(["tf_face_toolbox_tpu_torch.cli.extract",
+                              "--device", "cuda", *base, "--data_parallel",
+                              "--rows", f"0:{dp_rows}", "--output", dp,
+                              "--output_quality", dq])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    rank_paths = [os.path.join(work, f"x17_rank{r}.pt") for r in range(2)]
+    rank_procs = [ctx.Process(target=_extract_rank, args=(
+        r, 2, port, shard, npz, dp_rows, batch, out("gloo"), rank_paths[r]))
+        for r in range(2)]
+    for p in rank_procs:
+        p.start()
+    t1 = time.time()
+    proc = _extract_cli([*base, "--engine", "fused", "--chunk_rows",
+                         str(chunk), "--output", chunked])
+    rerun_launches = _kernel2_launches(proc.stdout)
+    times["rerun"] = time.time() - t1
+    proc = collect(oneshot, timeout=600)
+    expect(proc.returncode == 0, f"cli.extract one shot failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    one_launches = _kernel2_launches(proc.stdout)
+    times["one-shot (from its start)"] = time.time() - t_one
+    per_batch = one_launches / (n // batch)
+    expect(per_batch == int(per_batch) and per_batch > 0,
+           f"kernel 2: {one_launches} launches in {n // batch} batches")
+    chunks = n // chunk
+    computed = rerun_launches / (per_batch * (chunk // batch))
+    # the run killed mid-chunk lost that chunk alone: the rerun computes
+    # the chunks not recorded, the one in flight among them
+    recomputed = computed - (chunks - len(done_at_kill) - 1) if len(
+        done_at_kill) < chunks else computed
+    cos, diff = _face_cos(np.load(chunked), np.load(one))
+    say(f"  (a) cli.extract --engine fused --chunk_rows {chunk} --batch "
+        f"{batch}, {n:,} faces: one shot {one_launches} kernel 2 launches "
+        f"({per_batch:.0f} a batch); SIGKILL with chunks {done_at_kill} "
+        f"recorded ({killed_launches} launches logged by then), the rerun "
+        f"computed {computed:.0f} of {chunks} chunks ({rerun_launches} "
+        f"launches), recomputed {recomputed:.0f} (the one in flight); "
+        f"against the one-shot run: min per-face cosine {cos:.7f}, max "
+        f"|diff| {diff:.3g}")
+    expect(computed == chunks - len(done_at_kill),
+           f"the rerun computed {computed} chunks, "
+           f"{chunks - len(done_at_kill)} were left")
+    expect(recomputed <= 1, f"recomputed {recomputed} chunks")
+    expect(cos >= 0.99999, f"resumed output cosine {cos} < 0.99999")
+    with open(side) as f:
+        expect(json.load(f)["done"] == list(range(0, n, chunk)),
+               "sidecar not complete")
+    # one file from two disjoint ranges
+    t1 = time.time()
+    ranged = out("ranged")
+    ranges = ((0, chunk), (n - chunk, n))      # the first and last chunks
+    for lo, hi in ranges:
+        _extract_cli([*base, "--engine", "fused", "--chunk_rows",
+                      str(chunk), "--rows", f"{lo}:{hi}", "--output", ranged])
+    times["two ranges"] = time.time() - t1
+    filled = np.load(ranged)
+    expect(not filled[chunk:n - chunk].any(), "rows outside the ranges "
+                                              "were written")
+    picked = np.r_[0:chunk, n - chunk:n]
+    cos_r, diff_r = _face_cos(filled[picked], np.load(one)[picked])
+    sidecars = sorted(p for p in os.listdir(work)
+                      if p.startswith("x17_ranged.npy.rows"))
+    say(f"  (b) --rows {ranges[0][0]}:{ranges[0][1]} then "
+        f"{ranges[1][0]}:{ranges[1][1]} into one {n}-row file: min per-face "
+        f"cosine {cos_r:.7f} against the one-shot run, max |diff| "
+        f"{diff_r:.3g}, the rows between untouched; sidecars {sidecars}")
+    expect(cos_r >= 0.99999, f"ranged output cosine {cos_r} < 0.99999")
+    # the one-shot run's quality (kernel 2) against the host's f32 module
+    t1 = time.time()
+    q_rows = 32
+    host = load_jax_variables(create_network("resnet_v1_50", stem="face"),
+                              flat).eval()
+    h_emb, h_q = extract_shard(host, flat, FaceShardSource(shard),
+                               image_size=112, crop_from=120, batch=q_rows,
+                               loader="python", rows=(0, q_rows),
+                               with_quality=True, device="cpu")
+    times["quality (host f32)"] = time.time() - t1
+    del host
+    cos_q, _ = _face_cos(np.load(one)[:q_rows], h_emb)
+    q = np.load(q_path)
+    q_rel = float(np.abs(q[:q_rows] / h_q - 1).max())
+    say(f"  (c) --output_quality of the one-shot run: {q.shape} scores "
+        f"{q.min():.3f}-{q.max():.3f}; its first {q_rows} faces against the "
+        f"host's f32 module path: embedding cosine min {cos_q:.6f}, quality "
+        f"max relative error {q_rel:.3g}")
+    expect(q.shape == (n,) and np.isfinite(q).all(), "quality file")
+    expect(cos_q >= 0.999, f"quality run cosine {cos_q} < 0.999")
+    expect(q_rel <= 5e-3, f"quality relative error {q_rel} > 5e-3")
+    # data-parallel: two gloo ranks, torchrun (one NCCL rank)
+    t1 = time.time()
+    try:
+        for p in rank_procs:
+            p.join(timeout=600)
+    finally:
+        for p in rank_procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    expect([p.exitcode for p in rank_procs] == [0, 0],
+           f"gloo extraction ranks exited {[p.exitcode for p in rank_procs]}")
+    ranks = [torch.load(path, weights_only=True) for path in rank_paths]
+    proc = _torchrun(dp_run, timeout=600)
+    expect("data-parallel extraction over 1 ranks" in proc.stderr,
+           "torchrun cli.extract did not run data-parallel")
+    times["data parallel (its wait)"] = time.time() - t1
+    t1 = time.time()
+    net = load_jax_variables(create_network(
+        "resnet_v1_50", stem="face", dtype=torch.bfloat16), flat).to(
+            "cuda").eval()
+    mod = extract_shard(net, flat, FaceShardSource(shard), image_size=112,
+                        crop_from=120, batch=batch, loader="python",
+                        rows=(0, dp_rows), device="cuda")
+    del net
+    times["module"] = time.time() - t1
+    cos_dp, diff_dp = _face_cos(np.load(dp), mod)
+    # each gloo rank forwards half of every batch, where the module path
+    # forwards it whole: cuDNN may take other algorithms, so bf16 rounds
+    # differently (BASELINE's 0.999 is bf16 against f32)
+    emb2 = ranks[0]["emb"].numpy()
+    cos_g, diff_g = _face_cos(emb2, mod)
+    q_g = float(np.abs(ranks[0]["quality"].numpy() / q[:dp_rows] - 1).max())
+    written = ranks[0]["written"]
+    say(f"  (d) 2 gloo ranks on cuda:0, {dp_rows} faces in batches of "
+        f"{batch} (the last, {dp_rows % batch}, padded to "
+        f"{dp_rows % batch + 1} over the ranks): against the "
+        f"single-process module path min cosine {cos_g:.7f}, max |diff| "
+        f"{diff_g:.3g}, quality max relative difference {q_g:.3g} against "
+        f"the fused one-shot run's; the ranks' returns equal: "
+        f"{bool(torch.equal(ranks[0]['emb'], ranks[1]['emb']))}; rank 0's "
+        f"resumable file equals its one-shot return: "
+        f"{written is not None and bool(np.array_equal(written[:dp_rows], emb2))}"
+        f"; torchrun --nproc_per_node 1 cli.extract --data_parallel (NCCL): "
+        f"min cosine {cos_dp:.7f}, max |diff| {diff_dp:.3g}; quality "
+        f"{np.load(dq).shape}")
+    expect(all(torch.equal(ranks[0][k], ranks[1][k])
+               for k in ("emb", "quality")), "the gloo ranks' returns differ")
+    expect(ranks[1]["written"] is None, "rank 1 returned the written file")
+    expect(written is not None and written.shape == (n, emb2.shape[1])
+           and np.array_equal(written[:dp_rows], emb2)
+           and not written[dp_rows:].any(),
+           "rank 0's resumable file is not its one-shot extraction")
+    expect(cos_g >= 0.9999, f"gloo data-parallel cosine {cos_g} < 0.9999")
+    expect(q_g <= 5e-3, f"gloo data-parallel quality {q_g} > 5e-3")
+    expect(cos_dp >= 0.99999, f"data-parallel cosine {cos_dp} < 0.99999")
+    total = time.time() - t0
+    say(f"  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f"; phase 17: {total:.1f} s")
+    return {"launches": {"one_shot": one_launches, "killed": killed_launches,
+                         "rerun": rerun_launches},
+            "recomputed": recomputed, "resume_max_diff": diff,
+            "quality_rel_err": q_rel, "gloo_min_cos": cos_g,
+            "seconds": total}
+
+
+def _ijbc_synthetic(g):
+    """Embeddings at IJB-C's 1:1 counts: 469,375 faces of 23,124 templates
+    of 3,531 subjects (media ids within a template), and 15,658,489
+    template pairs, 19,557 of them genuine. Unit-norm 512-d rows: a
+    subject's center plus noise."""
+    faces, templates, subjects, pairs, genuine = (469_375, 23_124, 3_531,
+                                                   15_658_489, 19_557)
+    rng = np.random.default_rng(17)
+    t_subject = np.arange(templates) % subjects
+    face_t = np.concatenate([np.arange(templates),
+                             rng.integers(0, templates, faces - templates)])
+    media = rng.integers(0, 8, faces)
+    centers = torch.randn((subjects, 512), generator=g, device="cuda")
+    centers = centers / centers.norm(dim=1, keepdim=True)
+    subj = torch.from_numpy(t_subject[face_t]).cuda()
+    emb = centers[subj] + 0.35 * torch.randn((faces, 512), generator=g,
+                                             device="cuda")
+    emb = (emb / emb.norm(dim=1, keepdim=True)).cpu().numpy()
+    # genuine pairs: a template and another of its subject (templates s,
+    # s + S, s + 2S, ... share subject s); the rest uniform
+    i1 = rng.integers(0, templates, pairs)
+    i2 = rng.integers(0, templates, pairs)
+    first = i1[:genuine]
+    i2[:genuine] = np.where(first + subjects < templates, first + subjects,
+                            first - subjects)
+    labels = (t_subject[i1] == t_subject[i2]).astype(np.int64)
+    ids = np.arange(templates) * 7 + 11        # ids, not row numbers
+    return emb, ids[face_t], media, np.stack([ids[i1], ids[i2]], 1), labels
+
+
+def _same_tar(a: dict, b: dict) -> bool:
+    """The TAR entries of two reports are equal (NaN, or JSON's null, at
+    a FAR finer than the pairs resolve, matches either)."""
+    def v(x):
+        return float("nan") if x is None else x
+    keys = [k for k in b if k.startswith("tar@")]
+    return bool(keys) and all(
+        v(a.get(k)) == v(b[k]) or (np.isnan(v(a.get(k, 0.0)))
+                                   and np.isnan(v(b[k]))) for k in keys)
+
+
+def _host_segment_mean(x: np.ndarray, seg: np.ndarray, n: int) -> np.ndarray:
+    """Plain f64 segment means on the host: a (segments, rows) 0/1 sparse
+    matrix times the rows."""
+    from scipy import sparse
+
+    onehot = sparse.csr_matrix((np.ones(len(seg)), (seg, np.arange(len(seg)))),
+                               shape=(n, len(seg)))
+    counts = np.bincount(seg, minlength=n).astype(np.float64)
+    return (onehot @ x.astype(np.float64)) / np.maximum(counts, 1)[:, None]
+
+
+def _host_tar(sims: np.ndarray, labels: np.ndarray, fars) -> dict:
+    """TAR at each FAR, plainly: k = floor(FAR * impostors) impostors may
+    pass, so the threshold is the (k + 1)-th highest impostor score and a
+    genuine pair is accepted strictly above it (NaN where k is 0: a FAR
+    finer than the impostors resolve)."""
+    genuine = sims[labels == 1]
+    impostor = np.sort(sims[labels == 0])
+    out = {}
+    for far in fars:
+        k = int(far * len(impostor))
+        thr = impostor[len(impostor) - 1 - k]
+        out[f"tar@far={far:g}"] = (np.count_nonzero(genuine > thr)
+                                   / len(genuine) if k else float("nan"))
+    return out
+
+
+def phase_templates(g, work: str) -> dict:
+    """Phase 18: IJB templates at IJB-C's 1:1 counts (synthetic
+    embeddings): aggregate_templates and verify_templates on the card
+    against a plain host computation (f64 segment means, pair scores
+    from the templates' f32 Gram matrix, TAR from a sort of the impostor
+    scores; TAR equal, templates allclose at 1e-5), then
+    cli.eval_templates end to end on a 10^6-pair file; the seconds of
+    each stage."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.ops.templates import (
+        aggregate_templates, verify_templates)
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    say(f"[18 templates] {bench.gpu_info()}")
+    times = {}
+    emb, tids, mids, pairs, labels = _ijbc_synthetic(g)
+    times["synthetic data"] = time.time() - t0
+    t1 = time.time()
+    t_emb, keys = aggregate_templates(emb, tids, mids, device="cuda")
+    torch.cuda.synchronize()
+    times["aggregate (card)"] = time.time() - t1
+    t1 = time.time()
+    fars = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
+    report = verify_templates(t_emb, keys, pairs, labels, fars=fars,
+                              device="cuda")
+    times["verify (card)"] = time.time() - t1
+    # the plain host computation, independent of the port's functions
+    t1 = time.time()
+    tk, tidx = np.unique(tids, return_inverse=True)
+    mk, midx = np.unique(np.stack([tidx, mids], 1), axis=0,
+                         return_inverse=True)
+    media = _host_segment_mean(emb, midx.reshape(-1), len(mk))
+    host = _host_segment_mean(media, mk[:, 0], len(tk))
+    host = (host / np.sqrt((host * host).sum(1, keepdims=True) + 1e-12)
+            ).astype(np.float32)
+    times["aggregate (host)"] = time.time() - t1
+    t1 = time.time()
+    i1, i2 = np.searchsorted(tk, pairs[:, 0]), np.searchsorted(tk, pairs[:, 1])
+    expect(bool((tk[i1] == pairs[:, 0]).all()
+                and (tk[i2] == pairs[:, 1]).all()), "a pair names no template")
+    # every pair's cosine from the templates' f32 Gram matrix (2.1 GB)
+    sims = (host @ host.T)[i1, i2]
+    want = _host_tar(sims, labels, fars)
+    times["verify (host)"] = time.time() - t1
+    tmpl_diff = float(np.abs(t_emb - host).max())
+    tars = {k: v for k, v in report.items() if k.startswith("tar@")}
+    say(f"  (a) {len(emb):,} faces, {len(keys):,} templates, "
+        f"{report['pairs']:,} pairs ({report['positives']:,} genuine): "
+        f"templates max |card - host| {tmpl_diff:.3g}; TAR {tars}; host "
+        f"TAR equal: {_same_tar(want, report)}")
+    expect(tk.tolist() == keys.tolist(), "template keys differ")
+    expect(np.allclose(t_emb, host, rtol=1e-5, atol=1e-5),
+           f"templates card vs host max |diff| {tmpl_diff}")
+    expect(_same_tar(want, report), f"TAR card {tars} vs host {want}")
+    expect(any(0 < v < 1 for v in tars.values()), f"degenerate TAR {tars}")
+    # the CLI on a 10^6-pair file
+    t1 = time.time()
+    emb_path = os.path.join(work, "ijbc_emb.npy")
+    meta = os.path.join(work, "ijbc_meta.txt")
+    pair_file = os.path.join(work, "ijbc_pairs.txt")
+    np.save(emb_path, emb)
+    with open(meta, "w") as f:
+        f.writelines(f"{t} {m}\n" for t, m in zip(tids.tolist(),
+                                                  mids.tolist()))
+    sub = slice(0, 1_000_000)
+    with open(pair_file, "w") as f:
+        f.writelines(f"{a} {b} {c}\n" for (a, b), c in zip(
+            pairs[sub].tolist(), labels[sub].tolist()))
+    times["CLI inputs written"] = time.time() - t1
+    t1 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.eval_templates",
+         "--embeddings", emb_path, "--meta", meta, "--pairs", pair_file,
+         "--fars", "1e-1,1e-2,1e-3,1e-4", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0,
+           f"cli.eval_templates failed:\n{proc.stderr[-3000:]}")
+    cli_report = json.loads(proc.stdout)
+    times["cli.eval_templates"] = time.time() - t1
+    # the same 10^6 pairs in this process (string ids: the CLI's)
+    inproc = verify_templates(
+        t_emb, keys.astype(str), pairs[sub].astype(str), labels[sub],
+        fars=(1e-1, 1e-2, 1e-3, 1e-4), device="cuda")
+    same = _same_tar(cli_report, inproc)
+    say(f"  (b) cli.eval_templates, 10^6 pairs: templates "
+        f"{cli_report['templates']:,}, images {cli_report['images']:,}, "
+        f"TAR { {k: v for k, v in cli_report.items() if k.startswith('tar@')} }"
+        f", equal to the in-process report: {same}")
+    expect(cli_report["templates"] == len(keys)
+           and cli_report["images"] == len(emb), "CLI counts")
+    expect(same, f"CLI report {cli_report} vs {inproc}")
+    for f in (emb_path, meta, pair_file):
+        os.remove(f)
+    total = time.time() - t0
+    say("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f"; phase 18: {total:.1f} s")
+    return {"tar": tars, "seconds": total, "stages": times}
+
+
+# the optimizers' learning rates at config 4 (SGD keeps the preset's 0.1)
+_OPT_LR = {"adam": 1e-3, "adamw": 1e-3, "lars": 0.1}
+# phase 19(c)'s bound on the largest per-leaf |card - host| / |update|
+# after 3 f32 steps (the noise-only leaf apart). The card's and the
+# host's convolutions round differently; Adam's update is near the sign
+# of the gradient, so entries that nearly cancel flip it: a whole leaf
+# can differ by a third of its update there, where a wrong moment or
+# rate moves it by the whole update or more. LARS scales the gradient
+# itself, so its bound is tight enough to see a wrong trust ratio.
+_OPT_PARITY = {"adam": 1.0, "adamw": 1.0, "lars": 0.1}
+
+
+def _rel_update_diff(a: dict, b: dict, start: dict) -> tuple[float, str]:
+    """The largest per-leaf |a - b| / |b - start| (L2 norms) over the
+    leaves ``b`` moved."""
+    worst, name = 0.0, ""
+    for k, v in b.items():
+        moved = (v - start[k]).norm().item()
+        if moved == 0:
+            continue
+        r = (a[k] - v).norm().item() / moved
+        if r > worst:
+            worst, name = r, k
+    return worst, name
+
+
+def phase_optimizers(g, work: str, teacher_dir: str,
+                     single_faces_per_sec: float) -> dict:
+    """Phase 19: Adam, AdamW, LARS and distillation at config 4 (r50 face
+    stem, bf16, batch 256, CosFace over 10,572 classes, --pallas_input):
+    cli.train 20 steps under each optimizer (kernel 1 once a step),
+    faces/s, device ms and peak memory under each (time_training, 8
+    steps after 2); 3 f32 steps at batch 32 from one state and one set
+    of batches on the card and on the host (TF32 off) per optimizer, the
+    host's in a thread beside the cli.train runs; an
+    exact resume under Adam; distillation of a fresh resnet_v1_50 from
+    ``teacher_dir`` at alpha 1 and 0.5 (cli.train, 20 steps), its
+    distill_loss and its faces/s."""
+    import dataclasses
+    import shutil
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.cli.train import build_teacher
+    from tf_face_toolbox_tpu_torch.interop.port import named_to_flat
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[19 optimizers, distillation] {gpu}")
+    args4 = ["--network", "resnet_v1_50", "--stem", "face", "--num_classes",
+             "10572", "--global_batch", "256", "--bf16", "--pallas_input",
+             "--data", "synthetic", "--num_steps", "20", "--log_every", "5"]
+    # (c)'s host half runs in a thread beside (a)'s subprocesses (the
+    # host's f32 steps take ~10 s each; (a) times nothing)
+    rng = np.random.default_rng(19)
+    data = [(rng.standard_normal((32, 112, 112, 3)).astype(np.float32),
+             rng.integers(0, 10572, 32)) for _ in range(3)]
+    host_runs: dict = {}
+
+    def parity_cfg(name):
+        return TrainConfig(network="resnet_v1_50", stem="face",
+                           num_classes=10572, global_batch=32, augment=False,
+                           optimizer=name, dtype=torch.float32,
+                           base_lr=_OPT_LR[name])
+
+    def host_steps():
+        for name in _OPT_LR:
+            state, net = create_train_state(parity_cfg(name), 0, device="cpu")
+            start = {k: v.detach().clone() for k, v in state.params.items()}
+            # copies: on the host these arrays share the live tensors
+            init = ({k: v.copy() for k, v in named_to_flat(
+                {**state.params, **state.batch_stats}).items()},
+                    state.classifier.detach().numpy().copy())
+            step = make_train_step(net, parity_cfg(name), state)
+            for x, y in data:
+                state, m = step(state, x, y)
+            host_runs[name] = (init, start, float(m["loss"]), {
+                k: v.detach() for k, v in state.params.items()})
+
+    import threading
+
+    t1 = time.time()
+    host_thread = threading.Thread(target=host_steps)
+    host_thread.start()
+    cli = {}
+    try:
+        # the three runs side by side: (a) times nothing
+        runs = train_clis([[*args4, "--optimizer", name, "--base_lr",
+                            str(lr)] for name, lr in _OPT_LR.items()],
+                          timeout=600)
+        for (name, lr), (step, logged, launches) in zip(_OPT_LR.items(),
+                                                        runs):
+            cli[name] = launches
+            say(f"  (a) cli.train --optimizer {name} --base_lr {lr}: step "
+                f"{step}, losses {[round(v, 4) for v in logged['loss']]}, "
+                f"kernel 1 launches {launches} in 20 steps")
+            expect(step == 20 and launches == 20,
+                   f"{name}: step {step}, {launches} kernel 1 launches")
+            expect(all(np.isfinite(logged["loss"])), f"{name} losses")
+        say(f"  (a) the three runs side by side: {time.time() - t1:.1f} s")
+    finally:
+        host_thread.join()
+    expect(host_runs.keys() == _OPT_LR.keys(), "the host's parity steps")
+    # 3 f32 steps at batch 32, the card's from the host's initial state
+    parity = {}
+    for name in _OPT_LR:
+        (flat, cls), start, host_loss, host = host_runs[name]
+        card, cnet = create_train_state(parity_cfg(name), 0, variables=flat,
+                                        classifier=cls, device="cuda")
+        step = make_train_step(cnet, parity_cfg(name), card)
+        for x, y in data:
+            card, cm = step(card, x, y)
+        # the Dense bias ahead of the head's BatchNorm has no gradient in
+        # exact arithmetic: its update is rounding noise, read apart
+        noise = bt.NOISE_ONLY
+        worst, leaf = _rel_update_diff(
+            {k: v.detach().cpu() for k, v in card.params.items()
+             if k != noise},
+            {k: v for k, v in host.items() if k != noise}, start)
+        noise_rel, _ = _rel_update_diff(
+            {noise: card.params[noise].detach().cpu()},
+            {noise: host[noise]}, start)
+        loss_rel = abs(float(cm["loss"]) / host_loss - 1)
+        parity[name] = worst
+        say(f"  (c) {name}: 3 f32 steps at batch 32, card vs host: largest "
+            f"per-leaf |card - host| / |update| {worst:.3g} ({leaf}; the "
+            f"noise-only {noise} {noise_rel:.3g}), loss relative difference "
+            f"{loss_rel:.2g}")
+        expect(loss_rel < 1e-3, f"{name}: card loss vs host {loss_rel}")
+        expect(worst < _OPT_PARITY[name],
+               f"{name}: card vs host {worst} of {leaf}'s update > "
+               f"{_OPT_PARITY[name]}")
+        del card, cnet
+    del host_runs
+    say(f"  (a), (c) {time.time() - t1:.1f} s")
+    cfg4 = bt.config4()
+    rates = {}
+    for name in ("sgd", *_OPT_LR):
+        cfg = dataclasses.replace(cfg4, optimizer=name,
+                                  base_lr=_OPT_LR.get(name, cfg4.base_lr))
+        r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1)
+        rates[name] = r
+        say(f"  (b) time_training {name}: {r['faces_per_sec']:.1f} faces/s "
+            f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x phase 11's "
+            f"{single_faces_per_sec:.1f}; "
+            f"{r['faces_per_sec'] / rates['sgd']['faces_per_sec']:.4f} "
+            f"x SGD here), {r['ms_per_step']:.2f} ms/step, "
+            f"{r['device_ms_per_step']:.2f} device ms, idle "
+            f"{r['idle_share']:.1%}, peak {r['peak_memory_gb']:.2f} GB")
+        expect(np.isfinite(r["loss"]), f"{name} time_training loss")
+        torch.cuda.empty_cache()
+    # exact resume under Adam: 4 straight steps against 2 + save +
+    # restore into a fresh state + 2, cuDNN deterministic
+    t1 = time.time()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = dataclasses.replace(cfg4, optimizer="adam", base_lr=1e-3)
+        u8 = [(torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                             device="cuda", dtype=torch.uint8),
+               torch.randint(0, 10572, (256,), generator=g, device="cuda"))
+              for _ in range(4)]
+
+        def run(state, net, batches):
+            step = make_train_step(net, cfg, state)
+            for x, y in batches:
+                state, _ = step(state, x, y)
+            return state
+
+        straight = run(*create_train_state(cfg, 0, device="cuda"), u8)
+        want = _full_state(straight)
+        del straight
+        half, hnet = create_train_state(cfg, 0, device="cuda")
+        half = run(half, hnet, u8[:2])
+        ckpt = os.path.join(work, "adam_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        mgr = CheckpointManager(ckpt)
+        mgr.maybe_save(half, force=True)
+        del half, hnet
+        fresh, fnet = create_train_state(cfg, 1, device="cuda")
+        mgr.restore(fresh)
+        got = _full_state(run(fresh, fnet, u8[2:]))
+        diff = max((got[k] - want[k]).abs().max().item() for k in want)
+        expect(got.keys() == want.keys(), "resumed state's tensors differ")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    say(f"  (d) Adam, 4 straight steps vs 2 + save + restore + 2 (cuDNN "
+        f"deterministic): {len(want)} tensors incl. moments and step, max "
+        f"|diff| {diff}; {time.time() - t1:.1f} s")
+    expect(diff == 0, f"Adam resume max |diff| {diff}")
+    del u8, want, got, fresh, fnet
+    torch.cuda.empty_cache()
+    # distillation from phase 12's trained checkpoint
+    distill = {}
+    t1 = time.time()
+    alphas = (1.0, 0.5)
+    runs = train_clis([[*args4, "--distill_from", teacher_dir,
+                        "--distill_network", "resnet_v1_50",
+                        "--distill_alpha", str(alpha)] for alpha in alphas],
+                      timeout=600)
+    say(f"  (e) cli.train --distill_from, both alphas side by side: "
+        f"{time.time() - t1:.1f} s")
+    for alpha, (step, logged, launches) in zip(alphas, runs):
+        t1 = time.time()
+        dl = logged.get("distill_loss", [])
+        expect(step == 20 and launches == 20,
+               f"distill alpha {alpha}: step {step}, {launches} launches")
+        expect(len(dl) == 4 and (alpha < 1 or dl[-1] < dl[0]),
+               f"distill alpha {alpha}: distill_loss {dl} not falling")
+        expect((alpha < 1) == ("margin_loss" in logged),
+               f"alpha {alpha}: margin_loss logged {'margin_loss' in logged}")
+        cfg = dataclasses.replace(cfg4, distill_alpha=alpha)
+        teacher = build_teacher(cfg, teacher_dir)
+        r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1,
+                             teacher=teacher)
+        del teacher
+        torch.cuda.empty_cache()
+        distill[alpha] = {"launches": launches, "faces_per_sec":
+                          r["faces_per_sec"], "distill_loss": dl}
+        say(f"  (e) distill alpha {alpha} from {os.path.relpath(teacher_dir, ROOT)}: "
+            f"cli.train 20 steps, distill_loss {[round(v, 4) for v in dl]}, "
+            f"kernel 1 launches {launches}; time_training "
+            f"{r['faces_per_sec']:.1f} faces/s "
+            f"({r['faces_per_sec'] / rates['sgd']['faces_per_sec']:.4f} x "
+            f"config 4 here), {r['device_ms_per_step']:.2f} device ms, peak "
+            f"{r['peak_memory_gb']:.2f} GB; time_training "
+            f"{time.time() - t1:.1f} s")
+    total = time.time() - t0
+    say(f"  phase 19: {total:.1f} s; {gpu}")
+    return {"cli_launches": cli, "rates": {k: v["faces_per_sec"]
+                                           for k, v in rates.items()},
+            "parity": parity, "resume_max_diff": diff, "distill": distill,
+            "seconds": total}
+
+
+def _full_state(state) -> dict:
+    """Host copies of a train state's tensors, its optimizer's included."""
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"batch_stats/{k}": v for k, v in state.batch_stats.items()})
+    out["classifier"] = state.classifier
+    opt = state.opt_state["optimizer"]
+    for name, p in {**state.params, "classifier": state.classifier}.items():
+        for slot, t in opt.state.get(p, {}).items():
+            out[f"{slot}/{name}"] = t
+    return {k: v.detach().float().cpu().clone() for k, v in out.items()}
 
 
 def main() -> None:
@@ -2201,9 +3037,10 @@ def main() -> None:
     say(f"[2 build] {os.path.relpath(lib_path, ROOT)} in "
         f"{time.time() - t0:.1f} s (nvcc sm_90a)")
 
+    g = torch.Generator(device="cuda").manual_seed(0)
+
     # ---- 3. kernels vs their plain versions
     say("[3 kernels]")
-    g = torch.Generator(device="cuda").manual_seed(0)
     u8 = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
                        device="cuda", dtype=torch.uint8)
     flips = torch.randint(0, 2, (256,), generator=g, device="cuda")
@@ -2427,6 +3264,13 @@ def main() -> None:
     heads = phase_loss_heads(g, work, train["time"]["faces_per_sec"])
     # ---- 16. SE-ResNet, ResNeXt, SE-ResNeXt, DenseNet, space2depth
     backbones = phase_backbones(g, u8, work, train["time"]["faces_per_sec"])
+    # ---- 17. the rest of extraction: resumable chunks, quality, ranks
+    extract17 = phase_extract_resume(g, work)
+    # ---- 18. IJB templates at IJB-C's 1:1 counts
+    phase_templates(g, work)
+    # ---- 19. Adam, AdamW, LARS; distillation from phase 12's checkpoint
+    opt19 = phase_optimizers(g, work, os.path.join(work, "ckpt_run"),
+                             train["time"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -2468,19 +3312,19 @@ def main() -> None:
          "checkpoint_train_launches": ckpt["launches"],
          "checkpoint_train_steps": [ckpt["k"], 20 - ckpt["k"]],
          # phase 13: config 5 under torchrun (20 steps, one rank), and
-         # each of two gloo ranks on cuda:0 (3 steps)
+         # each of two gloo ranks on cuda:0 (2 steps)
          "data_parallel_launches": dp["cli_launches"],
          "data_parallel_steps": 20,
          "data_parallel_rank_launches": dp["rank_launches"],
          # phase 14: config 7 through cli.train (20 steps, one rank), and
-         # each of four gloo ranks on cuda:0 (3 steps a head)
+         # each of four gloo ranks on cuda:0 (2 steps a head)
          "partial_fc_launches": pfc["cli_launches"],
          "partial_fc_steps": 20,
          "partial_fc_rank_launches": {h: pfc[h]["launches"]
                                       for h in ("exact", "sampled")},
          # phase 15: preset 8 through cli.train (20 steps), one step a
          # head through each route, and each of four gloo ranks on
-         # cuda:0 (3 steps a head)
+         # cuda:0 (2 steps a head)
          "loss_heads_launches": heads["cli_launches"],
          "loss_heads_steps": 20,
          "loss_heads_route_launches": {
@@ -2493,7 +3337,13 @@ def main() -> None:
                                     backbones["nets"].items()},
          "backbones_train_launches": {k: v["launches"] for k, v in
                                       backbones["train"].items()},
-         "backbones_train_steps": 5},
+         "backbones_train_steps": 5,
+         # phase 19: cli.train 20 steps under each optimizer, and 20
+         # steps distilling at each alpha
+         "optimizers_launches": opt19["cli_launches"],
+         "distill_launches": {str(a): d["launches"]
+                              for a, d in opt19["distill"].items()},
+         "optimizers_steps": 20},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",
@@ -2518,7 +3368,11 @@ def main() -> None:
          # phase 16: resnet_v1_50 at the space2depth stem (a stride-1
          # entry block at 56x56), 256 images, and se_resnet_50 fused
          # (its SE stages stay folded: 0 launches)
-         "space2depth": backbones["space2depth"]},
+         "space2depth": backbones["space2depth"],
+         # phase 17: cli.extract --engine fused, 16,384 faces at batch
+         # 256: one shot, the chunked run killed and its rerun, and 128
+         # faces with --output_quality
+         "extract_resume_launches": extract17["launches"]},
     ]
     for name, row, replaces in (("topk", t_topk, 118), ("topk_q", t_topk_q, 194)):
         kernels.append({

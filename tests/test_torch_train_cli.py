@@ -108,8 +108,18 @@ _REFUSED += [(_set(name, d), "must be 'P,K'" if name == "balanced_pk"
               else None) for name, d in _ITEM_9.items()]
 _REFUSED += [(argv, None) for argv in (
     ["--margin=adaface"], ["--margin=magface"], ["--margin=curricular"])]
-_REFUSED += [(argv, f"item {item}") for argv, item in (
-    (["--loader=native_dct"], "17"), (["--optimizer=lars"], "10c"))]
+_REFUSED += [(["--loader=native_dct"], "item 17")]
+# item 10c's flags raised naming it until it was ported: each now trains
+# (a teacher trained in the module's fixture, ``{teacher}``)
+_REFUSED += [(argv, None) for argv in (
+    ["--distill_from={teacher}", "--distill_network=resnet_tiny"],
+    ["--distill_network=resnet_tiny", "--distill_from={teacher}"],
+    ["--distill_stem=imagenet"], ["--distill_head=flatten"],
+    ["--distill_alpha=0.5", "--distill_network=resnet_tiny",
+     "--distill_from={teacher}"],
+    ["--distill_use_ema", "--distill_network=resnet_tiny",
+     "--distill_from={teacher}"],
+    ["--optimizer=lars"])]
 # item 4's stem raised naming it until it was ported: it now trains
 _REFUSED += [(["--stem=space2depth"], None)]
 # item 11's flags are served: each refuses only what it cannot do (a
@@ -120,9 +130,24 @@ _REFUSED += [(["--mesh_model=2"], "1 ranks not divisible by model=2"),
               "cannot pool sub-centers")]
 
 
+@pytest.fixture(scope="module")
+def teacher(tmp_path_factory):
+    """A train dir of 2 resnet_tiny steps with EMA: a distillation
+    teacher."""
+    run = str(tmp_path_factory.mktemp("teacher") / "run")
+    cli_train.main([*TINY, "--data=synthetic", "--num_classes=10",
+                    "--num_steps=2", f"--train_dir={run}", "--save_every=2",
+                    "--ema_decay=0.9"])
+    return run
+
+
 @pytest.mark.parametrize("argv,why", _REFUSED,
                          ids=[a[0].split("=")[0] for a, _ in _REFUSED])
-def test_unported_flags_raise_naming_their_item(argv, why, capsys):
+def test_unported_flags_raise_naming_their_item(argv, why, capsys, request):
+    if any("{teacher}" in a for a in argv):
+        run = request.getfixturevalue("teacher")
+        argv = [a.replace("{teacher}", run) for a in argv]
+        capsys.readouterr()
     if why is None:      # ported since: the flag trains
         cli_train.main([*TINY, *argv])
         out = capsys.readouterr().out.strip().splitlines()
@@ -203,9 +228,23 @@ def test_loop_raises_on_an_unguarded_nonfinite_loss():
 
 
 def test_loop_refuses_a_teacher_naming_item_10c():
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        train_loop(_tiny_cfg(), iter(()), num_steps=1, device="cpu",
-                   teacher=(None, {}))
+    """Distillation (item 10c) raised here until it was ported: the loop
+    now trains a student against a teacher (a module or (module,
+    variables)) and logs its distill loss."""
+    from tf_face_toolbox_tpu_torch.models import init_parameters
+    from tf_face_toolbox_tpu_torch.train.trainer import build_network
+
+    cfg = _tiny_cfg(augment=False)
+    teacher = build_network(cfg)
+    init_parameters(teacher, 7)
+    rng = np.random.default_rng(0)
+    batches = ({"image": rng.standard_normal((8, 16, 16, 3)).astype(
+        np.float32), "label": rng.integers(0, 6, 8)} for _ in range(3))
+    result = train_loop(cfg, batches, num_steps=3, log_every=1,
+                        device="cpu", teacher=teacher)
+    assert result.state.step == 3
+    assert np.isfinite(result.last_metrics["distill_loss"])
+    assert "margin_loss" not in result.last_metrics
 
 
 @pytest.mark.parametrize("argv,why", [

@@ -216,8 +216,10 @@ def head_snapshot(head_state) -> dict | None:
 
 def snapshot(state) -> dict:
     """Host copies of a state in the JAX key space and layouts: variables,
-    classifier, momentum (as ``momentum/<key>``), EMA, the loss-head
-    state (``head_snapshot``) and the step."""
+    classifier, momentum (as ``momentum/<key>``), the other optimizers'
+    state (``opt``: ``<slot>/<parameter name>``, Adam's moments and step,
+    LARS's trace), EMA, the loss-head state (``head_snapshot``) and the
+    step."""
     from tf_face_toolbox_tpu_torch.interop import port
 
     def named_to_flat(named):
@@ -231,7 +233,13 @@ def snapshot(state) -> dict:
         if buf is not None:
             momentum[name] = buf
     cls_buf = momentum.pop("classifier", None)
+    slots = {f"{slot}/{name}": t.detach().cpu().numpy().copy()
+             for name, p in {**state.params,
+                             "classifier": state.classifier}.items()
+             for slot, t in opt.state.get(p, {}).items()
+             if slot != "momentum_buffer"}
     return {"vars": named_to_flat({**state.params, **state.batch_stats}),
+            "opt": slots,
             "classifier": state.classifier.detach().cpu().numpy().copy(),
             "momentum": {"params": named_to_flat(momentum),
                          "classifier": (None if cls_buf is None else
@@ -276,11 +284,13 @@ def collectives_case(topo) -> tuple:
 def train_steps(topo, cfg_kw: dict, flat=None, cls=None, nan_at=None,
                 steps=STEPS, seed=0, u8=False, model=1, classes=CLASSES,
                 draws=None, keep_snapshots=True,
-                data_seed=7) -> tuple[list, list, int]:
+                data_seed=7, teacher_flat=None) -> tuple[list, list, int]:
     """``steps`` steps of the collective step on ``batches``, the ranks on
     a (world / ``model``, ``model``) grid (``draws``: the sampled head's
-    keys by generator seed, see ``installed_draws``): (metrics and
-    snapshot after each, its classifier a shard, kernel 1 launches)."""
+    keys by generator seed, see ``installed_draws``; ``teacher_flat``: a
+    distillation teacher's variables, a network as the student's):
+    (metrics and snapshot after each, its classifier a shard, kernel 1
+    launches)."""
     from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
         fused_preprocess)
     from tf_face_toolbox_tpu_torch.train.trainer import (
@@ -291,7 +301,11 @@ def train_steps(topo, cfg_kw: dict, flat=None, cls=None, nan_at=None,
     state, net = create_train_state(cfg, seed, variables=flat,
                                     classifier=cls, mesh=mesh,
                                     device=topo.device)
-    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    teacher = None
+    if teacher_flat is not None:
+        from tf_face_toolbox_tpu_torch.train.trainer import build_network
+        teacher = (build_network(cfg), teacher_flat)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh, teacher=teacher)
     metrics, snaps = [], []
     launches = fused_preprocess.launches
     with installed_draws(draws):
@@ -337,6 +351,9 @@ def join_shards(snaps: list) -> dict:
     cls = [s["momentum"]["classifier"] for s in snaps]
     out["momentum"] = {**snaps[0]["momentum"], "classifier": (
         None if cls[0] is None else np.concatenate(cls))}
+    out["opt"] = {k: (np.concatenate([s["opt"][k] for s in snaps])
+                      if k.endswith("/classifier") and v.ndim else v)
+                  for k, v in snaps[0]["opt"].items()}
     if out.get("head") and "centers" in out["head"]:
         out["head"] = {**out["head"], "centers": np.concatenate(
             [s["head"]["centers"] for s in snaps])}
@@ -601,3 +618,29 @@ def steps_from(topo, cfg_kw: dict, starts: list, model=1, classes=CLASSES,
             out.append(({k: float(v) for k, v in m.items()},
                         snapshot(state)))
     return out
+
+
+def extract_ranks(topo, shard: str, flat: dict, output: str, batch: int,
+                  chunk_rows: int, net_kw: dict) -> tuple:
+    """Data-parallel extraction of ``shard`` on the ranks (a resnet_tiny
+    holding ``flat``, 16 px crops of 20 px faces, the python loader):
+    (one-shot embeddings, quality, this rank's return of the resumable
+    ``.npy`` writer into ``output``: the array on rank 0, None elsewhere)."""
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import (
+        extract_shard, extract_shard_to_npy, make_extract_fn)
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import create_network
+
+    net = load_jax_variables(create_network("resnet_tiny", **net_kw),
+                             flat).eval()
+    src = FaceShardSource(shard)
+    kw = dict(image_size=16, crop_from=20, batch=batch, num_threads=1,
+              loader="python", device=topo.device)
+    emb, quality = extract_shard(
+        net, flat, src, with_quality=True,
+        extract_fn=make_extract_fn(net, with_quality=True, mesh=topo), **kw)
+    out = extract_shard_to_npy(net, flat, src, output, chunk_rows=chunk_rows,
+                               extract_fn=make_extract_fn(net, mesh=topo),
+                               mesh=topo, **kw)
+    return emb, quality, None if out is None else np.array(out)

@@ -11,6 +11,9 @@ step's two augment routes held against each other, and remat's trade.
         --mesh_model <N>
     python -m tf_face_toolbox_tpu_torch.bench_train \
         --preset adaface_noisy_data
+    python -m tf_face_toolbox_tpu_torch.bench_train --optimizer lars
+    python -m tf_face_toolbox_tpu_torch.bench_train \
+        --distill_from /tmp/run --distill_alpha 0.5
 
 BASELINE config 4 at full width (or ``--preset``'s config: 5 is the
 same network and head; 7 the same network with the class-sharded head
@@ -27,8 +30,11 @@ torch.profiler (device time by kernel kind, collectives included; the
 head's cosine GEMMs, top-k and gathers as one kind; the idle share),
 and counts the step's operations from the conv and Dense shapes and
 the classifier columns scored; ``head`` names the loss head.
-``--remat`` builds the network with that ``remat`` argument. Prints one
-JSON line. There is no CPU mode: a
+``--remat`` builds the network with that ``remat`` argument.
+``--optimizer`` trains under adam, adamw or lars instead of SGD;
+``--distill_from`` (a train dir or a JAX-key ``.npz`` of a
+``resnet_v1_50``, face stem) adds a frozen teacher's eval forward to
+each step, weighted ``--distill_alpha``. Prints one JSON line. There is no CPU mode: a
 measurement that finds no card fails.
 """
 
@@ -177,11 +183,12 @@ def device_profile(fn: Callable, *args, iters: int) -> dict:
 
 def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
                   profile_steps: int = 5, seed: int = 0, remat=False,
-                  mesh=None, device="cuda") -> dict:
+                  mesh=None, device="cuda", teacher=None) -> dict:
     """ms/step and faces/sec, in all and a GPU (CUDA events over
     ``steps`` after ``warmup``), peak memory, and device time by kernel
     and the idle share over ``profile_steps`` traced steps (none at 0).
-    ``mesh``: this rank's topology; every rank calls this."""
+    ``mesh``: this rank's topology; every rank calls this. ``teacher``:
+    a distillation teacher, as ``make_train_step`` takes it."""
     from tf_face_toolbox_tpu_torch.cli.train import synthetic_batches
     from tf_face_toolbox_tpu_torch.data.pipeline import (
         device_prefetch, host_prefetch)
@@ -191,7 +198,7 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     state, net = create_train_state(cfg, seed, mesh=mesh, device=device,
                                     net=build_network(cfg, **_remat(remat)))
-    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh, teacher=teacher)
     parts = StepParts(net, cfg, state, mesh)
     # the classifier rows a step scores, over the model row's shards
     columns = (state.classifier.shape[0] * parts.model
@@ -225,7 +232,8 @@ def time_training(cfg: TrainConfig, *, steps: int = 20, warmup: int = 5,
     peak = torch.cuda.max_memory_allocated()
     out = {"batch": cfg.global_batch, "ranks": world,
            "model": parts.model, "classes": cfg.num_classes,
-           "head": head_kind(cfg),
+           "head": head_kind(cfg), "optimizer": cfg.optimizer,
+           "distill_alpha": cfg.distill_alpha if teacher else None,
            "pfc_sample_rate": cfg.pfc_sample_rate, "budget": parts.budget,
            "classifier_columns": columns, "steps": steps,
            "warmup": warmup, "remat": remat,
@@ -395,6 +403,13 @@ def main(argv=None) -> None:
                    help="the head's sample rate (default: the preset's)")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="under torchrun: the model axis of the ranks")
+    p.add_argument("--optimizer", default=None,
+                   choices=["sgd", "adam", "adamw", "lars"],
+                   help="the optimizer (default: the preset's, SGD)")
+    p.add_argument("--distill_from", default="",
+                   help="a distillation teacher: a train dir or a .npz")
+    p.add_argument("--distill_alpha", type=float, default=1.0,
+                   help="the distill weight; < 1 mixes in the margin loss")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: torch sees no CUDA device")
@@ -415,8 +430,17 @@ def main(argv=None) -> None:
         if args.pfc_sample_rate is not None:
             cfg = dataclasses.replace(cfg,
                                       pfc_sample_rate=args.pfc_sample_rate)
+        if args.optimizer is not None:
+            cfg = dataclasses.replace(cfg, optimizer=args.optimizer)
+        teacher = None
+        if args.distill_from:
+            from tf_face_toolbox_tpu_torch.cli.train import build_teacher
+
+            cfg = dataclasses.replace(cfg, distill_alpha=args.distill_alpha)
+            teacher = build_teacher(cfg, args.distill_from)
         r = time_training(cfg, steps=args.steps, warmup=args.warmup,
-                          remat=REMAT[args.remat], mesh=mesh)
+                          remat=REMAT[args.remat], mesh=mesh,
+                          teacher=teacher)
         if mesh is not None:
             r["exchange"] = exchange_ms(cfg, mesh)
         if mesh is None or mesh.is_main:

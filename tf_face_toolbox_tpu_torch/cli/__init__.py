@@ -5,6 +5,8 @@
     python -m tf_face_toolbox_tpu_torch.cli.search    # 1:N top-k matches
     python -m tf_face_toolbox_tpu_torch.cli.eval_identification  # CMC, DIR@FAR
     python -m tf_face_toolbox_tpu_torch.cli.cluster   # kNN-graph clustering
+    python -m tf_face_toolbox_tpu_torch.cli.eval_templates  # IJB templates, TAR@FAR
+    python -m tf_face_toolbox_tpu_torch.cli.train     # margin-softmax training
 """
 
 

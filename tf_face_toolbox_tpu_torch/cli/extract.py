@@ -5,7 +5,11 @@ write flip-averaged L2-normalized embeddings to disk. Weights come from
 a port train directory (``--checkpoint_dir``, its latest step;
 ``--use_ema`` for the EMA set) or the JAX package's ``.npz`` hand-off
 (``--variables_npz``); with neither, the network gets seeded random
-weights. Prints the kernel launches it made.
+weights. Prints the kernel launches it made. ``--chunk_rows`` writes a
+resumable ``.npy`` in chunks (a crashed run re-run with the same flags
+recomputes at most one chunk); ``--output_quality`` also writes each
+face's feature-norm quality; ``--data_parallel`` splits each batch over
+torchrun's ranks (through the module), and rank 0 writes.
 
     python -m tf_face_toolbox_tpu_torch.cli.extract \\
         --variables_npz=/tmp/r50.npz --data=/data/lfw.faceshard \\
@@ -13,6 +17,17 @@ weights. Prints the kernel launches it made.
 
     python -m tf_face_toolbox_tpu_torch.cli.extract --checkpoint_dir=/tmp/run \\
         --data=/data/lfw.faceshard --output=/tmp/lfw.npy --engine=fused
+
+    # a corpus, resumable; two jobs fill one file from disjoint ranges
+    python -m tf_face_toolbox_tpu_torch.cli.extract --checkpoint_dir=/tmp/run \\
+        --data=/data/corpus.faceshard --output=/tmp/corpus.npy \\
+        --chunk_rows=65536 --rows=0:1000000
+
+    # on every GPU of a host
+    torchrun --standalone --nproc_per_node 8 -m \\
+        tf_face_toolbox_tpu_torch.cli.extract --data_parallel \\
+        --checkpoint_dir=/tmp/run --data=/data/lfw.faceshard \\
+        --output=/tmp/lfw.npy --output_quality=/tmp/lfw_quality.npy
 """
 
 from __future__ import annotations
@@ -70,7 +85,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="per_image = tf.image standardization; fixed = "
                         "(x-127.5)/127.5 (InsightFace-trained weights)")
     p.add_argument("--rows", default="",
-                   help="extract only records [lo:hi) of the shard")
+                   help="extract only records [lo:hi) of the shard; with "
+                        "--chunk_rows the rows land at their true offsets "
+                        "in a full-length output")
+    p.add_argument("--chunk_rows", type=int, default=0,
+                   help="resumable mode (.npy only): write the embeddings "
+                        "into a disk-backed .npy in chunks of this many "
+                        "rows, recording progress in a <output>[.rows<lo>-"
+                        "<hi>].progress.json sidecar; a re-run skips the "
+                        "finished chunks (0 = one-shot write)")
+    p.add_argument("--output_quality", default="",
+                   help="also write per-face quality scores (.npy, (N,)): "
+                        "the pre-normalization feature magnitude; one-shot "
+                        "mode only")
+    p.add_argument("--data_parallel", dest="data_parallel",
+                   action="store_true", default=False,
+                   help="split each batch over torchrun's ranks (NCCL on "
+                        "the card, gloo on the CPU; one rank without "
+                        "torchrun), serving through the module; rank 0 "
+                        "writes")
+    p.add_argument("--nodata_parallel", dest="data_parallel",
+                   action="store_false")
     p.add_argument("--bf16", dest="bf16", action="store_true", default=True,
                    help="bfloat16 compute (default)")
     p.add_argument("--nobf16", dest="bf16", action="store_false",
@@ -82,11 +117,52 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _weights_fingerprint(flat: dict, config_tag: str) -> str:
+    """The resume sidecar's model identity: ``config_tag`` and a digest of
+    the served variables (each flat JAX-key leaf's key, shape, dtype and
+    f64 sum), so that resuming a chunked extraction under other weights
+    recomputes instead of mixing two models in one file. The port's own
+    digest: a sidecar the JAX CLI wrote reads as another fingerprint."""
+    import hashlib
+
+    import numpy as np
+
+    leaves = []
+    for key in sorted(flat):
+        arr = np.asarray(flat[key])
+        leaves.append(f"{key}:{arr.shape}:{arr.dtype}:"
+                      f"{float(arr.astype(np.float64).sum()):.6e}")
+    digest = hashlib.sha1("|".join(leaves).encode()).hexdigest()[:16]
+    return f"{config_tag}/w={digest}"
+
+
+def _refuse(args) -> None:
+    """The flag combinations the JAX CLI refuses, with its messages."""
+    if args.checkpoint_dir and args.variables_npz:
+        raise SystemExit("--variables_npz and --checkpoint_dir are exclusive")
+    if args.data_parallel and args.engine in ("folded", "fused"):
+        raise SystemExit("--data_parallel shards net.apply over the device "
+                         "mesh; --engine folded/fused is single-device - "
+                         "drop one of the two")
+    if args.output_dtype == "float16" and args.chunk_rows:
+        raise SystemExit("--output_dtype=float16 is not available with "
+                         "--chunk_rows (the resumable memmap is f32); cast "
+                         "the finished file instead")
+    if args.chunk_rows and not args.output.endswith(".npy"):
+        raise SystemExit(
+            "--chunk_rows writes a disk-backed .npy (the memmap format); "
+            f"--output={args.output!r} is not .npy - drop --chunk_rows for "
+            ".npz/.mat/.bin one-shot dumps")
+    if args.chunk_rows and args.output_quality:
+        raise SystemExit("--output_quality is one-shot-mode only (the "
+                         "resumable memmap stores embeddings alone); drop "
+                         "--chunk_rows")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.checkpoint_dir and args.variables_npz:
-        raise SystemExit("--variables_npz and --checkpoint_dir are exclusive")
+    _refuse(args)
     if args.bundle:
         raise SystemExit("--bundle is not yet ported (ROADMAP.md §1 "
                          "item 16); pass --variables_npz")
@@ -104,11 +180,41 @@ def main(argv=None) -> None:
         except ValueError:
             raise SystemExit(f"--rows wants 'lo:hi', got {args.rows!r}")
 
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda, but torch sees no CUDA device; "
+                         "pass --device cpu to run on the host")
+    mesh = None
+    if args.data_parallel:
+        import os
+
+        from tf_face_toolbox_tpu_torch.parallel.mesh import (
+            create_topology, init_distributed)
+
+        mesh = (init_distributed(args.device) if "WORLD_SIZE" in os.environ
+                else create_topology(1, device=device))
+        device = mesh.device
+        if not mesh.is_main:
+            logging.getLogger().setLevel(logging.WARNING)
+        logging.info("data-parallel extraction over %d ranks", mesh.world)
+    try:
+        _extract(args, rows, device, mesh)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _extract(args, rows, device, mesh) -> None:
     import numpy as np
     import torch
 
     from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
-    from tf_face_toolbox_tpu_torch.extract import extract_shard, make_extract_fn
+    from tf_face_toolbox_tpu_torch.extract import (
+        extract_shard, extract_shard_to_npy, make_extract_fn)
     from tf_face_toolbox_tpu_torch.interop.port import (
         flatten_variables, load_jax_variables, load_variables_npz)
     from tf_face_toolbox_tpu_torch.io import save_embeddings
@@ -116,10 +222,6 @@ def main(argv=None) -> None:
     from tf_face_toolbox_tpu_torch.pretrained import load_variables
     from tf_face_toolbox_tpu_torch.serving import fused_block, make_serving_apply
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda, but torch sees no CUDA device; "
-                         "pass --device cpu to run on the host")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.checkpoint_dir:
         net, flat = load_variables(
@@ -139,7 +241,7 @@ def main(argv=None) -> None:
             logging.info("no --variables_npz: seeded random weights")
 
     apply_fn = None
-    if args.engine != "module":
+    if args.engine != "module" and mesh is None:
         try:
             apply_fn = make_serving_apply(net, flat, device=device,
                                           use_kernels=args.engine == "fused")
@@ -151,20 +253,53 @@ def main(argv=None) -> None:
             logging.info("serving engine not applicable (%s); using the "
                          "module path", e)
     if apply_fn is None:
+        # --data_parallel serves through the module, as JAX's net.apply
         apply_fn = load_jax_variables(net, flat).to(device)
+    main = mesh is None or mesh.is_main
+    quality = bool(args.output_quality)
+    extract_fn = make_extract_fn(apply_fn, with_quality=quality, mesh=mesh)
+    source = FaceShardSource(args.data)
     before = fused_block.fused_bottleneck_block.launches
-    emb = extract_shard(
-        net, flat, FaceShardSource(args.data), image_size=args.image_size,
-        crop_from=args.crop_from, batch=args.batch, loader=args.loader,
-        norm=args.input_norm, extract_fn=make_extract_fn(apply_fn),
-        rows=rows, device=device,
-        progress=lambda done, n: logging.info("extracted %d / %d", done, n))
-    if args.output_dtype == "float16":
-        emb = emb.astype(np.float16)
-    save_embeddings(args.output, emb)
+    # with this run's kernel 2 launches so far: a killed run's last line
+    # still says what it launched
+    progress = lambda done, n: logging.info(  # noqa: E731
+        "extracted %d / %d (kernel launches: fused_block=%d)", done, n,
+        fused_block.fused_bottleneck_block.launches - before)
+    if args.chunk_rows:
+        tag = (f"{args.network}/{args.stem}/{args.head}/"
+               f"dim={args.embedding_dim}/norm={args.input_norm}/q=False/"
+               f"bf16={args.bf16}")
+        emb = extract_shard_to_npy(
+            net, flat, source, args.output, image_size=args.image_size,
+            crop_from=args.crop_from, batch=args.batch,
+            chunk_rows=args.chunk_rows, loader=args.loader,
+            norm=args.input_norm, extract_fn=extract_fn, rows=rows,
+            fingerprint=_weights_fingerprint(flat, tag), mesh=mesh,
+            device=device, progress=progress)
+    else:
+        emb = extract_shard(
+            net, flat, source, image_size=args.image_size,
+            crop_from=args.crop_from, batch=args.batch, loader=args.loader,
+            norm=args.input_norm, extract_fn=extract_fn, rows=rows,
+            with_quality=quality, device=device, progress=progress)
     print("kernel launches: fused_block="
           f"{fused_block.fused_bottleneck_block.launches - before}",
           flush=True)
+    if not main:
+        return
+    if args.chunk_rows:
+        lo, hi = rows if rows else (0, emb.shape[0])
+        # emb is the full-length memmap: say what this job computed
+        print(f"wrote rows [{lo}:{hi}) of the {emb.shape} output "
+              f"{args.output}")
+        return
+    if quality:
+        emb, q = emb
+        np.save(args.output_quality, q.astype(np.float32))
+        print(f"wrote {q.shape} quality scores to {args.output_quality}")
+    if args.output_dtype == "float16":
+        emb = emb.astype(np.float16)
+    save_embeddings(args.output, emb)
     print(f"wrote {emb.shape} {emb.dtype} embeddings to {args.output}")
 
 

@@ -44,6 +44,12 @@ trains on one).
         --global_batch=256 --pallas_input --num_steps=30 --log_every=10 \\
         --train_dir=/tmp/run --save_every=10
 
+    # distil a student from a trained run (AdamW, half margin loss)
+    python -m tf_face_toolbox_tpu_torch.cli.train --data=faces.faceshard \\
+        --train_dir=/tmp/student --optimizer=adamw --base_lr=1e-3 \\
+        --distill_from=/tmp/run --distill_network=resnet_v1_50 \\
+        --distill_alpha=0.5
+
     # fine-tune from a train dir (or a JAX .npz), with the LFW hook
     python -m tf_face_toolbox_tpu_torch.cli.train --data=faces.faceshard \\
         --train_dir=/tmp/ft --finetune_from=/tmp/run \\
@@ -71,9 +77,6 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
 # flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
 _NOT_PORTED = {
     "drop_path": (0.0, "17"),
-    "distill_from": ("", "10c"), "distill_network": ("resnet_v1_50", "10c"),
-    "distill_stem": ("face", "10c"), "distill_head": ("gap", "10c"),
-    "distill_alpha": (1.0, "10c"), "distill_use_ema": (False, "10c"),
     "qat": (False, "18"),
 }
 
@@ -114,7 +117,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="cosine: half-cosine to 0 over --num_steps")
     p.add_argument("--optimizer", default="sgd",
                    choices=["sgd", "adam", "adamw", "lars"],
-                   help="sgd = momentum SGD (the others: item 10c)")
+                   help="sgd = momentum SGD; adam (L2 on the kernels), "
+                        "adamw (decoupled decay), lars (layerwise trust "
+                        "ratios, for large global batches)")
     p.add_argument("--base_lr", type=float, default=0.1)
     p.add_argument("--lr_boundaries", default="100000,160000,220000",
                    help="comma-separated staircase decay steps")
@@ -179,6 +184,24 @@ def _parser() -> argparse.ArgumentParser:
                    help="host decode: native C++ pool or Python threads "
                         "(native_dct: item 17)")
     p.add_argument("--ema_decay", type=float, default=0.0)
+    p.add_argument("--distill_from", default="",
+                   help="embedding distillation teacher: a port train dir "
+                        "or a JAX-key .npz; the student minimizes 1 - cos "
+                        "against the frozen teacher's embeddings, mixed "
+                        "with the margin loss by --distill_alpha")
+    p.add_argument("--distill_network", default="resnet_v1_50",
+                   help="teacher backbone name")
+    p.add_argument("--distill_stem", default="face",
+                   choices=["face", "imagenet", "space2depth"],
+                   help="teacher stem")
+    p.add_argument("--distill_head", default="gap", choices=["gap", "flatten"],
+                   help="teacher embedding head")
+    p.add_argument("--distill_alpha", type=float, default=1.0,
+                   help="distillation weight: 1.0 = pure distillation "
+                        "(labels unused), < 1 mixes in (1 - alpha) x the "
+                        "margin loss")
+    _bool_flag(p, "distill_use_ema", False,
+               "distill from the teacher checkpoint's EMA weights")
     _bool_flag(p, "pallas_input", False,
                "augment through the fused input kernel (the name of the "
                "JAX flag; here the CUDA kernel of ops/fused_preprocess)")
@@ -398,9 +421,49 @@ def build_config(args, num_classes: int):
             augment=True, crop_from=args.crop_from or args.image_size + 8,
             random_erase=args.random_erase, accum_steps=args.accum_steps,
             ema_decay=args.ema_decay, pallas_input=args.pallas_input,
-            input_norm=args.input_norm)
+            input_norm=args.input_norm, distill_alpha=args.distill_alpha)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
+
+
+def build_teacher(cfg, source: str, network: str = "resnet_v1_50",
+                  stem: str = "face", head: str = "gap",
+                  use_ema: bool = False):
+    """The frozen distillation teacher ``(net, flat variables)`` from
+    ``source`` (``--distill_from``: a port train dir, through
+    ``pretrained.load_variables``, or a JAX-key ``.npz``) at ``cfg``'s
+    embedding size, input size and dtype. A source lacking the params or
+    the BN statistics exits, as the JAX CLI's does."""
+    if not source.endswith(".npz"):
+        from tf_face_toolbox_tpu_torch.pretrained import load_variables
+
+        try:
+            net, flat = load_variables(
+                source, network, cfg.embedding_dim, cfg.image_size,
+                cfg.dtype, use_ema=use_ema, stem=stem, head=head)
+        except (FileNotFoundError, ValueError) as e:
+            raise SystemExit(f"--distill_from {source}: {e}")
+    else:
+        from tf_face_toolbox_tpu_torch.interop.port import (
+            flatten_variables, load_variables_npz)
+        from tf_face_toolbox_tpu_torch.models import create_network
+
+        if use_ema:
+            raise SystemExit(".npz sources hold one weight set; "
+                             "--distill_use_ema only applies to train-dir "
+                             "sources")
+        net = create_network(network, embedding_dim=cfg.embedding_dim,
+                             dtype=cfg.dtype, stem=stem, head_variant=head,
+                             input_size=cfg.image_size)
+        tree = load_variables_npz(source)
+        missing = [k for k in ("params", "batch_stats") if k not in tree]
+        if missing:
+            raise SystemExit(f"--distill_from source lacks {missing}")
+        flat = flatten_variables({k: tree[k]
+                                  for k in ("params", "batch_stats")})
+    logging.info("distillation teacher: %s from %s (alpha=%.2f)", network,
+                 source, cfg.distill_alpha)
+    return net, flat
 
 
 def build_eval_fn(cfg, args, device):
@@ -655,6 +718,11 @@ def _train(args, argv, topo) -> None:
                 args.finetune_from, use_ema=args.finetune_use_ema)
             return warm_start_state(state, pretrained, log=logging.info)
 
+    teacher = None
+    if args.distill_from:
+        teacher = build_teacher(cfg, args.distill_from, args.distill_network,
+                                args.distill_stem, args.distill_head,
+                                args.distill_use_ema)
     before = fused_preprocess.launches
     result = train_loop(cfg, batches, num_steps=args.num_steps,
                         train_dir=args.train_dir or None,
@@ -664,6 +732,7 @@ def _train(args, argv, topo) -> None:
                         eval_every=args.eval_every,
                         keep_best=args.keep_best,
                         should_stop=stop.is_set, warm_start=warm_start,
+                        teacher=teacher,
                         max_consecutive_skips=args.max_consecutive_skips,
                         mesh=topo, device=device)
     step = result.state.step

@@ -8,15 +8,19 @@ read without jax; weights cross between the packages through the
     <dir>/<step>/state.pt    torch.save of host copies of the state's
                              tensors: params and BN buffers by
                              state_dict name, the classifier in its
-                             global (C*K, D) shape, the SGD momentum
-                             buffers by parameter name ("classifier"
-                             for the classifier's), the EMA of params,
-                             the loss heads' state (the center table
-                             in its global (C_pad, D) shape)
-    <dir>/<step>/meta.json   step, the optimizer's count (apart from
-                             the step: a skipped step holds it), rng,
-                             has_ema, the head-state children and the
-                             global shape of every saved tensor
+                             global (C*K, D) shape, the optimizer's
+                             state by parameter name ("classifier" for
+                             the classifier's, global too): SGD's
+                             momentum buffers as "momentum", the
+                             others' slots as "optimizer_state"/<slot>
+                             (Adam's and AdamW's step, exp_avg and
+                             exp_avg_sq, LARS's trace), the EMA of
+                             params, the loss heads' state (the center
+                             table in its global (C_pad, D) shape)
+    <dir>/<step>/meta.json   step, the optimizer and its count (apart
+                             from the step: a skipped step holds it),
+                             rng, has_ema, the head-state children and
+                             the global shape of every saved tensor
 
 A step is written to ``<dir>/.<step>.tmp`` and renamed into place with
 ``os.replace``, so a crash never leaves a half-written step that
@@ -25,12 +29,14 @@ A step is written to ``<dir>/.<step>.tmp`` and renamed into place with
 
 Runs over several ranks (``mesh``, a ``parallel.mesh.Topology``): every
 rank calls the same methods; the ranks of each model row gather their
-classifier shards and the shards' momentum into the global (C_pad * K,
-D) shape, and their center shards into (C_pad, D), then rank 0 writes,
+classifier shards and the shards' optimizer state into the global
+(C_pad * K, D) shape, and their center shards into (C_pad, D), then
+rank 0 writes,
 after a barrier, and a second barrier follows, so that no rank lists a
 step still in its temporary directory. Every rank restores onto its own
-device, the classifier, its momentum and the centers re-sliced by its
-model index; a saved global row count other than this run's raises.
+device, the classifier, its optimizer state and the centers re-sliced by
+its model index; a saved global row count other than this run's raises,
+as does a resume under another optimizer.
 ``save_best`` acts on rank 0's reading of the bar.
 """
 
@@ -69,15 +75,14 @@ def _shard_rows(mesh) -> tuple[int, int]:
     return (mesh.model, mesh.model_index) if mesh is not None else (1, 0)
 
 
-def _momentum(state: TrainState) -> dict[str, torch.Tensor]:
-    """The SGD momentum buffers by parameter name; none before the
-    first applied update (torch creates them from the first gradient)."""
+def _slots(state: TrainState) -> dict[str, dict[str, torch.Tensor]]:
+    """The optimizer's state by slot, then parameter name; none before
+    the first applied update (torch creates it then)."""
     opt = state.opt_state["optimizer"]
-    out = {}
+    out: dict = {}
     for name, p in _trained(state).items():
-        buf = opt.state.get(p, {}).get("momentum_buffer")
-        if buf is not None:
-            out[name] = buf
+        for slot, t in opt.state.get(p, {}).items():
+            out.setdefault(slot, {})[name] = t
     return out
 
 
@@ -135,10 +140,12 @@ class CheckpointManager:
             return False
         collectives.barrier(self.mesh)
         # every rank of a model row gathers its shards (a collective)
-        momentum = _momentum(state)
-        if "classifier" in momentum:
-            momentum["classifier"] = collectives.model_all_gather(
-                momentum["classifier"], self.mesh)
+        slots = _slots(state)
+        for slot in sorted(slots):
+            buf = slots[slot].get("classifier")
+            if buf is not None and buf.dim():
+                slots[slot]["classifier"] = collectives.model_all_gather(
+                    buf, self.mesh)
         classifier = collectives.model_all_gather(
             state.classifier.detach(), self.mesh)
         head = dict(state.head_state or {})
@@ -146,24 +153,28 @@ class CheckpointManager:
             head["centers"] = collectives.model_all_gather(
                 head["centers"].detach(), self.mesh)
         if self._main:
-            self._write(state, step, classifier, momentum, head)
+            self._write(state, step, classifier, slots, head)
         collectives.barrier(self.mesh)
         return True
 
     def _write(self, state: TrainState, step: int, classifier: torch.Tensor,
-               momentum: dict, head: dict) -> bool:
+               slots: dict, head: dict) -> bool:
         final = os.path.join(self._dir, str(step))
         if os.path.isdir(final):
             return False
         tensors = {"params": _host(state.params),
                    "batch_stats": _host(state.batch_stats),
-                   "classifier": _host(classifier),
-                   "momentum": _host(momentum)}
+                   "classifier": _host(classifier)}
+        if state.opt_state["name"] == "sgd":
+            tensors["momentum"] = _host(slots.get("momentum_buffer", {}))
+        else:
+            tensors["optimizer_state"] = _host(slots)
         if state.ema_params is not None:
             tensors["ema_params"] = _host(state.ema_params)
         if head:
             tensors["head_state"] = _host(head)
-        meta = {"step": int(step), "count": int(state.opt_state["count"]),
+        meta = {"step": int(step), "optimizer": state.opt_state["name"],
+                "count": int(state.opt_state["count"]),
                 "rng": int(state.rng),
                 "has_ema": state.ema_params is not None,
                 "head_state": sorted(state.head_state or {}),
@@ -244,12 +255,18 @@ class CheckpointManager:
                 step: int | None = None) -> TrainState:
         """Restore into ``template_state`` (a fresh ``create_train_state``)
         in place and return it: its tensors are filled where they are
-        (the optimizer keeps its parameter references), the momentum
-        buffers are set explicitly (none where the checkpoint has none),
+        (the optimizer keeps its parameter references), the optimizer's
+        state is set explicitly (none where the checkpoint has none),
         and the step, count and rng are the checkpoint's."""
         step = self._step(step)
         meta = self.metadata(step)
         st = template_state
+        saved_opt, mine = meta.get("optimizer", "sgd"), st.opt_state["name"]
+        if saved_opt != mine:
+            raise ValueError(
+                f"checkpoint optimizer {saved_opt!r} does not match this "
+                f"run's {mine!r}: resume with --optimizer={saved_opt} (the "
+                "optimizer the run was started with)")
         if meta["has_ema"] != (st.ema_params is not None):
             want = "--ema_decay>0" if meta["has_ema"] else "--ema_decay=0"
             raise ValueError(
@@ -282,9 +299,12 @@ class CheckpointManager:
         _fill(st.batch_stats, saved["batch_stats"], "batch_stats")
         _fill({"classifier": st.classifier},
               {"classifier": own(saved["classifier"])}, "classifier")
-        if "classifier" in saved["momentum"]:
-            saved["momentum"]["classifier"] = own(
-                saved["momentum"]["classifier"]).clone()
+        slots = (saved["optimizer_state"] if "optimizer_state" in saved
+                 else {"momentum_buffer": saved["momentum"]})
+        for by_name in slots.values():
+            buf = by_name.get("classifier")
+            if buf is not None and buf.dim():
+                by_name["classifier"] = own(buf).clone()
         if st.ema_params is not None:
             _fill(st.ema_params, saved["ema_params"], "ema_params")
         for child, tree in (st.head_state or {}).items():
@@ -303,20 +323,30 @@ class CheckpointManager:
             _fill({child: tree}, {child: own(src, c_shard)}, "head_state")
         opt = st.opt_state["optimizer"]
         trained = _trained(st)
-        extra = sorted(saved["momentum"].keys() - trained.keys())
-        if extra:
-            raise ValueError(f"checkpoint momentum for unknown parameters "
-                             f"{extra[:3]}")
+        for slot, by_name in slots.items():
+            extra = sorted(by_name.keys() - trained.keys())
+            if extra:
+                raise ValueError(f"checkpoint {slot} for unknown parameters "
+                                 f"{extra[:3]}")
         for name, p in trained.items():
-            buf = saved["momentum"].get(name)
-            if buf is None:
+            entry = {}
+            for slot, by_name in slots.items():
+                buf = by_name.get(name)
+                if buf is None:
+                    continue
+                if slot == "step":
+                    # torch keeps Adam's count as a host f32 scalar
+                    entry[slot] = buf.to("cpu", torch.float32)
+                    continue
+                if buf.shape != p.shape or buf.dtype != p.dtype:
+                    raise ValueError(f"checkpoint {slot}/{name}: "
+                                     f"{tuple(buf.shape)}, the parameter "
+                                     f"{tuple(p.shape)}")
+                entry[slot] = buf
+            if entry:
+                opt.state[p] = entry
+            else:
                 opt.state.pop(p, None)
-                continue
-            if buf.shape != p.shape or buf.dtype != p.dtype:
-                raise ValueError(f"checkpoint momentum/{name}: "
-                                 f"{tuple(buf.shape)}, the parameter "
-                                 f"{tuple(p.shape)}")
-            opt.state[p] = {"momentum_buffer": buf}
         st.step = meta["step"]
         st.opt_state["count"] = meta["count"]
         st.rng = meta["rng"]
@@ -325,8 +355,9 @@ class CheckpointManager:
     def restore_raw(self, step: int | None = None) -> dict:
         """The checkpoint as saved, on the host, with no template: the
         tensors with their own shapes (``params``, ``batch_stats``,
-        ``classifier``, ``momentum``, ``ema_params`` and ``head_state``
-        when saved) and the ``step``, ``count`` and ``rng``. The warm-start loader
+        ``classifier``, ``momentum`` or ``optimizer_state``, ``ema_params``
+        and ``head_state`` when saved) and the ``step``, ``count`` and
+        ``rng``. The warm-start loader
         (``train.finetune``) needs exactly this: a shape that differs
         from the new run's is a graft-time skip, not a restore error."""
         step = self._step(step)

@@ -10,7 +10,7 @@ start. Metrics stay on the device between log points (``log_every``);
 the ``skip_nonfinite`` flags settle every min(log_every, 100,
 max_consecutive_skips) steps and at log points, and
 ``max_consecutive_skips`` skips in a row raise ``FloatingPointError``.
-Distillation (``teacher``) raises naming ROADMAP.md §1 item 10c.
+``teacher`` distils into the student (``make_train_step``'s).
 
 With several ranks: only rank 0 logs, writes metrics, runs the eval
 hook and writes checkpoints (``CheckpointManager``); the eval value is
@@ -33,7 +33,6 @@ from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 from tf_face_toolbox_tpu_torch.train.trainer import (
     TrainConfig,
-    _not_ported,
     create_train_state,
     make_train_step,
 )
@@ -76,10 +75,10 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
     to ``<train_dir>/best``. ``should_stop``: polled before each step; a
     True ends the loop early and flushes a checkpoint at the current
     step (``last_metrics["preempted"]`` = 1). ``mesh``: this rank's
-    topology (``device`` is then its device).
+    topology (``device`` is then its device). ``teacher``: a frozen
+    distillation teacher, a module or ``(module, variables)``, as
+    ``make_train_step`` takes it.
     """
-    if teacher is not None:
-        _not_ported("train_loop teacher (distillation)", "10c")
     if mesh is not None:
         device = mesh.device
     main = mesh is None or mesh.is_main
@@ -97,7 +96,7 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                          mgr.directory)
     if warm_start is not None and not resumed:
         state = warm_start(state)
-    step_fn = make_train_step(net, cfg, state, mesh=mesh)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh, teacher=teacher)
     logger = logger or MetricLogger(train_dir if main else None,
                                     batch_size=cfg.global_batch)
     stop_sync = 10 if mesh is not None and mesh.distributed else 1

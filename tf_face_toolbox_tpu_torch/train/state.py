@@ -23,7 +23,8 @@ class TrainState:
     params: dict[str, torch.Tensor]    # f32 master weights (the module's)
     batch_stats: dict[str, torch.Tensor]   # BN running mean / var
     classifier: torch.Tensor           # (C * subcenters, D) f32
-    # {"optimizer": torch.optim.SGD over params and classifier,
+    # {"optimizer": a torch optimizer over params and classifier
+    #  (train/optimizers.py), "name": its name (sgd, adam, adamw, lars),
     #  "count": updates applied}. The learning rate follows the count
     # (a skipped step holds it), as optax's schedule count does.
     opt_state: dict[str, Any]

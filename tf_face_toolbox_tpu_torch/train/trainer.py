@@ -1,4 +1,4 @@
-"""Train step: augment, forward, margin loss, gradient exchange, SGD.
+"""Train step: augment, forward, loss, gradient exchange, optimizer.
 
 Counterpart of ``tf_face_toolbox_tpu/train/trainer.py``. Each process
 is one rank of a (data, model) grid (``parallel.mesh.Topology``; none:
@@ -18,9 +18,11 @@ step, on each rank:
    row; takes the exact or, with ``pfc_sample_rate`` < 1, the sampled
    sharded margin-softmax loss against its f32 shard (the row's mean),
    or CurricularFace's, with MagFace's or AdaFace's per-sample margins
-   and the center and triplet losses on the gathered rows added, and
-   backward of that objective over the model size (the psums inside it
-   sum each rank's cotangent, JAX's algebra);
+   and the center and triplet losses on the gathered rows added; with a
+   ``teacher``, the embedding distillation term on this rank's own rows
+   (``alpha * mean(1 - cos)``, the margin term weighted 1 - alpha, or
+   skipped at alpha 1); and backward of that objective over the model
+   size (the psums inside it sum each rank's cotangent, JAX's algebra);
 4. exchanges, as the JAX step does (``parallel/collectives.py``): the
    backbone's gradient summed over the model row and averaged over the
    data axis; the classifier shard's averaged over its data column (the
@@ -28,8 +30,10 @@ step, on each rank:
    loss's parts and the running statistics averaged over every rank;
 5. then, in order, on the same values on every rank: the global
    gradient norm (the shards' squared norms summed over the model row),
-   ``grad_clip_norm``, SGD (weight decay on conv and Dense kernels and
-   the classifier, momentum), the EMA ``d * e + (1 - d) * p``, the loss
+   ``grad_clip_norm``, the optimizer (``train/optimizers.py``: SGD,
+   Adam, AdamW or LARS, weight decay on conv and Dense kernels and the
+   classifier; a parameter no gradient reaches steps on zeros), the
+   EMA ``d * e + (1 - d) * p``, the loss
    heads' state (``head_state``: AdaFace's norm statistics and
    CurricularFace's t as the head computed them, the center shard by
    the delta rule over the global batch), and ``skip_nonfinite`` on the
@@ -44,9 +48,8 @@ stream) on ranks above 0 (JAX folds the device's position into its
 step key), not JAX's threefry stream; the sampled head's keys from
 (state.rng, step, 0x9FC, model index), the same on every data rank.
 
-The other optimizers and distillation (item 10c) and quantization-aware
-training (item 18) are not ported yet: their fields raise naming the
-item.
+Quantization-aware training (item 18) is not ported yet: its field
+raises naming the item.
 """
 
 from __future__ import annotations
@@ -60,7 +63,11 @@ import numpy as np
 import torch
 
 from tf_face_toolbox_tpu_torch.models import create_network, init_parameters
-from tf_face_toolbox_tpu_torch.models.layers import BatchNorm, TrainContext
+from tf_face_toolbox_tpu_torch.models.layers import (
+    BatchNorm,
+    TrainContext,
+    l2_normalize,
+)
 from tf_face_toolbox_tpu_torch.ops import preprocess as pp
 from tf_face_toolbox_tpu_torch.ops.losses import (
     AdaFaceConfig,
@@ -83,6 +90,7 @@ from tf_face_toolbox_tpu_torch.parallel.sharded_softmax import (
     sharded_curricular_loss,
     sharded_margin_softmax_loss,
 )
+from tf_face_toolbox_tpu_torch.train import optimizers
 from tf_face_toolbox_tpu_torch.train.schedule import cosine, staircase
 from tf_face_toolbox_tpu_torch.train.state import TrainState
 
@@ -110,7 +118,7 @@ class TrainConfig:
     num_classes: int = 10572          # CASIA-WebFace identity count
     image_size: int = 112
     global_batch: int = 256
-    optimizer: str = "sgd"            # adam/adamw/lars: item 10c
+    optimizer: str = "sgd"            # sgd | adam | adamw | lars
     base_lr: float = 0.1
     lr_schedule: str = "staircase"    # or "cosine" (needs lr_total_steps)
     lr_boundaries: tuple[int, ...] = (100_000, 160_000, 220_000)
@@ -145,14 +153,12 @@ class TrainConfig:
     ema_decay: float = 0.0            # 0 = off
     pallas_input: bool = False        # augment through the fused kernel
     quantized: Any = False            # "qat": item 18
-    distill_alpha: float = 1.0        # with a teacher (item 10c)
+    distill_alpha: float = 1.0        # the distill weight, with a teacher
 
     def __post_init__(self):
-        if self.optimizer != "sgd":
-            if self.optimizer not in ("adam", "adamw", "lars"):
-                raise ValueError(f"unknown optimizer '{self.optimizer}'; "
-                                 "have sgd|adam|adamw|lars")
-            _not_ported(f"optimizer={self.optimizer!r}", "10c")
+        if self.optimizer not in optimizers.SLOTS:
+            raise ValueError(f"unknown optimizer '{self.optimizer}'; "
+                             "have sgd|adam|adamw|lars")
         if self.margin_mode not in _MODES:
             raise ValueError(f"unknown margin_mode '{self.margin_mode}'; "
                              "have fixed|magface|adaface|curricular")
@@ -206,21 +212,31 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(cfg: TrainConfig, net: torch.nn.Module,
-                   classifier: torch.Tensor) -> torch.optim.SGD:
-    """Momentum SGD (dampening 0) in two groups: weight decay on every
-    conv and Dense kernel and on the classifier; none on BatchNorm
-    scales and biases or Dense biases. Its learning rate is set from
-    the schedule before each update (``make_train_step``)."""
+                   classifier: torch.Tensor,
+                   mesh=None) -> torch.optim.Optimizer:
+    """``cfg.optimizer`` (``train/optimizers.py``) in two groups: weight
+    decay on every conv and Dense kernel and on the classifier; none on
+    BatchNorm scales and biases or Dense biases. Every parameter is one
+    JAX leaf (LARS takes its norms per leaf). Its learning rate is set
+    from the schedule before each update (``make_train_step``).
+    ``mesh``: the classifier is this rank's shard of the model row's."""
     from tf_face_toolbox_tpu_torch.interop import port
 
-    kernels = {id(t) for key, t, _ in port.jax_leaves(net)
-               if key.endswith("/kernel")}
-    decay = [p for p in net.parameters() if id(p) in kernels] + [classifier]
-    plain = [p for p in net.parameters() if id(p) not in kernels]
-    return torch.optim.SGD(
+    leaves = [(key, t) for key, t, _ in port.jax_leaves(net)
+              if key.startswith("params/")]
+    params = list(net.parameters())
+    if sorted(id(t) for _, t in leaves) != sorted(map(id, params)):
+        raise ValueError("the network's parameters are not its JAX leaves "
+                         "one for one")
+    kernels = {id(t) for key, t in leaves if key.endswith("/kernel")}
+    decay = [p for p in params if id(p) in kernels] + [classifier]
+    plain = [p for p in params if id(p) not in kernels]
+    return optimizers.build(
+        cfg.optimizer,
         [{"params": decay, "weight_decay": cfg.weight_decay},
          {"params": plain, "weight_decay": 0.0}],
-        lr=cfg.base_lr, momentum=cfg.momentum, dampening=0.0)
+        lr=cfg.base_lr, momentum=cfg.momentum, classifier=classifier,
+        mesh=mesh)
 
 
 def _seed(*parts: int) -> int:
@@ -296,7 +312,7 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
         m = mesh.model_index if mesh is not None else 0
         w = w[m * shard:(m + 1) * shard].clone()
     w.requires_grad_(True)
-    opt = make_optimizer(cfg, net, w)
+    opt = make_optimizer(cfg, net, w, None if whole_classifier else mesh)
     head_state = {}
     if cfg.margin_mode == "adaface":
         head_state["adaface"] = adaface_stats_init(device)
@@ -309,11 +325,26 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, *,
              cfg.embedding_dim), dtype=torch.float32, device=device)
     state = TrainState(
         step=0, params=params, batch_stats=buffers, classifier=w,
-        opt_state={"optimizer": opt, "count": 0}, rng=seed,
+        opt_state={"optimizer": opt, "name": cfg.optimizer, "count": 0},
+        rng=seed,
         ema_params=({k: p.detach().clone() for k, p in params.items()}
                     if cfg.ema_decay > 0 else None),
         head_state=head_state or None)
     return state, net
+
+
+def _frozen(teacher, device) -> torch.nn.Module:
+    """A distillation teacher as an eval-mode module on ``device`` with no
+    trainable parameters: a module holding its weights, or ``(module,
+    variables)`` with the variables (flat JAX keys or a tree) loaded."""
+    if isinstance(teacher, tuple):
+        net, variables = teacher
+        if variables is not None:
+            from tf_face_toolbox_tpu_torch.interop.port import (
+                load_jax_variables)
+            load_jax_variables(net, variables)
+        teacher = net
+    return teacher.to(device).eval().requires_grad_(False)
 
 
 def _augment(cfg: TrainConfig, images: torch.Tensor, step_gen: torch.Generator,
@@ -376,6 +407,15 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
                     teacher=None) -> Callable:
     """``step_fn(state, images, labels) -> (state, metrics)``.
 
+    ``teacher``: a frozen distillation teacher, a port module holding its
+    weights or ``(module, variables)`` (the flat JAX-key dict or tree;
+    JAX's ``(teacher_net, teacher_variables)``). It forwards the same
+    augmented views in eval mode, in ``cfg.dtype``, under no_grad, and
+    the objective becomes ``cfg.distill_alpha * mean(1 - cos)`` over the
+    rank's rows, plus ``(1 - alpha)`` times the margin loss when alpha <
+    1 (at alpha 1 the margin head is not run and the classifier steps on
+    a zero gradient).
+
     ``images``: (B, crop_from, crop_from, 3) uint8 when ``cfg.augment``,
     else (B, image_size, image_size, 3) standardized f32; ``labels``:
     (B,) ints. Tensors on the state's device, or numpy arrays. With
@@ -386,7 +426,8 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
     ``loss`` (the global batch's objective: the margin loss plus the
     weighted auxiliary terms), ``grad_norm`` (before the clip),
     ``center_loss``, ``triplet_loss``, ``magface_reg_loss`` (each term
-    unweighted, where on), ``adaface_norm_mean`` and ``curricular_t``
+    unweighted, where on), ``distill_loss`` and, when alpha < 1,
+    ``margin_loss`` with a teacher, ``adaface_norm_mean`` and ``curricular_t``
     (the head state after the step) and, with ``skip_nonfinite``,
     ``skipped_nonfinite``, as tensors or floats; ``learning_rate`` = the
     schedule at ``state.step`` (the applied rate follows the optimizer's
@@ -426,8 +467,21 @@ class StepParts:
                  teacher=None):
         if input_format != "u8":
             _not_ported(f"input_format={input_format!r} (DCT input)", "17")
+        self.teacher, self.alpha = None, 0.0
         if teacher is not None:
-            _not_ported("distillation", "10c")
+            self.alpha = float(cfg.distill_alpha)
+            if not 0.0 < self.alpha <= 1.0:
+                raise ValueError(f"distill_alpha must be in (0, 1] with a "
+                                 f"teacher; got {self.alpha}")
+            if self.alpha == 1.0 and (cfg.margin_mode != "fixed"
+                                      or cfg.center_weight > 0
+                                      or cfg.triplet_weight > 0):
+                raise ValueError(
+                    "pure distillation (distill_alpha=1) skips the margin "
+                    "branch entirely - margin_mode/center_weight/"
+                    "triplet_weight would be silently dead; set "
+                    "distill_alpha<1 to mix them")
+            self.teacher = _frozen(teacher, state.classifier.device)
         self.mesh = mesh
         self.rank = mesh.rank if mesh is not None else 0
         self.world = mesh.world if mesh is not None else 1
@@ -502,16 +556,18 @@ class StepParts:
 
     def objective(self, state: TrainState, emb: torch.Tensor,
                   labels: torch.Tensor, margin_loss: Callable,
-                  moments=None) -> tuple[torch.Tensor, dict, dict]:
+                  moments=None, margin_weight: float = 1.0
+                  ) -> tuple[torch.Tensor, dict, dict]:
         """A model row's objective from its gathered f32 rows ``emb`` and
         ``labels`` (JAX's ``margin_branch``): MagFace's margins and
         regularizer, or AdaFace's margins from the global batch's norm
         ``moments`` (``adaface_moments``); the center loss against the
         centers and the triplet loss mined within the row; and
         ``margin_loss(extra_m2, extra_m3)``, the margin head's loss (with
-        CurricularFace, (loss, t')). Returns (objective, terms: each part
-        by name, "margin" first, update: the head state to write after
-        the step)."""
+        CurricularFace, (loss, t')), weighted ``margin_weight`` (1 -
+        distill_alpha with a teacher). Returns (objective, terms: each
+        part by name, "margin" first, update: the head state to write
+        after the step)."""
         cfg = self.cfg
         terms, update = {}, {}
         extra_m2 = extra_m3 = None
@@ -532,13 +588,36 @@ class StepParts:
         if cfg.margin_mode == "curricular":
             margin, t_new = margin
             update["curricular"] = {"t": t_new}
-        total = margin
+        total = margin if margin_weight == 1.0 else margin_weight * margin
         for name, value in terms.items():
             total = total + self.weights[name] * value
         return total, {"margin": margin, **terms}, update
 
-    def head(self, state: TrainState, emb: torch.Tensor,
+    def loss(self, state: TrainState, x: torch.Tensor, emb: torch.Tensor,
              labels: torch.Tensor) -> tuple[torch.Tensor, dict, dict]:
+        """This rank's objective on its (micro-)batch ``x`` and its f32
+        embeddings ``emb``: the model row's ``head``, and with a teacher
+        the distillation term on the rank's own rows (JAX's local-shard
+        mean, which the backbone's sum over the model row turns into the
+        row's mean) before it, the head weighted 1 - alpha and skipped
+        at alpha 1. Returns ``head``'s (objective, terms, update)."""
+        if self.teacher is None:
+            return self.head(state, emb, labels)
+        with torch.no_grad():
+            t_emb = self.teacher(x).to(torch.float32)
+        cos = torch.sum(l2_normalize(emb) * l2_normalize(t_emb), dim=-1)
+        distill = torch.mean(1.0 - cos)
+        total = self.alpha * distill
+        terms, update = {}, {}
+        if self.alpha < 1.0:
+            head, terms, update = self.head(state, emb, labels,
+                                            1.0 - self.alpha)
+            total = total + head
+        return total, {"distill": distill, **terms}, update
+
+    def head(self, state: TrainState, emb: torch.Tensor,
+             labels: torch.Tensor, margin_weight: float = 1.0
+             ) -> tuple[torch.Tensor, dict, dict]:
         """``objective`` of this rank's model row: ``emb`` (f32) and
         ``labels`` of this rank, gathered over the row, against this
         rank's classifier and center shards (the same on each of the
@@ -567,7 +646,8 @@ class StepParts:
                 mesh, total_classes=cfg.num_classes, extra_m2=extra_m2,
                 extra_m3=extra_m3, data_sync=True)
 
-        return self.objective(state, emb, labels, margin_loss, moments)
+        return self.objective(state, emb, labels, margin_loss, moments,
+                              margin_weight)
 
     def local(self, state: TrainState, images: torch.Tensor,
               labels: torch.Tensor, rank: int
@@ -576,7 +656,9 @@ class StepParts:
         model row's terms (``objective``'s, detached; averaged over the
         micro-batches), the BN modules' updated running statistics and
         the head-state update; the gradients (of the objective over the
-        model size) are in the parameters' ``.grad``."""
+        model size) are in the parameters' ``.grad``, zeros where the
+        objective does not reach a parameter (the classifier under pure
+        distillation: optax still decays it and steps its state)."""
         ctx, x = self.prepare(state, images, rank)
         for p in (*state.params.values(), state.classifier):
             p.grad = None
@@ -584,9 +666,12 @@ class StepParts:
         steps = []
         for xm, lm in zip(x.chunk(k), labels.chunk(k)):
             emb = self.net(xm, train=ctx).to(torch.float32)
-            total, terms, update = self.head(state, emb, lm)
+            total, terms, update = self.loss(state, xm, emb, lm)
             (total / self.model).backward()
             steps.append(terms)
+        for p in (*state.params.values(), state.classifier):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if k > 1:
             torch._foreach_div_(self.grads(state), float(k))
         return mean_terms(steps), ctx.stats, update
@@ -609,7 +694,12 @@ class StepParts:
                 cfg.grad_clip_norm / torch.clamp_min(grad_norm, 1e-12), 1.0)
             torch._foreach_mul_(grads, scale)
 
-        loss = terms["margin"]
+        if self.teacher is None:
+            loss = terms["margin"]
+        else:
+            loss = self.alpha * terms["distill"]
+            if self.alpha < 1.0:
+                loss = loss + (1.0 - self.alpha) * terms["margin"]
         for name, weight in self.weights.items():
             if name in terms:
                 loss = loss + weight * terms[name]
@@ -640,6 +730,10 @@ class StepParts:
                         ema, [p.detach() for p in state.params.values()],
                         alpha=1.0 - d)
             self._write_head(state, update or {})
+        if self.teacher is not None:
+            metrics["distill_loss"] = terms["distill"]
+            if self.alpha < 1.0:
+                metrics["margin_loss"] = terms["margin"]
         for name in ("center", "triplet", "magface_reg"):
             if name in terms:
                 metrics[f"{name}_loss"] = terms[name]
