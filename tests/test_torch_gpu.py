@@ -605,6 +605,76 @@ def test_cuda_gallery_any_width(cuda, dtype, dim):
     assert 11 not in lk
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_daemon_identify_runs_the_kernels(cuda, dtype):
+    """The daemon's /enroll and /identify over a CUDA gallery: every
+    /identify launches kernel 3 (f32) or 4 (int8) once, each face finds
+    itself first among 5,000 distractors, and the matches equal the
+    plain programs' (use_kernels=False) for the embedding /embed gives
+    the same body (int8 exactly; f32 away from near-ties)."""
+    import io
+    import json
+    import urllib.request
+
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+    from tf_face_toolbox_tpu_torch.serving.server import (
+        DynamicBatcher, EmbeddingService, serve)
+
+    net = create_network("resnet_tiny", embedding_dim=32)
+    svc = EmbeddingService(net, random_variables(net, 0), image_size=16,
+                           crop_from=20, batch=8, dtype=torch.float32,
+                           device="cuda")
+    svc.warmup()
+    rng = np.random.default_rng(1)
+    distractors = rng.normal(size=(5000, 32)).astype(np.float32)
+    distractors /= np.linalg.norm(distractors, axis=1, keepdims=True)
+    gallery = DeviceGallery(32, dtype=dtype, device="cuda")
+    gallery.enroll(distractors, np.arange(1000, 6000))
+    batcher = DynamicBatcher(svc, max_wait_ms=1.0)
+    server = serve(batcher, port=0, gallery=gallery)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    counter = ttk.cosine_topk_q if dtype == "int8" else ttk.cosine_topk
+    try:
+        faces = rng.integers(0, 256, (12, 20, 20, 3), dtype=np.uint8)
+        bodies = []
+        for i, face in enumerate(faces):
+            buf = io.BytesIO()
+            np.save(buf, face)
+            bodies.append(buf.getvalue())
+            assert post(f"/enroll?label={i}", bodies[-1])["enrolled"]
+        plain = DeviceGallery(32, dtype=dtype, device="cuda")
+        plain.use_kernels = False
+        plain.enroll(gallery._host[:gallery._n], gallery._lab[:gallery._n])
+        before = counter.launches
+        for i, body in enumerate(bodies):
+            emb = np.asarray(post("/embed", body)["embedding"], np.float32)
+            got = post("/identify?k=5", body)["matches"]
+            labels = [m["label"] for m in got]
+            scores = np.asarray([m["score"] for m in got])
+            assert labels[0] == i
+            # int8 at the same k: its coarse stage keeps 4k rows
+            want_l, want_s = plain.search(emb, k=5 if dtype == "int8" else 6)
+            near = np.zeros(5, bool)
+            if dtype != "int8":
+                gap = np.diff(-want_s[0]) <= 1e-5
+                near[1:] |= gap[:4]
+                near |= gap[:5]
+            assert (np.asarray(labels) == want_l[0, :5])[~near].all()
+            np.testing.assert_allclose(scores, want_s[0, :5], atol=1e-5)
+        assert counter.launches == before + len(bodies)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+
+
 def test_train_step_kernel_route_matches_plain(cuda):
     """One training step (resnet_v1_50 face stem, bf16, CosFace over
     1,000 classes, batch 64) through kernel 1 and through the plain

@@ -7,6 +7,13 @@
     python -m tf_face_toolbox_tpu_torch.cli.cluster   # kNN-graph clustering
     python -m tf_face_toolbox_tpu_torch.cli.eval_templates  # IJB templates, TAR@FAR
     python -m tf_face_toolbox_tpu_torch.cli.train     # margin-softmax training
+    python -m tf_face_toolbox_tpu_torch.cli.export    # one-file deployment bundle
+    python -m tf_face_toolbox_tpu_torch.cli.serve     # HTTP/gRPC embedding daemon
+    python -m tf_face_toolbox_tpu_torch.cli.pack      # image list -> FaceShard
+    python -m tf_face_toolbox_tpu_torch.cli.merge     # FaceShards -> one
+    python -m tf_face_toolbox_tpu_torch.cli.import_bin  # verification .bin
+    python -m tf_face_toolbox_tpu_torch.cli.import_rec  # MXNet .rec
+    python -m tf_face_toolbox_tpu_torch.cli.convert_tfrecord  # TFRecords
 """
 
 

@@ -3,9 +3,10 @@
 Counterpart of ``tf_face_toolbox_tpu/cli/extract.py``: stream faces,
 write flip-averaged L2-normalized embeddings to disk. Weights come from
 a port train directory (``--checkpoint_dir``, its latest step;
-``--use_ema`` for the EMA set) or the JAX package's ``.npz`` hand-off
-(``--variables_npz``); with neither, the network gets seeded random
-weights. Prints the kernel launches it made. ``--chunk_rows`` writes a
+``--use_ema`` for the EMA set), the JAX package's ``.npz`` hand-off
+(``--variables_npz``) or a deployment bundle of either package
+(``--bundle``, which also sets the network and input flags); with none,
+the network gets seeded random weights. Prints the kernel launches it made. ``--chunk_rows`` writes a
 resumable ``.npy`` in chunks (a crashed run re-run with the same flags
 recomputes at most one chunk); ``--output_quality`` also writes each
 face's feature-norm quality; ``--data_parallel`` splits each batch over
@@ -48,7 +49,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="serve from a .npz variables file in the JAX key "
                         "space ('' = random init, seed 0)")
     p.add_argument("--bundle", default="",
-                   help="one-file deployment bundle (not yet ported)")
+                   help="extract with a one-file deployment bundle "
+                        "(cli.export, either package's); its config record "
+                        "supplies network/stem/head/embedding_dim/"
+                        "image_size/crop_from/input_norm - those flags are "
+                        "ignored")
     p.add_argument("--data", required=True, help="FaceShard of eval faces")
     p.add_argument("--output", required=True,
                    help="output path; format by extension: .npy (default), "
@@ -163,9 +168,7 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     _refuse(args)
-    if args.bundle:
-        raise SystemExit("--bundle is not yet ported (ROADMAP.md §1 "
-                         "item 16); pass --variables_npz")
+    bundle = _read_bundle(args) if args.bundle else None
     if args.network.startswith("densenet") and args.stem == "space2depth":
         raise SystemExit("--stem=space2depth is a resnet-family option; "
                          "densenet supports stem=face|imagenet")
@@ -200,7 +203,7 @@ def main(argv=None) -> None:
             logging.getLogger().setLevel(logging.WARNING)
         logging.info("data-parallel extraction over %d ranks", mesh.world)
     try:
-        _extract(args, rows, device, mesh)
+        _extract(args, rows, device, mesh, bundle)
     finally:
         import torch.distributed as dist
 
@@ -208,7 +211,34 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
 
 
-def _extract(args, rows, device, mesh) -> None:
+def _read_bundle(args) -> dict:
+    """``--bundle``'s variables (flat, JAX key space); its meta record
+    replaces the network and input flags on ``args``, as the JAX CLI
+    takes them from the bundle."""
+    if args.checkpoint_dir or args.variables_npz:
+        raise SystemExit("--bundle is self-contained; drop "
+                         "--checkpoint_dir/--variables_npz")
+    from tf_face_toolbox_tpu_torch.interop.port import flatten_variables
+    from tf_face_toolbox_tpu_torch.serving.bundle import read_bundle
+
+    variables, meta = read_bundle(args.bundle)
+    if meta["quant_mode"] != "none":
+        raise SystemExit(f"--bundle bakes in quant_mode="
+                         f"{meta['quant_mode']!r}: int8 serving is not "
+                         "ported yet (ROADMAP.md §1 item 18)")
+    args.network = meta["network"]
+    args.embedding_dim = int(meta["embedding_dim"])
+    args.stem = meta.get("stem") or args.stem
+    args.head = meta.get("head_variant") or args.head
+    args.image_size = int(meta["image_size"])
+    args.crop_from = int(meta.get("crop_from", 0))
+    args.input_norm = meta["input_norm"]
+    logging.info("bundle: %s step=%s quant=%s norm=%s", meta["network"],
+                 meta.get("step"), meta["quant_mode"], args.input_norm)
+    return flatten_variables(variables)
+
+
+def _extract(args, rows, device, mesh, bundle) -> None:
     import numpy as np
     import torch
 
@@ -223,7 +253,13 @@ def _extract(args, rows, device, mesh) -> None:
     from tf_face_toolbox_tpu_torch.serving import fused_block, make_serving_apply
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    if args.checkpoint_dir:
+    if bundle is not None:
+        net = create_network(args.network, embedding_dim=args.embedding_dim,
+                             dtype=dtype, stem=args.stem,
+                             head_variant=args.head,
+                             input_size=args.image_size)
+        flat = bundle
+    elif args.checkpoint_dir:
         net, flat = load_variables(
             args.checkpoint_dir, args.network, args.embedding_dim,
             args.image_size, dtype, use_ema=args.use_ema, stem=args.stem,

@@ -1,1 +1,2 @@
-"""Data: the FaceShard format, the native loader and the host decode."""
+"""Data: the FaceShard format, the native loader, the host decode, and
+the importers (.rec, TFRecord, verification .bin)."""
