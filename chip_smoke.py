@@ -27,7 +27,8 @@ templates at IJB-C's counts, and Adam, AdamW, LARS and distillation
 at config 4; then the data layer (an InsightFace .bin at LFW's counts,
 a .rec, TFRecords; merge; the bundle export) and the HTTP daemon booted
 from that bundle, its /identify through kernels 3 and 4 over 10^6 rows,
-a hot reload and the SIGTERM drain. Runs that time nothing (the
+a hot reload and the SIGTERM drain; then the gallery sharded four
+ways at 10^7 rows, and iResNet and MobileFaceNet. Runs that time nothing (the
 cli.train, cli.extract and other CLI runs, whose steps, launches and
 outputs are checked) go side by side with other untimed work; every
 timed run (bench, bench_train under torchrun, time_training in this
@@ -96,7 +97,8 @@ Phases:
     within 2 bf16 steps of each value, or of 1% of its tensor's largest
     where smaller, losses within 1%); (c) remat at the batch of a
     replica (256): False, True, "save_convs": gradients against no
-    remat (deterministic cuDNN), ms/step and peak memory
+    remat (deterministic cuDNN), ms/step and peak memory. (a)'s cli.train
+    and (b)'s ranks (untimed) run in phase 12 beside its preemption flow
 14. the class-sharded Partial-FC head (BASELINE config 7; the preset's
     2 x 4 mesh of 256 rows a device cut to this card's one rank): (a)
     cli.train --preset large_id_pfc_v5e8 --pallas_input for 20 steps
@@ -116,7 +118,8 @@ Phases:
     process, each step from the ranks' state before it (losses within 1%,
     per-leaf update cosine >= 0.999 with the classifier reassembled from
     its shards, BN running statistics within 2 bf16 steps); kernel 1 2
-    launches a rank a head
+    launches a rank a head. Phase 15's cli.train and four ranks (untimed)
+    run beside (b)
 15. the loss heads (BASELINE preset 8, ``adaface_noisy_data``): (a)
     cli.train --preset adaface_noisy_data --pallas_input for 20 steps
     (r50 face stem, bf16, 10,572 classes x 3 sub-centers, batch 256,
@@ -155,9 +158,9 @@ Phases:
     and densenet_121 (kernel 1 once a step, finite losses) and their
     training rates (bench_train)
 17. the rest of extraction at full width (resnet_v1_50, face stem,
-    512-d, bf16, seeded weights) on a packed shard of 16,384 synthetic
+    512-d, bf16, seeded weights) on a packed shard of 4,096 synthetic
     120x120 faces, python loader: (a) cli.extract --engine fused
-    --chunk_rows 4096 --batch 256, SIGKILLed once its second chunk's
+    --chunk_rows 1024 --batch 256, SIGKILLed once its second chunk's
     sidecar is on disk, then run again: the rerun computes only the
     chunks not recorded (at most the one in flight is recomputed; kernel
     2 launches of each run), and the output agrees with an uninterrupted
@@ -215,6 +218,29 @@ Phases:
     Embed and EmbedBatch against HTTP's rows where grpc is installed;
     (f) bulk faces/s, single /embed p50/p99 at 32 clients, /identify
     latency, beside phase 16's folded rate
+22. the sharded gallery: 10^7 seeded unit 512-d rows (8 planted groups
+    of 4 equal rows across shards, one 1,024-row label) in a
+    DistributedGallery over [cuda:0] * 4 at 8 GB a shard, bf16 (one
+    bf16 DeviceGallery at 8 GB refuses the rows) and int8: searches at
+    B 1 and 64, k 5 (int8: coarse k 20) launch kernel 3 or 4 once a
+    shard; labels and scores against one unbounded DeviceGallery and
+    the plain programs, the groups in the reference's shard-major order
+    (a numpy sort on the host); a tombstone, then a compaction crossing;
+    the compacted store's snapshot loaded into an int8 DeviceGallery;
+    the sharded search timed against the one store's; cli.search
+    --data_parallel over 10^6 rows and 1,024 probes against cli.search;
+    cli.serve --gallery_shards -1 over phase 21's snapshot, its
+    /identify against phase 21's answers; serve() in this process over
+    a four-shard gallery (/enroll with a 507, /identify, /deenroll,
+    /gallery)
+23. iresnet_100 and mobilefacenet at full width
+    (bf16, seeded weights, --input_norm fixed): cli.extract --engine
+    auto (the module-path fallback logged) over 1,024 packed faces
+    against the f32 module path, their module path's faces/s at batch
+    128 beside resnet_v1_50's; cli.train of iresnet_50 and mobilefacenet
+    (5 steps at batch 64: finite losses, every BN statistic moved) and
+    their training faces/s. Phase 23's CLI runs go beside phase 22's
+    host work
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -1050,7 +1076,8 @@ def phase_checkpoint(g, work: str) -> dict:
     serve, on a packed shard; exact resume in-process; the checkpoint
     served through kernel 2 and held against the folded and module
     paths; kernel 2 at each of the face stem's four stages on the
-    trained weights."""
+    trained weights. Phase 13's untimed runs go beside the preemption
+    flow: ``out["data_parallel_runs"]``."""
     import re
     import shutil
     import signal
@@ -1093,7 +1120,9 @@ def phase_checkpoint(g, work: str) -> dict:
         for i in range(200):
             f.write(f"{i} {(i + 256) if i % 2 else i + 1} {1 - i % 2}\n")
 
-    # ---- the preemption flow: cli.train, SIGTERM past step 10, resume
+    # ---- the preemption flow: cli.train, SIGTERM past step 10, resume;
+    # phase 13's untimed runs go beside it
+    dp_runs = _start_data_parallel_runs(work)
     cmd = [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.train",
            "--device", "cuda", "--network", "resnet_v1_50", "--stem", "face",
            "--data", train_shard, "--loader", "python", "--num_classes",
@@ -1190,6 +1219,10 @@ def phase_checkpoint(g, work: str) -> dict:
            and os.path.exists(os.path.join(run, "best_step.json")),
            f"best checkpoint {best}")
     expect(mgr.all_steps()[-1] == 20, f"checkpoints {mgr.all_steps()}")
+    t_dp = time.time()
+    dp_runs = _finish_data_parallel_runs(dp_runs)
+    say(f"  phase 13's cli.train under torchrun and two gloo ranks, beside "
+        f"the preemption flow: their wait {time.time() - t_dp:.1f} s")
 
     # serve the checkpoint: cli.extract --engine fused, beside the exact
     # resume below (neither times the other's work)
@@ -1361,7 +1394,8 @@ def phase_checkpoint(g, work: str) -> dict:
     return {"k": k, "launches": [launches_1, launches_2],
             "extract_launches": ext_launches, "resume_max_diff": diff,
             "noise_floor": floor, "save_s": save_s, "restore_s": restore_s,
-            "bytes": nbytes, "face_stages": stats, "seconds": total}
+            "bytes": nbytes, "face_stages": stats, "seconds": total,
+            "data_parallel_runs": dp_runs}
 
 
 def _dp_batches(cfg, steps: int) -> list:
@@ -1429,11 +1463,53 @@ def _torchrun(started: tuple, timeout: int) -> subprocess.CompletedProcess:
     return proc
 
 
-def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
-    """Phase 13: data-parallel training (BASELINE config 5)."""
+def _start_data_parallel_runs(work: str) -> tuple:
+    """Phase 13's untimed runs, started in phase 12 beside its preemption
+    flow: config 5's cli.train under torchrun (one NCCL rank, 20 steps)
+    and two ``_dp_rank`` processes on cuda:0 over gloo."""
     import multiprocessing as mp
     import socket
 
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+
+    dp_cli = _start_torchrun(
+        ["tf_face_toolbox_tpu_torch.cli.train", "--preset",
+         "v5e8_data_parallel", "--multihost", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "10"])
+    cfg_kw = dict(bt.CONFIG4, global_batch=64)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
+    procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, cfg_kw,
+                                                GRID_STEPS, paths[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return dp_cli, procs, paths, cfg_kw
+
+
+def _finish_data_parallel_runs(started: tuple) -> dict:
+    dp_cli, procs, paths, cfg_kw = started
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    expect([p.exitcode for p in procs] == [0, 0],
+           f"gloo ranks exited {[p.exitcode for p in procs]}")
+    return {"ranks": [torch.load(path, weights_only=True) for path in paths],
+            "cfg_kw": cfg_kw, "cli": _torchrun(dp_cli, timeout=600)}
+
+
+def phase_data_parallel(work: str, single_faces_per_sec: float,
+                        runs: dict) -> dict:
+    """Phase 13: data-parallel training (BASELINE config 5). ``runs``: its
+    cli.train under torchrun and its two gloo ranks, run in phase 12."""
     from tf_face_toolbox_tpu_torch import bench
     from tf_face_toolbox_tpu_torch import bench_train as bt
     from tf_face_toolbox_tpu_torch.parallel.reference import (
@@ -1444,7 +1520,7 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
     t0 = time.time()
     say(f"[13 data parallel] {bench.gpu_info()}")
     # (a) config 5 on the production path: torchrun, NCCL, one replica;
-    # bench_train timed alone first, then cli.train beside (b)
+    # bench_train timed alone (cli.train ran beside (b) in phase 12)
     t1 = time.time()
     proc = _torchrun(_start_torchrun(
         ["tf_face_toolbox_tpu_torch.bench_train", "--preset",
@@ -1469,36 +1545,11 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
         f"trainer skips it at 1 rank); {time.time() - t1:.1f} s")
     expect(np.isfinite(timing["loss"]), f"timed run's loss {timing['loss']}")
     t1 = time.time()
-    dp_cli = _start_torchrun(
-        ["tf_face_toolbox_tpu_torch.cli.train", "--preset",
-         "v5e8_data_parallel", "--multihost", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "10"])
 
-    # (b) two ranks on cuda:0 over gloo against replica_loop_step, beside
-    # (a)'s cli.train
-    cfg_kw = dict(bt.CONFIG4, global_batch=64)
-    cfg = TrainConfig(**cfg_kw)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    paths = [os.path.join(work, f"dp_rank{r}.pt") for r in range(2)]
-    procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, cfg_kw,
-                                                GRID_STEPS, paths[r]))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(timeout=600)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-    expect([p.exitcode for p in procs] == [0, 0],
-           f"gloo ranks exited {[p.exitcode for p in procs]}")
-    ranks = [torch.load(path, weights_only=True) for path in paths]
+    # (b) two ranks on cuda:0 over gloo (run in phase 12) against
+    # replica_loop_step
+    cfg = TrainConfig(**runs["cfg_kw"])
+    ranks = runs["ranks"]
     diff, where = _max_diff(ranks[0]["state"], ranks[1]["state"])
     expect(diff == 0, f"the two ranks' states differ by {diff} at {where}")
     expect([r["launches"] for r in ranks] == [GRID_STEPS] * 2,
@@ -1542,14 +1593,14 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
         f"statistics within {stats_ulps:.2f} bf16 steps; kernel 1 launches "
         f"{[r['launches'] for r in ranks]}; rank 0's steps (host clock, "
         f"the gloo exchange staged through the host included) "
-        f"{[round(v, 3) for v in ranks[0]['seconds']]} s; "
-        f"{time.time() - t1:.1f} s")
+        f"{[round(v, 3) for v in ranks[0]['seconds']]} s (run in phase "
+        f"12); {time.time() - t1:.1f} s")
     expect(cos[worst] >= 0.999, f"update cosine {cos[worst]} at {worst}")
     expect(stats_ulps <= 2.0, f"BN running statistics {stats_ulps} bf16 "
                               "steps from replica_loop_step's")
     expect(loss_rel <= 0.01, f"losses {ranks[0]['losses']} vs {ref_losses}")
 
-    proc = _torchrun(dp_cli, timeout=600)
+    proc = runs["cli"]
     out = proc.stdout.strip().splitlines()
     expect(out and out[-1].startswith("done: step=20"),
            f"torchrun cli.train printed {out[-3:]}")
@@ -1560,9 +1611,9 @@ def phase_data_parallel(work: str, single_faces_per_sec: float) -> dict:
               if line.startswith("step ") and "loss=" in line]
     say(f"  (a) torchrun cli.train --preset v5e8_data_parallel --multihost "
         f"--pallas_input (NCCL, 1 rank of 256; the preset's 8 x 256 cut to "
-        f"the card's 1), beside (b): {out[-1]}, losses "
+        f"the card's 1), beside (b) in phase 12: {out[-1]}, losses "
         f"{[round(v, 4) for v in losses]}, kernel 1 launches {launches} in "
-        f"20 steps; (a) and (b) {time.time() - t1:.1f} s")
+        f"20 steps")
     expect(launches == 20, f"kernel 1 launched {launches} times in 20 steps")
     expect(len(losses) == 2 and all(np.isfinite(losses)),
            f"config-5 losses {losses}")
@@ -1750,10 +1801,9 @@ def _say_bench(label: str, r: dict, single_faces_per_sec: float) -> None:
 GRID_STEPS = 2
 
 
-def _run_grid(work: str, tag: str, heads: list,
-              steps: int) -> tuple[list, list]:
-    """Four spawned ``_grid_rank`` processes on cuda:0 over gloo: their
-    results by rank, and the paths they wrote."""
+def _start_grid(work: str, tag: str, heads: list, steps: int) -> tuple:
+    """Four ``_grid_rank`` processes on cuda:0 over gloo, spawned (they
+    time nothing); ``_finish_grid`` waits for them."""
     import multiprocessing as mp
     import socket
 
@@ -1767,6 +1817,13 @@ def _run_grid(work: str, tag: str, heads: list,
              for r in range(4)]
     for p in procs:
         p.start()
+    return procs, paths
+
+
+def _finish_grid(started: tuple) -> tuple[list, list]:
+    """A ``_start_grid``'s ranks at their end: their results by rank, and
+    the paths they wrote."""
+    procs, paths = started
     try:
         for p in procs:
             p.join(timeout=900)
@@ -1879,7 +1936,9 @@ def _grid_against_reference(ranks: list, paths: list, name: str, cfg,
 
 
 def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
-    """Phase 14: the class-sharded Partial-FC head (BASELINE config 7)."""
+    """Phase 14: the class-sharded Partial-FC head (BASELINE config 7).
+    Phase 15's untimed runs (its gloo ranks and its cli.train) go beside
+    (b) and end with it: ``out["loss_heads_runs"]``."""
     from tf_face_toolbox_tpu_torch import bench
 
     t0 = time.time()
@@ -1903,9 +1962,11 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
          "synthetic", "--num_steps", "20", "--log_every", "10"])
 
     # (b) four ranks on cuda:0 over gloo, data 2 x model 2, beside (a)'s
-    # cli.train
+    # cli.train and phase 15's four ranks and cli.train
     heads = [("exact", _pfc_config(1.0)), ("sampled", _pfc_config(0.1))]
-    ranks, paths = _run_grid(work, "pfc", heads, GRID_STEPS)
+    grid = _start_grid(work, "pfc", heads, GRID_STEPS)
+    loss_heads = _start_loss_heads_runs(work)
+    ranks, paths = _finish_grid(grid)
     step, logged, cli_launches = finish_train_cli(pfc_cli, timeout=600)
     losses = logged["loss"]
     say(f"  (a) cli.train --preset large_id_pfc_v5e8 --pallas_input (1 rank "
@@ -1937,10 +1998,36 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
             f"steps; kernel 1 launches {r['launches']}; rank 0's steps (host "
             f"clock, the gloo exchanges through the host included) "
             f"{[round(v, 3) for v in r['seconds']]} s")
-    say(f"  (b) {time.time() - t1:.1f} s; phase 14: {time.time() - t0:.1f} s")
+    out["loss_heads_runs"] = _finish_loss_heads_runs(loss_heads)
+    say(f"  (b) {time.time() - t1:.1f} s (with phase 15's ranks and "
+        f"cli.train); phase 14: {time.time() - t0:.1f} s")
     out.update(cli_launches=cli_launches, timing=timing,
                seconds=time.time() - t0)
     return out
+
+
+def _loss_heads_grid() -> list:
+    """Phase 15(c)'s heads on the four gloo ranks."""
+    return [("adaface+center", _heads_config(center_weight=0.01)),
+            ("curricular", _heads_config(margin_mode="curricular",
+                                         margin_m2=0.5, margin_m3=0.0))]
+
+
+def _start_loss_heads_runs(work: str) -> tuple:
+    """Phase 15's untimed runs, started in phase 14(b): preset 8's
+    cli.train (20 steps) and the four gloo ranks of (c)."""
+    ada_cli = start_train_cli(
+        ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
+         "synthetic", "--num_steps", "20", "--log_every", "5"])
+    return ada_cli, _start_grid(work, "heads", _loss_heads_grid(),
+                                GRID_STEPS)
+
+
+def _finish_loss_heads_runs(started: tuple) -> dict:
+    ada_cli, grid = started
+    ranks, paths = _finish_grid(grid)
+    return {"cli": finish_train_cli(ada_cli, timeout=600), "ranks": ranks,
+            "paths": paths}
 
 
 def _heads_config(**overrides):
@@ -1956,8 +2043,10 @@ def _heads_config(**overrides):
                                **overrides)
 
 
-def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
-    """Phase 15: the loss heads (BASELINE preset 8 and the other heads)."""
+def phase_loss_heads(g, work: str, single_faces_per_sec: float,
+                     runs: dict) -> dict:
+    """Phase 15: the loss heads (BASELINE preset 8 and the other heads).
+    ``runs``: its cli.train and gloo ranks, run during phase 14(b)."""
     from tf_face_toolbox_tpu_torch import bench
     from tf_face_toolbox_tpu_torch import bench_train as bt
     from tf_face_toolbox_tpu_torch.data.pipeline import (
@@ -2013,21 +2102,16 @@ def phase_loss_heads(g, work: str, single_faces_per_sec: float) -> dict:
     torch.cuda.empty_cache()
     say(f"  (b) {time.time() - t1:.1f} s")
 
-    # (c) four ranks on cuda:0 over gloo, data 2 x model 2, beside (a)'s
-    # cli.train
+    # (c) four ranks on cuda:0 over gloo, data 2 x model 2, and (a)'s
+    # cli.train, both run in phase 14(b)
     t1 = time.time()
-    heads = [("adaface+center", _heads_config(center_weight=0.01)),
-             ("curricular", _heads_config(margin_mode="curricular",
-                                          margin_m2=0.5, margin_m3=0.0))]
-    ada_cli = start_train_cli(
-        ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "5"])
-    ranks, paths = _run_grid(work, "heads", heads, GRID_STEPS)
-    step, logged, cli_launches = finish_train_cli(ada_cli, timeout=600)
+    heads = _loss_heads_grid()
+    ranks, paths = runs["ranks"], runs["paths"]
+    step, logged, cli_launches = runs["cli"]
     losses, means = logged["loss"], logged.get("adaface_norm_mean", [])
     say(f"  (a) cli.train --preset adaface_noisy_data --pallas_input (r50 "
         f"face stem, bf16, 10,572 classes x 3 sub-centers, batch 256, random "
-        f"erase 0.25, cosine LR; synthetic faces), beside (c): done "
+        f"erase 0.25, cosine LR; synthetic faces), in phase 14(b): done "
         f"step={step}, losses {[round(v, 4) for v in losses]}, "
         f"adaface_norm_mean {[round(v, 4) for v in means]}, kernel 1 "
         f"launches {cli_launches} in 20 steps")
@@ -2410,9 +2494,9 @@ def _extract_rank(rank: int, world: int, port: int, shard: str, npz: str,
 
 def phase_extract_resume(g, work: str) -> dict:
     """Phase 17: the rest of extraction at full width (resnet_v1_50, face
-    stem, 512-d, bf16, seeded weights) on a packed shard of 16,384
+    stem, 512-d, bf16, seeded weights) on a packed shard of 4,096
     synthetic 120x120 faces, python loader: cli.extract --engine fused
-    --chunk_rows 4096 --batch 256 killed (SIGKILL) once its second
+    --chunk_rows 1024 --batch 256 killed (SIGKILL) once its second
     chunk's sidecar is on disk and run again (it recomputes at most the
     chunk in flight), against an uninterrupted one-shot run; one file
     filled from two disjoint --rows ranges; --output_quality through the
@@ -2435,7 +2519,8 @@ def phase_extract_resume(g, work: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.time()
     say(f"[17 extraction] {bench.gpu_info()}")
-    n, chunk, batch = 16384, 4096, 256
+    # (16,384 faces in chunks of 4,096 until the smoke outgrew its time)
+    n, chunk, batch = 4096, 1024, 256
     shard = os.path.join(work, "extract17.faceshard")
     faces = torch.randint(0, 256, (n, 120, 120, 3), generator=g,
                           device="cuda", dtype=torch.uint8).cpu().numpy()
@@ -3832,7 +3917,591 @@ def phase_daemon(g, work: str, data: dict, folded_faces_per_sec: float
     return {"launches": {"topk": n_id, "topk_q": n_q},
             "bulk_faces_per_sec": bulk_rate, "embed_latency_ms": single_lat,
             "identify_latency_ms": identify, "reload_s": reload_s,
-            "grpc": grpc_note, "seconds": total}
+            "grpc": grpc_note, "seconds": total,
+            # for phase 22: (b)'s faces, answers and drained snapshot
+            "bodies": bodies[:n_id], "identify": (labels, scores),
+            "snap": snaps["f32"]}
+
+
+SHARDED_ROWS = 10_000_000   # phase 22: one bf16 DeviceGallery at 8 GB refuses
+SHARD_HBM_GB = 8.0          # its bound, a shard's and the one store's
+SHARDS = 4                  # phase 22's shards, all on cuda:0
+ZOO_EXTRACT = ("iresnet_100", "mobilefacenet")
+ZOO_TRAIN = ("iresnet_50", "mobilefacenet")
+ZOO_FACES = 1024
+
+
+def _shard_major(group: np.ndarray, n_dev: int) -> np.ndarray:
+    """Equal-score rows in the reference's merged order: a stable sort by
+    (shard, local slot) = (row % n_dev, row // n_dev), on the host."""
+    return group[np.lexsort((group // n_dev, group % n_dev))]
+
+
+def _check_sharded(tag: str, got, want, plain, probe_labels, groups,
+                   n_dev: int) -> dict:
+    """A sharded search (``got``) against the one store's (``want``, k + 1
+    columns) and its plain programs' (``plain``), each (labels, scores):
+    scores within TOPK_TOL; labels equal away from near-ties and the
+    planted groups; each planted group's four labels in shard-major order
+    in ``got`` and ``plain`` and in row order in ``want``."""
+    (gl, gs), (wl, ws), (pl, ps) = got, want, plain
+    k = gl.shape[1]
+    n_groups = len(groups)
+    near = near_ties(ws, k)
+    near[:n_groups] = True
+    score_err = max(float(np.abs(gs - ws[:, :k]).max()),
+                    float(np.abs(gs - ps).max()))
+    for j, grp in enumerate(groups[:len(gl)]):
+        expect(gl[j, :4].tolist() == pl[j, :4].tolist()
+               == probe_labels[_shard_major(grp, n_dev)].tolist()
+               and wl[j, :4].tolist() == probe_labels[np.sort(grp)].tolist(),
+               f"{tag}: planted group {grp.tolist()}: sharded "
+               f"{gl[j, :4].tolist()}, plain {pl[j, :4].tolist()}, one "
+               f"store {wl[j, :4].tolist()}")
+    expect((gl == wl[:, :k])[~near].all() and (gl == pl)[~near].all(),
+           f"{tag}: labels differ from the one store's or the plain "
+           "programs' away from near-ties")
+    expect(score_err <= TOPK_TOL, f"{tag}: scores differ by {score_err}")
+    return {"score_err": score_err, "near_ties": int(near[n_groups:].sum())}
+
+
+def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
+                          zoo: dict) -> dict:
+    """Phase 22: DistributedGallery over [cuda:0] * 4 at 10^7 rows (bf16 and
+    int8), kernels 3 and 4 on each shard, against one unbounded
+    DeviceGallery and the plain programs; a tombstone, a compaction
+    crossing and the snapshot; the sharded CLIs and daemon. Phase 23's CLI
+    runs (``zoo``, untimed) run beside its host work and end before its
+    timings."""
+    import shutil
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+    from tf_face_toolbox_tpu_torch.serving.distributed_gallery import (
+        DistributedGallery)
+    from tf_face_toolbox_tpu_torch.serving.gallery import (
+        DeviceGallery, GalleryCapacityError)
+
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[22 sharded gallery] {gpu}")
+    n, d, n_dev = SHARDED_ROWS, 512, SHARDS
+    shards = [torch.device("cuda", 0)] * n_dev
+    d22 = os.path.join(work, "sharded22")
+    shutil.rmtree(d22, ignore_errors=True)
+    os.makedirs(d22)
+    secs = {}
+
+    # the daemon over phase 21's snapshot (10^6 rows and 127 faces) with
+    # --gallery_shards -1, booting beside the host work (it times nothing)
+    snap21 = os.path.join(d22, "gallery_21.npz")
+    os.link(daemon21["snap"], snap21)
+    served = _Daemon(["--bundle", data20["bundle"], "--gallery", snap21,
+                      "--gallery_shards", "-1"])
+
+    # (a) 10^7 seeded unit rows made on the card, f32 on the host, labels
+    # their indices: 8 groups of 4 equal rows in the first fifth (rows b,
+    # b+1, b+2, b+5: shards 1, 2, 3, 2), the probes' rows after them, and
+    # one label (-1) on the last four fifths (its removal crosses
+    # compaction and leaves every earlier row where it was)
+    fifth = n // 5
+    rows = np.empty((n, d), np.float32)
+    stage = torch.empty((1 << 20, d), pin_memory=True)   # fast read-back
+    for i in range(0, n, 1 << 20):
+        x = torch.randn((min(1 << 20, n - i), d), generator=g, device="cuda")
+        m = x.shape[0]
+        stage[:m].copy_(x / x.norm(dim=1, keepdim=True))
+        torch.from_numpy(rows[i:i + m]).copy_(stage[:m])
+    del stage
+    groups = [b + np.array([0, 1, 2, 5])
+              for b in fifth // 20 + 1 + fifth // 10 * np.arange(8)]
+    for grp in groups:
+        rows[grp[1:]] = rows[grp[0]]
+    labels = np.arange(n, dtype=np.int64)
+    labels[fifth:] = -1
+    rng = np.random.default_rng(22)
+    probe_idx = np.concatenate([[grp[0] for grp in groups], rng.choice(
+        np.arange(fifth * 4 // 5, fifth), 56, replace=False)])
+    probes = rows[probe_idx].copy()
+    # the CLIs' inputs: the first 10^6 rows, 1,024 probes near them
+    gal_npy, probe_npy = (os.path.join(d22, f) for f in ("gal.npy",
+                                                        "probe.npy"))
+    np.save(gal_npy, rows[:n // 10])
+    near = rows[rng.choice(n // 10, 1024, replace=False)] + \
+        0.05 * rng.standard_normal((1024, d)).astype(np.float32)
+    np.save(probe_npy, near / np.linalg.norm(near, axis=1, keepdims=True))
+    # 256 probes a batch: each run's (B, 10^6) scores and top-k keys stay
+    # a few GB beside the other processes on the card
+    searches = {flag: _cli("search", "--gallery", gal_npy, "--probe",
+                           probe_npy, "--k", "5", "--probe_batch", "256",
+                           "--output", os.path.join(d22, f"m{flag}.npz"),
+                           "--device", "cuda",
+                           *(["--data_parallel"] if flag else []))
+                for flag in (0, 1)}
+    secs["rows"] = time.time() - t0
+
+    # (b) the bf16 store over four shards at 8 GB a shard; one store at
+    # that bound refuses the same rows; the one unbounded store over them
+    t = time.time()
+    bf = DistributedGallery(d, devices=shards, dtype="bfloat16",
+                            hbm_limit_gb=SHARD_HBM_GB)
+    bf.enroll(rows, labels)
+    secs["bf16 enroll"] = time.time() - t
+    one = DeviceGallery(d, dtype="bfloat16", hbm_limit_gb=SHARD_HBM_GB,
+                        device="cuda")
+    try:
+        one.enroll(rows, labels)
+        refusal = None
+    except GalleryCapacityError as e:
+        refusal = str(e)
+    one_gb = one._bytes_for(n) / 1e9
+    del one, rows
+    per_shard = bf.device_bytes() / n_dev
+    say(f"  (b) {n:,} x {d} bf16 rows over {n_dev} shards on cuda:0 at "
+        f"hbm_limit_gb={SHARD_HBM_GB:g}: {per_shard / 1e9:.2f} GB a shard, "
+        f"{bf.device_bytes() / 1e9:.2f} GB in all, enrolled in "
+        f"{secs['bf16 enroll']:.1f} s; one DeviceGallery at the same bound: "
+        f"{refusal}")
+    expect(refusal is not None and f"{one_gb:.2f} GB" in refusal,
+           f"one bf16 store did not refuse {n:,} rows: {refusal}")
+    expect(per_shard <= SHARD_HBM_GB * 1e9 < bf.device_bytes()
+           and len(bf) == n,
+           f"sharded store {per_shard} B a shard, {len(bf)} rows")
+    t = time.time()
+    ref = DeviceGallery(d, dtype="bfloat16", hbm_limit_gb=0, device="cuda")
+    ref.enroll(bf._host[:n], bf._lab[:n])
+    secs["bf16 one store"] = time.time() - t
+
+    def run(gal, b, k):
+        before = (ttk.cosine_topk.launches, ttk.cosine_topk_q.launches)
+        out = gal.search(probes[:b], k=k)
+        return out, (ttk.cosine_topk.launches - before[0],
+                     ttk.cosine_topk_q.launches - before[1])
+
+    def plain_of(gal, b, k):
+        gal.use_kernels = False
+        try:
+            return gal.search(probes[:b], k=k)
+        finally:
+            gal.use_kernels = True
+
+    checks, launches = {}, {"topk": 0, "topk_q": 0}
+
+    def compare(tag, gal, one_store, b, removed=()):
+        got, (lt, lq) = run(gal, b, 5)
+        launches["topk"] += lt
+        launches["topk_q"] += lq
+        kern = (0, n_dev) if gal.dtype == "int8" else (n_dev, 0)
+        expect((lt, lq) == kern, f"{tag} B={b}: launches topk {lt}, topk_q "
+                                 f"{lq}, want {n_dev} (one a shard)")
+        # bf16: the one store's top 6 shows a near-tie at rank 5; int8
+        # searches the same coarse k (a wider one may pick other rows)
+        want = one_store.search(probes[:b], k=5 if gal.dtype == "int8"
+                                else 6)
+        checks[f"{tag} B={b}"] = _check_sharded(
+            f"{tag} B={b}", got, want, plain_of(gal, b, 5), labels, groups,
+            n_dev)
+        expect(not np.isin(got[0], removed).any(),
+               f"{tag}: a removed label surfaced")
+
+    for b in (1, 64):
+        compare("bf16", bf, ref, b)
+
+    # (c) the CLIs (side by side since (a)): cli.search --data_parallel
+    # shards the 10^6 rows over the card's one device
+    outs = {flag: _cli_done(run_, 600) for flag, run_ in searches.items()}
+    m0, m1 = (np.load(os.path.join(d22, f"m{f}.npz")) for f in (0, 1))
+    summ = [json.loads(outs[f][-1]) for f in (0, 1)]
+    cli_err = float(np.abs(m0["scores"] - m1["scores"]).max())
+    cli_near = near_ties(m0["scores"], 5)
+    mean_diff = abs(summ[0].pop("top1_score_mean")
+                    - summ[1].pop("top1_score_mean"))
+    expect(summ[0].pop("output") != summ[1].pop("output")
+           and mean_diff <= TOPK_TOL and summ[0] == summ[1],
+           f"cli.search summaries {summ}")
+    expect(cli_err <= TOPK_TOL
+           and (m0["indices"] == m1["indices"])[~cli_near].all(),
+           f"cli.search --data_parallel differs: max |score| {cli_err}")
+    say(f"  (c) cli.search --data_parallel over {n // 10:,} rows and 1,024 "
+        f"probes equals cli.search without it: the summary line, indices "
+        f"away from near-ties ({int(cli_near.sum())}), scores within "
+        f"{TOPK_TOL} (cuBLAS products of another shape: max |diff| "
+        f"{cli_err:.3g})")
+
+    # (d) the daemon over phase 21's snapshot with --gallery_shards -1:
+    # /identify of phase 21's faces equals phase 21's answers
+    served.wait_serving()
+    bodies = daemon21["bodies"]
+    answers = [_ok(_http(served.base, "POST", "/identify?k=5", b),
+                   "/identify")["matches"] for b in bodies]
+    s_labels = np.asarray([[m["label"] for m in a] for a in answers])
+    s_scores = np.asarray([[m["score"] for m in a] for a in answers],
+                          np.float32)
+    w_labels, w_scores = daemon21["identify"]
+    err21 = float(np.abs(s_scores - w_scores).max())
+    expect((s_labels == w_labels)[~near_ties(w_scores, 5)].all()
+           and err21 <= TOPK_TOL,
+           f"--gallery_shards -1 /identify differs from phase 21's "
+           f"(max |score diff| {err21})")
+    served.expect_drained(topk=len(bodies), topk_q=0)
+    say(f"  (d) cli.serve --bundle --gallery_shards -1 (one shard: the "
+        f"card's one device) over phase 21's snapshot "
+        f"({GALLERY_ROWS + 127:,} rows): /identify of its {len(bodies)} "
+        f"faces equals phase 21's answers (max |score diff| {err21:.3g}); "
+        f"drained with topk={len(bodies)}")
+
+    # phase 23's CLI runs end here: the card is this phase's from now on
+    t = time.time()
+    zoo["done"] = {name: collect(p, 900) for name, p in
+                   zoo["extract"].items()}
+    zoo["trained"] = {name: finish_train_cli(s, 900)
+                      for name, s in zoo["train"].items()}
+    zoo["t_done"] = time.time()
+    secs["phase 23's CLIs (their wait)"] = zoo["t_done"] - t
+
+    # (e) times with CUDA events: the sharded search (4 launches, the
+    # merge, one read back) against the one store's
+    times = {}
+
+    def time_both(tag, gal, one_store):
+        for b in (1, 64):
+            times[f"{tag} B={b}"] = (
+                bench.time_ms(lambda: gal.search(probes[:b], k=5), iters=10,
+                              warmup=2),
+                bench.time_ms(lambda: one_store.search(probes[:b], k=5),
+                              iters=10, warmup=2))
+
+    time_both("bf16", bf, ref)
+    del ref
+    torch.cuda.empty_cache()
+
+    # (f) the int8 store over four shards (kernel 4 a shard, then the
+    # exact rescore) and the one unbounded int8 store, from the bf16
+    # store's host master (one after the other: two 20 GB copies side by
+    # side page slower than in turn)
+    t = time.time()
+    q8 = DistributedGallery(d, devices=shards, dtype="int8",
+                            hbm_limit_gb=SHARD_HBM_GB)
+    q8.enroll(bf._host[:n], bf._lab[:n])
+    ref8 = DeviceGallery(d, dtype="int8", hbm_limit_gb=0, device="cuda")
+    ref8.enroll(bf._host[:n], bf._lab[:n])
+    secs["int8 stores"] = time.time() - t
+    del bf
+    torch.cuda.empty_cache()
+    for b in (1, 64):
+        compare("int8", q8, ref8, b)
+    time_both("int8", q8, ref8)
+    say(f"  (e) bf16 and int8, B 1 and 64, k 5 (int8: coarse k 20, then "
+        f"the rescore): each search launched kernel 3 or 4 once a shard; "
+        f"labels and scores equal the one unbounded store's and the plain "
+        f"programs' (max |score diff| "
+        f"{max(c['score_err'] for c in checks.values()):.3g}; "
+        f"{sum(c['near_ties'] for c in checks.values())} near-tie "
+        f"positions); the 8 planted groups in shard-major order (a numpy "
+        f"sort by (row % 4, row // 4) on the host), the one store's in row "
+        f"order")
+    for tag, (ms, one_ms) in times.items():
+        say(f"  (e) {gpu}: {tag} k=5 over {n:,} rows: the sharded search "
+            f"({n_dev} launches, the merge, one read back) {ms:.3f} ms, the "
+            f"one store's {one_ms:.3f} ms ({ms / one_ms:.3f} x)")
+
+    # (g) one label removed (a tombstone), then the label of the last
+    # four fifths (a compaction crossing in both stores), each searched
+    # again; the compacted store's snapshot loaded into a DeviceGallery
+    one_label = int(labels[probe_idx[9]])
+    for gal in (q8, ref8):
+        expect(gal.remove(one_label) == 1, "remove one label")
+    expect(q8._tomb == 1, f"tombstone: {q8._tomb}")
+    compare("int8 tombstone", q8, ref8, 64, [one_label])
+    t = time.time()
+    expect(q8.remove(-1) == n - fifth and ref8.remove(-1) == n - fifth,
+           "remove(-1)")
+    secs["compaction"] = time.time() - t
+    n2 = fifth - 1
+    expect(q8._tomb == 0 and q8._n == n2 and ref8._tomb == 0,
+           f"compaction: tomb {q8._tomb}, fill {q8._n}")
+    compare("int8 compacted", q8, ref8, 64, [one_label, -1])
+    snap = os.path.join(d22, "sharded.npz")
+
+    def save_and_load():
+        t_save = time.time()
+        expect(q8.save(snap) == n2, "sharded save")
+        secs["save"] = time.time() - t_save
+        t_load = time.time()
+        out = DeviceGallery.load(snap, dtype="int8", hbm_limit_gb=0,
+                                 device="cuda")
+        secs["load"] = time.time() - t_load
+        return out
+
+    # (h) beside the snapshot's save and load (neither times anything):
+    # serve() in this process over DistributedGallery(devices=[cuda:0] *
+    # 4), a scripted /enroll (507 past capacity), /identify, /deenroll,
+    # /gallery sequence
+    loading = _beside(save_and_load)
+    daemon = _sharded_daemon(data20, daemon21, shards)
+    launches["topk"] += daemon["launches"]
+    loaded = loading()
+    os.remove(snap)
+    expect(len(loaded) == n2 and np.array_equal(loaded._lab[:n2],
+                                                q8._lab[:n2])
+           and np.array_equal(loaded._host[:n2], q8._host[:n2]),
+           "the snapshot loaded into a DeviceGallery differs from the store")
+    compare("int8 loaded", q8, loaded, 64, [one_label, -1])
+    say(f"  (g) int8: one label removed (a tombstone, 1 dead row), then the "
+        f"label of {n - fifth:,} rows (compaction in both stores, "
+        f"{secs['compaction']:.1f} s), each searched again against the one "
+        f"store and the plain programs; the compacted store ({n2:,} rows) "
+        f"saved ({secs['save']:.1f} s) and loaded into a DeviceGallery "
+        f"({secs['load']:.1f} s): its rows and labels equal the store's, "
+        f"its searches the store's")
+    del q8, ref8, loaded
+    torch.cuda.empty_cache()
+    total = time.time() - t0
+    say("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; phase 22: {total:.1f} s")
+    return {"launches": launches, "times_ms": times, "checks": checks,
+            "served_launches": len(bodies), "daemon": daemon,
+            "seconds": total}
+
+
+def _beside(fn):
+    """``fn()`` started in a thread, beside this one's work (for runs that
+    time nothing); → a function that waits for it and returns its result,
+    or raises what it raised."""
+    import threading
+
+    out: dict = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:      # re-raised by the waiter
+            out["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+
+    return wait
+
+
+def _sharded_daemon(data20: dict, daemon21: dict, shards: list) -> dict:
+    """Phase 22 (h): the daemon's endpoints over a four-shard gallery, in
+    this process (serve() over phase 20's bundle, bf16, folded)."""
+    from tf_face_toolbox_tpu_torch.ops import topk as ttk
+    from tf_face_toolbox_tpu_torch.serving import make_serving_apply
+    from tf_face_toolbox_tpu_torch.serving.bundle import network_from_meta
+    from tf_face_toolbox_tpu_torch.serving.distributed_gallery import (
+        DistributedGallery)
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+    from tf_face_toolbox_tpu_torch.serving.server import (
+        DynamicBatcher, EmbeddingService, serve)
+
+    side = data20["side"]
+    meta, flat = side["meta"], side["flat"]
+    bodies = daemon21["bodies"][:9]
+    net = network_from_meta(meta, dtype=torch.bfloat16)
+    svc = EmbeddingService(net, flat, image_size=112, crop_from=112,
+                           batch=64, apply_fn=make_serving_apply(
+                               net, flat, device="cuda"),
+                           dtype=torch.bfloat16, device="cuda")
+    svc.warmup()
+    batcher = DynamicBatcher(svc)
+    # one-row blocks of 2,048 B: two rows a shard fit 5,000 B, three not
+    gal = DistributedGallery(512, devices=shards, block=1,
+                             hbm_limit_gb=5000e-9)
+    server = serve(batcher, port=0, gallery=gal)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    before = ttk.cosine_topk.launches
+    try:
+        empty = _ok(_http(base, "GET", "/gallery"), "/gallery")
+        _enroll(base, bodies[:8])
+        over = _http(base, "POST", "/enroll?label=8", bodies[8])
+        emb, got_l, got_s, _ = _identify(base, bodies[:4], k=3)
+        removed = _ok(_http(base, "POST", "/deenroll?label=2"), "/deenroll")
+        after = _ok(_http(base, "POST", "/identify?k=7", bodies[2]),
+                    "/identify")
+        info = _ok(_http(base, "GET", "/gallery"), "/gallery")
+        # the enrolled rows: each face's /embed row (phase 21 (b))
+        rows = np.asarray([_ok(_http(base, "POST", "/embed", b),
+                               "/embed")["embedding"] for b in bodies[:8]],
+                          np.float32)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    launches = ttk.cosine_topk.launches - before
+    plain = DeviceGallery(512, device="cuda")
+    plain.use_kernels = False
+    plain.enroll(rows, np.arange(8))
+    pl, ps = plain.search(emb, k=3)
+    err = float(np.abs(got_s - ps).max())
+    expect(empty["size"] == 0 and over[0] == 507
+           and got_l[:, 0].tolist() == [0, 1, 2, 3]
+           and np.array_equal(got_l, pl) and err <= TOPK_TOL
+           and removed["removed"] == 1
+           and 2 not in [m["label"] for m in after["matches"]]
+           and info["size"] == 7 and info["overflow"] == "refuse"
+           and info["streaming"] is False and launches == 5 * len(shards),
+           f"serve() over the sharded gallery: /gallery {empty} -> {info}, "
+           f"9th /enroll {over[:2]}, /identify {got_l.tolist()} vs plain "
+           f"{pl.tolist()} (|score diff| {err}), /deenroll {removed}, "
+           f"launches {launches}")
+    say(f"  (h) serve() over DistributedGallery([cuda:0] x {len(shards)}, "
+        f"bf16 folded service): /gallery empty, 8 /enroll, the 9th HTTP "
+        f"{over[0]}, /identify 4 at k 3 equal to the plain programs over "
+        f"the served rows (max |score diff| {err:.3g}), /deenroll 2, "
+        f"/identify k 7 without it, /gallery size {info['size']}; kernel 3 "
+        f"launches {launches} ({len(shards)} a search)")
+    return {"launches": launches}
+
+
+def start_zoo_clis(g, work: str) -> dict:
+    """Phase 23's untimed runs, started beside phase 22's host work:
+    cli.extract --engine auto of each ZOO_EXTRACT net over packed
+    synthetic faces, cli.train 5 steps at batch 64 of each ZOO_TRAIN
+    net (fixed input norm, seeded random weights)."""
+    import shutil
+
+    from tf_face_toolbox_tpu_torch.data.format import pack_arrays
+
+    d = os.path.join(work, "zoo23")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shard = os.path.join(d, "faces.faceshard")
+    pack_arrays(shard, torch.randint(
+        0, 256, (ZOO_FACES, 112, 112, 3), generator=g, device="cuda",
+        dtype=torch.uint8).cpu().numpy(), list(range(ZOO_FACES)))
+    extract = {name: spawn(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--network", name, "--engine", "auto", "--input_norm", "fixed",
+         "--data", shard, "--output", os.path.join(d, f"{name}.npy"),
+         "--image_size", "112", "--crop_from", "112", "--batch", "128",
+         "--loader", "python", "--device", "cuda"])
+        for name in ZOO_EXTRACT}
+    train = {name: start_train_cli(
+        ["--network", name, "--input_norm", "fixed", "--num_classes",
+         "10572", "--global_batch", "64", "--num_steps", "5",
+         "--log_every", "1", "--data", "synthetic", "--train_dir",
+         os.path.join(d, f"{name}_run"), "--save_every", "5"])
+        for name in ZOO_TRAIN}
+    return {"dir": d, "shard": shard, "extract": extract, "train": train,
+            "t0": time.time()}
+
+
+def phase_zoo(g, zoo: dict, r50_folded: float) -> dict:
+    """Phase 23: iResNet and MobileFaceNet at full width (bf16, seeded
+    weights, fixed input norm): cli.extract --engine auto (collected in
+    phase 22) against the f32 module path, the module path's faces/s at
+    batch 128 beside resnet_v1_50's, and cli.train (5 steps, batch 64)
+    with its losses, BN statistics and training rate."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[23 iresnet, mobilefacenet] {gpu}")
+    out = {"extract": {}, "train": {}}
+    # (a) cli.extract --engine auto: the module path, logged; against the
+    # f32 module path in this process
+    for name in ZOO_EXTRACT:
+        proc = zoo["done"][name]
+        expect(proc.returncode == 0,
+               f"cli.extract {name} failed:\n{proc.stderr[-3000:]}")
+        expect("serving engine not applicable" in proc.stderr
+               and "supports the ResNet family" in proc.stderr
+               and "kernel launches: fused_block=0" in proc.stdout,
+               f"cli.extract {name}: no module-path fallback logged: "
+               f"{proc.stderr[-800:]}")
+        got = np.load(os.path.join(zoo["dir"], f"{name}.npy"))
+        net32 = create_network(name)
+        want = extract_shard(net32, random_variables(net32, 0),
+                             FaceShardSource(zoo["shard"]), image_size=112,
+                             crop_from=112, batch=128, loader="python",
+                             norm="fixed", device="cuda")
+        del net32
+        torch.cuda.empty_cache()
+        cos = per_image_cos(torch.from_numpy(got), torch.from_numpy(want))
+        mean = want.mean(0, keepdims=True)
+        cen = per_image_cos(torch.from_numpy(got - mean),
+                            torch.from_numpy(want - mean))
+        expect(got.shape == (ZOO_FACES, 512) and np.isfinite(got).all()
+               and cos.min().item() >= 0.999,
+               f"cli.extract {name}: {got.shape}, cosine vs the f32 module "
+               f"path {cos.min().item()}")
+        out["extract"][name] = {"min_cos": cos.min().item(),
+                                "centered_min_cos": cen.min().item()}
+    # (b) the module path's rate at batch 128 (256 images), bf16, beside
+    # resnet_v1_50's face-stem module path
+    pixels = torch.randn((128, 112, 112, 3), generator=g, device="cuda")
+    rates = {}
+    for name in (*ZOO_EXTRACT, "resnet_v1_50"):
+        forward = bench.build_forward(impl="module", network=name,
+                                      stem="face")
+        torch.cuda.reset_peak_memory_stats()
+        ms = bench.time_ms(forward, pixels, iters=5, warmup=2)
+        rates[name] = {"faces_per_sec": 128e3 / ms, "ms_per_batch": ms,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated()
+                       / 1e9}
+        del forward
+        torch.cuda.empty_cache()
+    r50 = rates["resnet_v1_50"]["faces_per_sec"]
+    for name in ZOO_EXTRACT:
+        r = rates[name]
+        out["extract"][name].update(r)
+        say(f"  (a) cli.extract --network {name} --engine auto --input_norm "
+            f"fixed, {ZOO_FACES} faces: the module-path fallback logged; "
+            f"vs the f32 module path min cosine "
+            f"{out['extract'][name]['min_cos']:.6f} (batch-centered "
+            f"{out['extract'][name]['centered_min_cos']:.4f}); (b) module "
+            f"path bf16 at batch 128: {r['faces_per_sec']:.1f} faces/s "
+            f"({r['ms_per_batch']:.2f} ms/batch, peak "
+            f"{r['peak_memory_gb']:.2f} GB; {r['faces_per_sec'] / r50:.3f} x "
+            f"resnet_v1_50's face-stem module path {r50:.1f}, whose folded "
+            f"route runs {r50_folded:.1f})")
+    # (c) cli.train: 5 steps, finite losses, the BN statistics moved; then
+    # the training rate at batch 64, the card to itself
+    for name in ZOO_TRAIN:
+        step, logged, launches = zoo["trained"][name]
+        losses = logged["loss"]
+        raw = CheckpointManager(os.path.join(zoo["dir"], f"{name}_run")
+                                ).restore_raw(5)
+        stats = raw["batch_stats"]
+        moved = sum(bool((v != (1.0 if k.endswith("var") else 0.0)).any())
+                    for k, v in stats.items())
+        expect(step == 5 and len(losses) == 5
+               and all(np.isfinite(v) for v in losses)
+               and moved == len(stats) and launches == 0,
+               f"cli.train {name}: step {step}, losses {losses}, "
+               f"{moved}/{len(stats)} BN statistics moved, kernel 1 "
+               f"x{launches}")
+        r = bt.time_training(bt.config4(network=name, global_batch=64,
+                                        input_norm="fixed",
+                                        pallas_input=False),
+                             steps=6, warmup=2, profile_steps=1)
+        out["train"][name] = {"losses": losses, **{k: r[k] for k in (
+            "faces_per_sec", "ms_per_step", "peak_memory_gb", "idle_share",
+            "device_ms_per_step", "peak_share")}}
+        say(f"  (c) cli.train --network {name} --input_norm fixed, 5 steps, "
+            f"batch 64, 10,572 classes: losses "
+            f"{[round(v, 4) for v in losses]}, all {len(stats)} BN "
+            f"statistics moved; training {r['faces_per_sec']:.1f} faces/s "
+            f"({r['ms_per_step']:.2f} ms/step, peak "
+            f"{r['peak_memory_gb']:.2f} GB, idle {r['idle_share']:.1%})")
+    total = time.time() - t0
+    say(f"  phase 23: {total:.1f} s (its CLIs ran beside phase 22, "
+        f"collected {zoo['t_done'] - zoo['t0']:.1f} s after their start)")
+    out["seconds"] = total
+    return out
 
 
 def _full_state(state) -> dict:
@@ -4090,12 +4759,14 @@ def main() -> None:
     # ---- 12. checkpoints: train -> preempt -> resume -> serve
     ckpt = phase_checkpoint(g, work)
     # ---- 13. data-parallel training (config 5), through torchrun
-    dp = phase_data_parallel(work, train["time"]["faces_per_sec"])
+    dp = phase_data_parallel(work, train["time"]["faces_per_sec"],
+                             ckpt.pop("data_parallel_runs"))
     # ---- 14. the class-sharded Partial-FC head (config 7)
     pfc = phase_partial_fc(work, train["time"]["faces_per_sec"])
     # ---- 15. the loss heads (preset 8, MagFace, Curricular, center,
     # triplet)
-    heads = phase_loss_heads(g, work, train["time"]["faces_per_sec"])
+    heads = phase_loss_heads(g, work, train["time"]["faces_per_sec"],
+                             pfc.pop("loss_heads_runs"))
     # ---- 16. SE-ResNet, ResNeXt, SE-ResNeXt, DenseNet, space2depth
     backbones = phase_backbones(g, u8, work, train["time"]["faces_per_sec"])
     # ---- 17. the rest of extraction: resumable chunks, quality, ranks
@@ -4113,6 +4784,12 @@ def main() -> None:
     daemon = phase_daemon(
         g, work, data20,
         backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
+    # ---- 22. the sharded gallery at 10^7 rows, kernels 3 and 4 a shard;
+    # phase 23's CLI runs go beside its host work
+    zoo = start_zoo_clis(g, work)
+    sharded = phase_sharded_gallery(g, work, data20, daemon, zoo)
+    # ---- 23. iResNet and MobileFaceNet at full width
+    phase_zoo(g, zoo, backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -4211,7 +4888,7 @@ def main() -> None:
          # entry block at 56x56), 256 images, and se_resnet_50 fused
          # (its SE stages stay folded: 0 launches)
          "space2depth": backbones["space2depth"],
-         # phase 17: cli.extract --engine fused, 16,384 faces at batch
+         # phase 17: cli.extract --engine fused, 4,096 faces at batch
          # 256: one shot, the chunked run killed and its rerun, and 128
          # faces with --output_quality
          "extract_resume_launches": extract17["launches"],
@@ -4231,7 +4908,18 @@ def main() -> None:
             "library_route_ms": row["library_route_ms"],
             # phase 21: the daemon's /identify, one search each (f32
             # gallery: kernel 3; int8 gallery: kernel 4)
-            "daemon_launches": daemon["launches"][name]})
+            "daemon_launches": daemon["launches"][name],
+            # phase 22: one launch a shard a search of the 10^7-row
+            # four-shard stores (bf16: kernel 3; int8: kernel 4) and of the
+            # in-process daemon's four-shard gallery (kernel 3); the
+            # --gallery_shards -1 daemon's /identify (one shard)
+            "sharded_launches": sharded["launches"][name],
+            "sharded_daemon_launches": (sharded["served_launches"]
+                                        if name == "topk" else 0),
+            "sharded_search_ms": {
+                tag: {"sharded": ms, "one_store": one_ms}
+                for tag, (ms, one_ms) in sharded["times_ms"].items()
+                if tag.startswith("int8" if name == "topk_q" else "bf16")}})
     kernels[2].update(f32_ms=t_topk_f32["ms"], f32_plain_ms=t_topk_f32["plain_ms"])
     say(json.dumps({"kernels": kernels}))
     say(gpu)

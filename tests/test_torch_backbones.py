@@ -205,7 +205,7 @@ def test_registry_has_the_new_networks_with_jax_kwargs():
 
 
 def test_unported_networks_and_options_still_raise():
-    for name, item in (("iresnet_50", "17"), ("dct_resnet_50", "17")):
+    for name, item in (("dct_vit_small", "17b"), ("dct_resnet_50", "17b")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             create_network(name)
     for name in ("resnet_tiny", "se_resnet_50", "densenet_121"):

@@ -120,8 +120,8 @@ def test_both_packages_refuse_the_same_artifacts(tmp_path, case):
 @pytest.mark.parametrize("change,item", [
     ({"quant_mode": "dynamic"}, "item 18"),
     ({"quant_mode": "static"}, "item 18"),
-    ({"network": "iresnet_50", "stem": None}, "item 17"),
-    ({"network": "mobilefacenet", "stem": None}, "item 17")])
+    ({"network": "dct_vit_small", "stem": None}, "item 17"),
+    ({"network": "dct_resnet_50", "stem": None}, "item 17")])
 def test_network_from_meta_refuses_what_the_port_lacks(change, item):
     with pytest.raises(NotImplementedError, match=item):
         bundle.network_from_meta(dict(META, **change), dtype=torch.float32)

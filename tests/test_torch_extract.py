@@ -136,7 +136,7 @@ def test_cli_refuses_unported_inputs(tmp_path):
     shard = _shard(tmp_path / "faces.faceshard", n=2)
     proc = subprocess.run(
         [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
-         "--network", "iresnet_50", "--data", shard,
+         "--network", "dct_vit_small", "--data", shard,
          "--output", str(tmp_path / "e.npy"), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0

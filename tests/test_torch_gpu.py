@@ -912,3 +912,95 @@ def test_remat_gradients_on_the_card(cuda):
     labels = torch.randint(0, 1000, (32,), generator=cuda, device="cuda")
     for name, r in bt.remat_grads(cfg, images, labels).items():
         assert r["max_abs_diff"] == 0, (name, r)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sharded_gallery_runs_the_kernels_on_each_shard(cuda, dtype):
+    """A DistributedGallery over [cuda:0] * 4 launches kernel 3 or 4 once
+    a shard a search, equals its plain programs (use_kernels=False) and
+    a host store of the same shards, keeps JAX's shard-major tie order,
+    and tombstones and compacts on the card."""
+    from tf_face_toolbox_tpu_torch.serving.distributed_gallery import (
+        DistributedGallery)
+
+    rng = np.random.default_rng(1)
+    e = rng.normal(size=(1000, 72)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    e[2] = e[5] = e[1]                  # shards 1, 2, 1: order 1, 5, 2
+    counter = ttk.cosine_topk_q if dtype == "int8" else ttk.cosine_topk
+    dev = torch.device("cuda", 0)
+    card = DistributedGallery(72, devices=[dev] * 4, block=64, dtype=dtype)
+    plain = DistributedGallery(72, devices=[dev] * 4, block=64, dtype=dtype)
+    plain.use_kernels = False
+    host = DistributedGallery(72, devices=["cpu"] * 4, block=64, dtype=dtype)
+    labels = np.arange(1000)
+    labels[900:964] = 7777                             # one block's worth
+    for g in (card, plain, host):
+        g.enroll(e[:700], labels[:700])
+        g.enroll(e[700:], labels[700:])                # grows each shard
+        g.remove(9)                                    # a tombstone
+    before = counter.launches
+    lc, sc = card.search(e[:9], k=5)
+    assert counter.launches == before + 4
+    lp, sp = plain.search(e[:9], k=5)
+    lh, sh = host.search(e[:9], k=5)
+    assert counter.launches == before + 4
+    np.testing.assert_array_equal(lc, lp)
+    np.testing.assert_array_equal(lc, lh)
+    np.testing.assert_allclose(sc, sp, atol=1e-5)
+    assert lc[1, :3].tolist() == [1, 5, 2] and 9 not in lc
+    card.compact_frac = 0.0             # past `block` tombstones: compacts
+    assert card.remove(7777) == 64
+    assert card._tomb == 0 and len(card) == 935
+    got, _ = card.search(e[:12], k=3)
+    assert not np.isin(got, [9, 7777]).any()
+    # rows 2 and 5 equal row 1, which wins their ties (shard 1, slot 0)
+    assert got[:, 0].tolist() == [0, 1, 1, 3, 4, 1, 6, 7, 8, got[9, 0], 10, 11]
+
+
+@pytest.mark.parametrize("name", ["iresnet_tiny", "mobilefacenet_tiny",
+                                  "iresnet_50", "mobilefacenet"])
+def test_zoo_bf16_on_the_card_tracks_the_f32_module(cuda, name):
+    """The two families' module path in bf16 on the card, against the
+    f32 module on the host: per-face cosine >= 0.999."""
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import (create_network,
+                                                  random_variables)
+
+    net32 = create_network(name, embedding_dim=64)
+    flat = random_variables(net32, seed=0)
+    load_jax_variables(net32, flat)
+    net16 = load_jax_variables(create_network(
+        name, embedding_dim=64, dtype=torch.bfloat16), flat).to("cuda")
+    x = torch.randn((8, 112, 112, 3), generator=cuda, device="cuda")
+    with torch.no_grad():
+        got = net16(x).cpu()
+        want = net32(x.cpu())
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert cos.min().item() >= 0.999, cos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_store_rows_on_the_card_equal_the_hosts(cuda, dtype):
+    """A CUDA store casts or quantizes its f32 rows on the card: bit for
+    bit the host's values (bf16 round-to-nearest-even; int8's f32
+    scale, f32 division and round-half-even), for strided views, a zero
+    row, values at .5 after scaling, and padded widths."""
+    from tf_face_toolbox_tpu_torch.serving.gallery import (
+        row_width, store_rows)
+
+    rng = np.random.default_rng(3)
+    rows = rng.normal(size=(3000, 100)).astype(np.float32)
+    rows[7] = 0.0
+    rows[8, :3] = [127.0, 0.5, -1.5]       # scale 1: ties at .5 round even
+    rows[9] = rng.integers(-300, 300, size=100).astype(np.float32) / 2
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    width = row_width(100, item)
+    for view in (rows, rows[1::3]):
+        got, gs = store_rows(view, dtype, width, torch.device("cuda"))
+        want, ws = store_rows(view, dtype, width, torch.device("cpu"))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+        if dtype == "int8":
+            assert torch.equal(gs.cpu(), ws)

@@ -187,10 +187,13 @@ def test_cli_search_in_process(tmp_path, capsys):
     np.testing.assert_array_equal(
         got["labels"], np.where(js >= 0.5, glab[ji], -1))
     assert summary["probes"] == 30 and summary["gallery"] == 90
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcli_search.main([f"--gallery={paths['gal']}",
-                          f"--probe={paths['probe']}", f"--output={out}",
-                          "--data_parallel", "--device=cpu"])
+    # --data_parallel (ported since; tests/test_torch_distributed_gallery.py
+    # holds it against JAX's sharded search) ranks the same
+    tcli_search.main([f"--gallery={paths['gal']}", f"--probe={paths['probe']}",
+                      f"--output={out}", "--k=4", "--data_parallel",
+                      "--device=cpu"])
+    assert json.loads(capsys.readouterr().out)["probes"] == 30
+    np.testing.assert_array_equal(np.load(out)["indices"], ji)
 
 
 def test_cli_search_snorm_in_process(tmp_path, capsys):

@@ -123,7 +123,7 @@ def test_l2_normalize_is_not_f_normalize():
 def test_unported_networks_and_options_raise():
     assert "resnet_v1_50" in list_networks()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_network("iresnet_50")
+        create_network("dct_vit_small")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_network("resnet_tiny", quantized=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

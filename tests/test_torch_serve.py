@@ -713,18 +713,21 @@ def test_cli_serve_hot_reloads_a_port_train_dir(run_dir, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--quant_mode", "static", "--calibrate_data", "x"], "item 18"),
     (["--quant_mode", "dynamic"], "item 18"),
-    (["--gallery_shards", "2"], "item 14"),
-    (["--bundle", "IRESNET"], "item 17"),
+    # --gallery_shards is ported: more shards than devices refuses as
+    # JAX's create_mesh does (tests/test_torch_distributed_gallery.py)
+    pytest.param(["--gallery_shards", "2", "--gallery", "g.npz"],
+                 r"mesh \(2x1\) needs 2 devices", id="argv2-item 14"),
+    (["--bundle", "UNPORTED"], "item 17"),
     (["--bundle", "b.npz", "--variables_npz", "w.npz"], "self-contained"),
     (["--gallery", "g.npz", "--transport", "grpc"], "HTTP-only")])
 def test_cli_serve_refusals(tmp_path, argv, match):
     from tf_face_toolbox_tpu.serving.bundle import write_bundle
     from tf_face_toolbox_tpu_torch.cli import serve as cli_serve
 
-    if "IRESNET" in argv:
-        path = str(tmp_path / "iresnet.bundle.npz")
+    if "UNPORTED" in argv:
+        path = str(tmp_path / "vit.bundle.npz")
         write_bundle(path, {"params": {"x": np.zeros(1, np.float32)}},
-                     dict(network="iresnet_50", embedding_dim=DIM,
+                     dict(network="dct_vit_small", embedding_dim=DIM,
                           image_size=SIZE, input_norm="fixed",
                           quant_mode="none"))
         argv = ["--bundle", path]

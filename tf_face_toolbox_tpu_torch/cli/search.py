@@ -5,7 +5,9 @@ and probe embeddings (both from ``cli.extract``), writes each probe's
 top-k gallery rows with cosine scores, optionally mapped to identity
 labels and thresholded (scores below ``--threshold`` become identity
 -1, "unknown"). One f32 matrix product and a top-k per probe batch on
-the device; ties go to the smallest gallery row.
+the device; ties go to the smallest gallery row. ``--data_parallel``
+splits the gallery's rows over the devices
+(``ops.verification.sharded_top_k_matches``).
 
     python -m tf_face_toolbox_tpu_torch.cli.search \
         --gallery=gal.npy --gallery_list=gal_list.txt \
@@ -39,8 +41,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--probe_batch", type=int, default=4096,
                    help="probes per device matrix product")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the gallery over all visible devices (not "
-                        "ported yet)")
+                   help="shard the gallery over the visible devices of "
+                        "--device (every CUDA device, or one CPU): each "
+                        "ranks its block of rows, the candidates merge; "
+                        "results equal the single-device ranking")
     p.add_argument("--cohort", default="",
                    help="impostor-cohort embeddings file: switches scores to "
                         "adaptive s-norm (--threshold then applies on the "
@@ -55,14 +59,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel (gallery sharded over GPUs) is not ported yet: "
-            "ROADMAP.md item 14")
+    import torch
+
     from tf_face_toolbox_tpu_torch.data.format import load_labels
     from tf_face_toolbox_tpu_torch.io import load_embeddings
     from tf_face_toolbox_tpu_torch.ops.verification import (
-        cohort_stats, top_k_matches)
+        cohort_stats, sharded_top_k_matches, top_k_matches)
 
     gallery, _ = load_embeddings(args.gallery)
     probe, _ = load_embeddings(args.probe)
@@ -72,10 +74,21 @@ def main(argv=None) -> None:
         top = min(args.snorm_top, cohort.shape[0]) if args.snorm_top else 0
         p_stats = cohort_stats(probe, cohort, top=top, device=args.device)
         g_stats = cohort_stats(gallery, cohort, top=top, device=args.device)
-    indices, scores = top_k_matches(gallery, probe, k=args.k,
-                                    batch=args.probe_batch,
-                                    probe_stats=p_stats,
-                                    gallery_stats=g_stats, device=args.device)
+    if args.data_parallel:
+        device = torch.device(args.device)
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        indices, scores = sharded_top_k_matches(
+            gallery, probe, k=args.k, devices=devices,
+            batch=args.probe_batch, probe_stats=p_stats,
+            gallery_stats=g_stats)
+    else:
+        indices, scores = top_k_matches(gallery, probe, k=args.k,
+                                        batch=args.probe_batch,
+                                        probe_stats=p_stats,
+                                        gallery_stats=g_stats,
+                                        device=args.device)
     out = {"indices": indices, "scores": scores.astype(np.float32)}
     summary = {
         "probes": int(probe.shape[0]),

@@ -21,9 +21,11 @@ as ``cli.extract --engine auto`` does. On a CUDA device the gallery's
 /identify runs top-k kernel 3 (f32/bf16 store) or 4 (int8 store).
 SIGTERM/SIGINT drains: new connections are refused, requests in flight
 complete, the gallery is saved, and the daemon prints its top-k kernel
-launches and ``drained; bye``. Unported flags refuse naming their
-ROADMAP.md §1 item: ``--quant_mode``/``--calibrate_data`` (18),
-``--gallery_shards`` (14).
+launches and ``drained; bye``. ``--gallery_shards N`` stripes the
+gallery over the first N visible devices of ``--device`` (-1: every
+one; ``serving.distributed_gallery``), refuse-only past capacity.
+Unported flags refuse naming their ROADMAP.md §1 item:
+``--quant_mode``/``--calibrate_data`` (18).
 """
 
 from __future__ import annotations
@@ -115,8 +117,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="past --gallery_hbm_gb: 'refuse' enrollments (507) "
                         "or 'stream' the host master through the device")
     p.add_argument("--gallery_shards", type=int, default=0,
-                   help="shard the gallery over devices (not yet ported: "
-                        "item 14); 0 = one device")
+                   help="shard the gallery over this many devices of "
+                        "--device (DistributedGallery: rows striped over "
+                        "the shards, per-shard top-k merged; capacity "
+                        "scales to shards x --gallery_hbm_gb). 0 = one "
+                        "device, -1 = every visible one "
+                        "(--gallery_overflow=stream is single-device)")
     p.add_argument("--max_batch", type=int, default=64,
                    help="device batch (pad-to-batch)")
     p.add_argument("--max_wait_ms", type=float, default=5.0,
@@ -135,9 +141,6 @@ def _refuse(args) -> None:
     if args.quant_mode != "none" or args.calibrate_data:
         raise SystemExit("--quant_mode/--calibrate_data: int8 serving is "
                          "not ported yet (ROADMAP.md §1 item 18)")
-    if args.gallery_shards:
-        raise SystemExit("--gallery_shards: the sharded gallery is not "
-                         "ported yet (ROADMAP.md §1 item 14)")
     if args.bundle:
         if args.checkpoint_dir or args.variables_npz:
             raise SystemExit("--bundle is self-contained; drop "
@@ -153,6 +156,30 @@ def _refuse(args) -> None:
             raise SystemExit("--watch_interval polls a --checkpoint_dir")
     if args.gallery and args.transport == "grpc":
         raise SystemExit("--gallery endpoints are HTTP-only")
+    if args.gallery and args.gallery_shards:
+        if args.gallery_overflow == "stream":
+            raise SystemExit(
+                "--gallery_overflow=stream is single-device; a "
+                "sharded gallery (--gallery_shards) is refuse-only "
+                "— past capacity, use cli.search offline")
+        _shard_devices(args)
+
+
+def _shard_devices(args) -> list:
+    """The devices of ``--gallery_shards``: the first N visible devices
+    of ``--device`` (every CUDA device, or one CPU), all of them at -1;
+    more than are visible refuses with JAX's ``create_mesh`` message."""
+    import torch
+
+    device = torch.device(args.device)
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if device.type == "cuda" else [device])
+    n = len(visible) if args.gallery_shards < 0 else args.gallery_shards
+    if n > len(visible):
+        raise SystemExit(f"mesh ({n}x1) needs {n} devices, have "
+                         f"{len(visible)}")
+    return visible[:n]
 
 
 def main(argv=None) -> None:
@@ -312,6 +339,8 @@ def _serve_front_end(args, batcher, all_batchers, watcher, device):
     launches = (topk.cosine_topk.launches, topk.cosine_topk_q.launches)
     gallery = None
     if args.gallery:
+        from tf_face_toolbox_tpu_torch.serving.distributed_gallery import (
+            DistributedGallery)
         from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
 
         first = (next(iter(batcher.values())) if isinstance(batcher, dict)
@@ -320,17 +349,24 @@ def _serve_front_end(args, batcher, all_batchers, watcher, device):
         dim = svc.embed_batch(np.zeros(
             (1, svc.crop_from, svc.crop_from, 3), np.uint8)).shape[1]
         gkw = dict(dtype=args.gallery_dtype,
-                   hbm_limit_gb=args.gallery_hbm_gb,
-                   overflow=args.gallery_overflow, device=device)
+                   hbm_limit_gb=args.gallery_hbm_gb)
+        if args.gallery_shards:
+            store_cls = DistributedGallery
+            gkw["devices"] = _shard_devices(args)
+            logging.info("gallery sharded over %d devices",
+                         len(gkw["devices"]))
+        else:
+            store_cls = DeviceGallery
+            gkw.update(overflow=args.gallery_overflow, device=device)
         if os.path.exists(args.gallery):
-            gallery = DeviceGallery.load(args.gallery, **gkw)
+            gallery = store_cls.load(args.gallery, **gkw)
             if gallery.dim != dim:
                 raise SystemExit(
                     f"--gallery={args.gallery} holds {gallery.dim}-d "
                     f"embeddings; the served model produces {dim}-d")
             logging.info("gallery loaded: %d enrolled", len(gallery))
         else:
-            gallery = DeviceGallery(dim, **gkw)
+            gallery = store_cls(dim, **gkw)
     if args.transport == "grpc":
         from tf_face_toolbox_tpu_torch.serving.grpc_server import serve_grpc
 

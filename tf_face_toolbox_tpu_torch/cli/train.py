@@ -76,7 +76,7 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
 
 # flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
 _NOT_PORTED = {
-    "drop_path": (0.0, "17"),
+    "drop_path": (0.0, "17b"),
     "qat": (False, "18"),
 }
 
@@ -182,7 +182,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--loader", default="auto",
                    choices=["auto", "native", "python", "native_dct"],
                    help="host decode: native C++ pool or Python threads "
-                        "(native_dct: item 17)")
+                        "(native_dct: item 17b)")
     p.add_argument("--ema_decay", type=float, default=0.0)
     p.add_argument("--distill_from", default="",
                    help="embedding distillation teacher: a port train dir "
@@ -359,7 +359,7 @@ def _refuse_unported(args) -> None:
                              f"item {item})")
     if args.loader == "native_dct":
         raise SystemExit("--loader=native_dct is not ported yet "
-                         "(ROADMAP.md §1 item 17)")
+                         "(ROADMAP.md §1 item 17b)")
 
 
 def build_config(args, num_classes: int):

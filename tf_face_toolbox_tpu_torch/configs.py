@@ -89,7 +89,7 @@ CONFIG_5_V5E8_DATA_PARALLEL: dict[str, Any] = dict(
 )
 
 # The bf16 accuracy-class serving preset: JPEG-domain backbone,
-# zero-decode input (the DCT family: item 17).
+# zero-decode input (the DCT family: item 17b).
 CONFIG_6_ACCURACY_SERVING_BF16: dict[str, Any] = dict(
     network="dct_resnet_50",
     embedding_dim=512,

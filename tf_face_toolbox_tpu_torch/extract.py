@@ -303,7 +303,7 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
         loader = "native" if native_available() else "python"
     if loader not in ("native", "python"):
         raise NotImplementedError(
-            f"loader {loader!r} is not ported yet (ROADMAP.md §1 item 17); "
+            f"loader {loader!r} is not ported yet (ROADMAP.md §1 item 17b); "
             "use native or python")
     n = source.index.count
     row_lo, row_hi = rows if rows is not None else (0, n)

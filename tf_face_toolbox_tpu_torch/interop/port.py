@@ -12,9 +12,12 @@ carry the flax auto-names, so every key maps to one torch tensor:
     batch_stats/P/mean, .../var     -> P.running_mean, P.running_var
 
 A conv is a ConvBN's kernel, a grouped one ((kh, kw, cin / groups,
-cout) <-> (cout, cin / groups, kh, kw)) included, or the kernel of a
+cout) <-> (cout, cin / groups, kh, kw)) included, a depthwise one
+((3, 3, 1, C) <-> (C, 1, 3, 3)) among them, or the kernel of a
 bias-free plain conv that sits on its module itself (DenseNet's
-``Conv_0`` and ``_BNReLUConv_i``). Loading is total both ways: every key
+``Conv_0`` and ``_BNReLUConv_i``, iResNet's and MobileFaceNet's convs).
+PReLU's ``alpha`` and the GDConv head's (h, w, c) ``gdconv`` keep their
+names and layouts. Loading is total both ways: every key
 is consumed and every parameter and buffer is set, or it raises.
 """
 
@@ -85,7 +88,11 @@ def load_variables_npz(path: str) -> dict:
 
 
 # state_dict leaf name -> (collection, JAX leaf) for the rank-free ones
+# (PReLU's alpha and MobileFaceNet's (h, w, c) GDConv weight keep their
+# flax names and layouts)
 _JAX_LEAF = {"bias": ("params", "bias"),
+             "alpha": ("params", "alpha"),
+             "gdconv": ("params", "gdconv"),
              "running_mean": ("batch_stats", "mean"),
              "running_var": ("batch_stats", "var")}
 

@@ -6,13 +6,15 @@ a fresh training init.
     embeddings = net(images)                       # (N, 512) float32
     init_parameters(net, seed=0)                   # before training
 
-The ResNet family (ResNet, SE-ResNet, ResNeXt, SE-ResNeXt) and DenseNet
-entries of the JAX registry are ported; the others raise
-NotImplementedError naming the ROADMAP.md item.
+The ResNet family (ResNet, SE-ResNet, ResNeXt, SE-ResNeXt), DenseNet,
+iResNet and MobileFaceNet entries of the JAX registry are ported; the
+others (the dct stem and the ViT family) raise NotImplementedError
+naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Any
 
@@ -20,10 +22,14 @@ import numpy as np
 import torch
 
 from tf_face_toolbox_tpu_torch.models.densenet import DenseNet
+from tf_face_toolbox_tpu_torch.models.iresnet import IResNet
+from tf_face_toolbox_tpu_torch.models.mobilefacenet import MobileFaceNet
 from tf_face_toolbox_tpu_torch.models.resnet import ResNet
 
 # ResNeXt 32x4d: bottleneck width 128 at stage 0 with expansion 2
 _RESNEXT = dict(groups=32, width_per_group=4, expansion=2)
+_IRESNET = dict(stem="face", head_variant="flatten")
+_MOBILE = dict(stem="mobile", head_variant="gdconv")
 
 # name -> (module class, fixed kwargs), as in the JAX registry
 _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
@@ -39,6 +45,17 @@ _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
                                    se_reduction=16)),
     "densenet_121": (DenseNet, dict(stage_sizes=(6, 12, 24, 16))),
     "densenet_169": (DenseNet, dict(stage_sizes=(6, 12, 32, 32))),
+    # iResNet and MobileFaceNet: stem and head pinned (structural)
+    "iresnet_18": (IResNet, dict(stage_sizes=(2, 2, 2, 2), **_IRESNET)),
+    "iresnet_50": (IResNet, dict(stage_sizes=(3, 4, 14, 3), **_IRESNET)),
+    "iresnet_100": (IResNet, dict(stage_sizes=(3, 13, 30, 3), **_IRESNET)),
+    "iresnet_tiny": (IResNet, dict(stage_sizes=(1, 1), stage_widths=(8, 16),
+                                   **_IRESNET)),
+    "mobilefacenet": (MobileFaceNet, dict(_MOBILE)),
+    "mobilefacenet_x2": (MobileFaceNet, dict(width_mult=2.0, **_MOBILE)),
+    "mobilefacenet_tiny": (MobileFaceNet,
+                           dict(stages=((2, 16, 1, 2), (2, 16, 1, 2)),
+                                stem_width=8, head_width=32, **_MOBILE)),
     # Tiny variant for smoke tests, not a reference model.
     "resnet_tiny": (ResNet, dict(stage_sizes=(1,), width_per_group=16)),
 }
@@ -50,18 +67,28 @@ def list_networks() -> list[str]:
 
 def create_network(name: str, *, embedding_dim: int = 512,
                    dtype: torch.dtype = torch.float32,
-                   **overrides: Any) -> ResNet | DenseNet:
+                   **overrides: Any) -> torch.nn.Module:
     """Instantiate a backbone by name (eval mode).
 
     ``overrides``: any field of the network's module (stem,
     head_variant, stage_sizes, width_per_group, growth_rate,
-    input_size, ...).
+    input_size, ...). A stem or head the registry pins (iResNet,
+    MobileFaceNet) is structural: it wins over a conflicting override,
+    with a warning, as in the JAX factory (CLIs pass their --stem/--head
+    defaults unconditionally).
     """
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"network '{name}' is not ported (ROADMAP.md §1 item 17); "
+            f"network '{name}' is not ported (ROADMAP.md §1 item 17b); "
             f"available: {list_networks()}")
     cls, kwargs = _REGISTRY[name]
+    for pinned in ("stem", "head_variant"):
+        if pinned in kwargs and overrides.get(
+                pinned, kwargs[pinned]) != kwargs[pinned]:
+            logging.warning("network %s pins %s=%s; ignoring %s=%s", name,
+                            pinned, kwargs[pinned], pinned,
+                            overrides[pinned])
+            overrides = {k: v for k, v in overrides.items() if k != pinned}
     net = cls(**{**kwargs, **overrides, "embedding_dim": embedding_dim,
                  "dtype": dtype})
     return net.eval()
@@ -74,14 +101,20 @@ def random_variables(net: torch.nn.Module, seed: int = 0
 
     BatchNorm gets non-trivial statistics (mean ~ N(0, 0.2), var ~
     U(0.5, 2)) so folding them is exercised. The last BN of each
-    residual branch (``ConvBN_2``) gets a scale of U(0.2, 0.5), as a
-    trained net's branches are small against the identity; with unit
-    scales the random net's activations grow block by block. DenseNet
-    has no residual branch: all its scales are U(0.8, 1.2).
+    residual branch (ResNet's ``ConvBN_2``, iResNet's ``bn3``, a
+    residual MobileFaceNet bottleneck's ``project_bn``) gets a scale of
+    U(0.2, 0.5), as a trained net's branches are small against the
+    identity; with unit scales the random net's activations grow block
+    by block. DenseNet has no residual branch: all its scales are
+    U(0.8, 1.2). PReLU slopes are U(0.1, 0.3); GDConv weights
+    N(0, 2 / (h * w)).
     """
     from tf_face_toolbox_tpu_torch.interop import port
 
     rng = np.random.default_rng(seed)
+    ends = {f"params/{name.replace('.', '/')}/{mod.branch_end}/scale"
+            for name, mod in net.named_modules()
+            if getattr(mod, "branch_end", None)}
     flat = {}
     for key, tensor, kind in port.jax_leaves(net):
         shape = port.jax_shape(tensor, kind)
@@ -91,9 +124,14 @@ def random_variables(net: torch.nn.Module, seed: int = 0
             gain = 2.0 if kind == "conv" else 1.0
             v = rng.standard_normal(shape) * np.sqrt(gain / fan_in)
         elif leaf == "scale":
-            branch_end = "/ConvBN_2/" in key
+            branch_end = "/ConvBN_2/" in key or key in ends
             v = rng.uniform(0.2, 0.5, shape) if branch_end \
                 else rng.uniform(0.8, 1.2, shape)
+        elif leaf == "alpha":
+            v = rng.uniform(0.1, 0.3, shape)
+        elif leaf == "gdconv":
+            v = rng.standard_normal(shape) * np.sqrt(2.0 / (shape[0]
+                                                            * shape[1]))
         elif leaf == "mean":
             v = rng.normal(0.0, 0.2, shape)
         elif leaf == "var":
@@ -120,11 +158,15 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
     - conv kernels (ConvBN, grouped or not, and DenseNet's plain convs):
       variance_scaling(2.0, "fan_out", truncated normal),
-      fan_out = kh * kw * out;
+      fan_out = kh * kw * out; iResNet's and MobileFaceNet's (flax's
+      default, the net's ``CONV_INIT``): variance_scaling(1.0, "fan_in"),
+      fan_in = kh * kw * in / groups;
     - Dense kernels (the head's and squeeze-excite's):
       variance_scaling(1.0, "fan_in", truncated normal); Dense biases 0;
-    - BatchNorm: scale 1 (0 for each residual branch's last BN, so a
-      block starts as the identity), bias 0, running mean 0, var 1.
+    - BatchNorm: scale 1 (0 for each ResNet branch's last BN, so a
+      block starts as the identity), bias 0, running mean 0, var 1;
+    - PReLU slopes 0.25; GDConv: variance_scaling(2.0, "fan_in"),
+      fan_in = h * w.
 
     flax's truncated normal divides the standard deviation by
     0.87962566 (the std of N(0, 1) truncated to +-2), so the kernels
@@ -134,16 +176,24 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     from tf_face_toolbox_tpu_torch.interop import port
 
     g = torch.Generator().manual_seed(seed)
+    conv_gain, conv_fan = getattr(net, "CONV_INIT", (2.0, "fan_out"))
     with torch.no_grad():
         for key, tensor, kind in port.jax_leaves(net):
             leaf = key.rsplit("/", 1)[1]
             if kind == "conv":
-                o, _, kh, kw = tensor.shape
-                std = math.sqrt(2.0 / (kh * kw * o)) / 0.87962566103423978
+                o, i, kh, kw = tensor.shape
+                fan = kh * kw * (o if conv_fan == "fan_out" else i)
+                std = math.sqrt(conv_gain / fan) / 0.87962566103423978
                 v = _truncated_normal(tensor.shape, std, g)
             elif kind == "dense":
                 std = math.sqrt(1.0 / tensor.shape[1]) / 0.87962566103423978
                 v = _truncated_normal(tensor.shape, std, g)
+            elif leaf == "alpha":
+                v = torch.full(tensor.shape, 0.25)
+            elif leaf == "gdconv":
+                h, w, _ = tensor.shape
+                v = _truncated_normal(tensor.shape, math.sqrt(2.0 / (h * w))
+                                      / 0.87962566103423978, g)
             elif leaf == "scale":
                 v = torch.full(tensor.shape,
                                0.0 if "/ConvBN_2/" in key else 1.0)

@@ -101,7 +101,7 @@ class ResNet(nn.Module):
             raise ValueError(f"unknown remat {remat!r}; have False, True, "
                              "'save_convs'")
         if stem == "dct":
-            _unsupported("the dct stem", "17")
+            _unsupported("the dct stem", "17b")
         if stem not in ("face", "imagenet", "space2depth"):
             raise ValueError(f"unknown stem: {stem}")
         self.stage_sizes = tuple(stage_sizes)

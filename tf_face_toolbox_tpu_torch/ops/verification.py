@@ -1,7 +1,6 @@
 """Verification (1:1) and identification (1:N) protocols.
 
-Counterpart of ``tf_face_toolbox_tpu/ops/verification.py`` (all but
-``sharded_top_k_matches``, which waits for the multi-GPU gallery). The
+Counterpart of ``tf_face_toolbox_tpu/ops/verification.py``. The
 similarities are torch f32 matrix products on the given device; the
 protocols themselves (folds, thresholds, TAR@FAR, ROC, CMC, DIR@FAR)
 are host numpy, copied unchanged. The 1:N functions run outside any
@@ -267,6 +266,87 @@ def top_k_matches(gallery: np.ndarray, probe: np.ndarray, *,
         s, ix = stable_topk(sims, k)
         scores.append(s.cpu().numpy())
         indices.append(ix.cpu().numpy())
+    if not scores:
+        raise ValueError("empty probe set")
+    return np.concatenate(indices), np.concatenate(scores)
+
+
+def sharded_top_k_matches(gallery: np.ndarray, probe: np.ndarray, *,
+                          k: int, devices=None, batch: int = 4096,
+                          probe_stats=None, gallery_stats=None,
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Gallery-sharded 1:N search: :func:`top_k_matches` over galleries
+    larger than one device's memory. The rows go to ``devices`` (one a
+    shard, default every visible CUDA device; repeats allowed) in
+    contiguous blocks, zero rows padding the last; each shard ranks its
+    block (padded rows score -2e9; s-norm with the gallery statistics
+    beside their rows), every shard launched before any is read, and a
+    stable top-k over the shard-major candidates on the first device
+    merges them. Blocks keep shard-major order equal to row order, so
+    ties go to the smallest row. Returns ``(indices (P, k) int32,
+    scores (P, k) f32)`` in global row numbering.
+    """
+    from tf_face_toolbox_tpu_torch.ops.topk import MASKED, stable_topk
+
+    gallery = np.asarray(gallery, np.float32)
+    probe = np.asarray(probe, np.float32)
+    if (probe_stats is None) != (gallery_stats is None):
+        raise ValueError("s-norm needs BOTH probe_stats and "
+                         "gallery_stats (or neither)")
+    use_norm = probe_stats is not None
+    if devices is None:
+        from tf_face_toolbox_tpu_torch.serving.distributed_gallery import (
+            default_devices)
+        devices = default_devices()
+    devices = [torch.device(d) for d in devices]
+    n_dev = len(devices)
+    g_rows = gallery.shape[0]
+    if k < 1 or k > g_rows:
+        raise ValueError(f"k={k} outside [1, gallery={g_rows}]")
+    shard_rows = -(-g_rows // n_dev)
+    k_local = min(k, shard_rows)
+    shards = []
+    for s, dev in enumerate(devices):
+        lo = s * shard_rows
+        block = np.zeros((shard_rows, gallery.shape[1]), np.float32)
+        real = gallery[lo:lo + shard_rows]
+        block[:len(real)] = real
+        stats = None
+        if use_norm:
+            # pads get (0, 1); their scores are masked after
+            mu = np.zeros(shard_rows, np.float32)
+            sd = np.ones(shard_rows, np.float32)
+            mu[:len(real)] = np.asarray(gallery_stats[0],
+                                        np.float32)[lo:lo + len(real)]
+            sd[:len(real)] = np.asarray(gallery_stats[1],
+                                        np.float32)[lo:lo + len(real)]
+            stats = (torch.from_numpy(mu).to(dev),
+                     torch.from_numpy(sd).to(dev))
+        row = lo + torch.arange(shard_rows, device=dev)
+        shards.append((l2_normalize(torch.from_numpy(block).to(dev)),
+                       stats, row))
+    scores, indices = [], []
+    for i in range(0, probe.shape[0], batch):
+        p_host = torch.from_numpy(probe[i:i + batch])
+        pst = (tuple(torch.as_tensor(np.asarray(v[i:i + batch]),
+                                     dtype=torch.float32)
+                     for v in probe_stats) if use_norm else None)
+        parts = []
+        for dev, (g, stats, row) in zip(devices, shards):
+            p = l2_normalize(p_host.to(dev))
+            sims = p @ g.T                                  # (B, rows)
+            if use_norm:
+                sims = _snorm(sims, tuple(v.to(dev) for v in pst), stats)
+            sims = torch.where(row[None, :] < g_rows, sims, MASKED)
+            s, ix = stable_topk(sims, k_local)
+            parts.append((s, row[ix.to(torch.int64)]))
+        dev0 = devices[0]
+        cand_s = torch.cat([s.to(dev0) for s, _ in parts], dim=1)
+        cand_i = torch.cat([ix.to(dev0) for _, ix in parts], dim=1)
+        s, pos = stable_topk(cand_s, k)
+        scores.append(s.cpu().numpy())
+        indices.append(torch.gather(cand_i, 1, pos.to(torch.int64))
+                       .to(torch.int32).cpu().numpy())
     if not scores:
         raise ValueError("empty probe set")
     return np.concatenate(indices), np.concatenate(scores)

@@ -95,7 +95,7 @@ def network_from_meta(meta: dict[str, Any], *, dtype: torch.dtype):
     export. ``dtype`` is the serving-side compute choice (the bundle's
     params are f32). An int8 bundle (``quant_mode`` other than "none")
     needs int8 serving, not yet ported (ROADMAP.md §1 item 18); a
-    network the port lacks raises naming item 17 (``create_network``).
+    network the port lacks raises naming item 17b (``create_network``).
     """
     from tf_face_toolbox_tpu_torch.models import create_network
 

@@ -20,12 +20,14 @@ int8 rescore) in doubling-capacity buffers.
   plain versions.
 - **Any row width.** The device store and each probe batch are
   zero-padded to a row of a multiple of 16 bytes (the kernels' row
-  unit), on every device: the zeros add exactly nothing to a dot. int8
-  rows are quantized from their real columns first, then padded. The
-  capacity bound counts ``dim`` columns, as the JAX gallery does.
+  unit), on every device: the zeros add exactly nothing to a dot, and
+  to an int8 row's max|x| and quantized values. The capacity bound
+  counts ``dim`` columns, as the JAX gallery does.
 - **Incremental sync.** Enrolling appends only the new rows: within
   capacity an in-place ``copy_`` into the store under the write gate,
-  at a block boundary a new allocation plus copy.
+  at a block boundary a new allocation plus copy. A CUDA store receives
+  f32 rows and casts or quantizes them on the card (``store_rows``);
+  the host master's copies and gathers run on every core.
 - **Capacity bound.** ``hbm_limit_gb`` (default 8, 0 = unbounded)
   refuses enrollments whose store would outgrow it with
   :class:`GalleryCapacityError`, or with ``overflow="stream"`` frees the
@@ -49,6 +51,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tf_face_toolbox_tpu_torch.ops import topk
 
@@ -139,6 +142,110 @@ def _pad_cols(rows: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
+def row_width(dim: int, itemsize: int) -> int:
+    """A store's row width: ``dim`` padded to a multiple of 16 bytes."""
+    return -(-dim * itemsize // 16) * 16 // itemsize
+
+
+def copy_rows(dst: np.ndarray, src: np.ndarray) -> None:
+    """``dst[...] = src`` for host masters: torch's CPU copy runs on
+    every core (a 10^7-row f32 master is 20 GB; numpy copies on one)."""
+    if src.flags.writeable:
+        torch.from_numpy(dst).copy_(torch.from_numpy(src))
+    else:
+        dst[...] = src
+
+
+def take_rows(rows: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """``rows[keep]`` (a boolean row mask) as a new array, gathered on
+    every core."""
+    idx = torch.from_numpy(np.nonzero(keep)[0])
+    return torch.from_numpy(rows).index_select(0, idx).numpy()
+
+
+def append_host(gallery, embeddings: np.ndarray, labels: np.ndarray,
+                min_cap: int) -> int:
+    """Append rows to a store's host master (f32 rows, labels and the
+    tombstone bias, in doubling buffers of at least ``min_cap`` rows);
+    → the first new row's index. The caller holds the write gate."""
+    n = gallery._n
+    new_n = n + embeddings.shape[0]
+    if new_n > gallery._host.shape[0]:
+        new_cap = max(min_cap, 2 * gallery._host.shape[0], new_n)
+        grown = np.zeros((new_cap, gallery.dim), np.float32)
+        copy_rows(grown[:n], gallery._host[:n])
+        gallery._host = grown
+        glab = np.zeros((new_cap,), np.int64)
+        glab[:n] = gallery._lab[:n]
+        gallery._lab = glab
+        gbias = np.zeros((new_cap,), np.float32)
+        gbias[:n] = gallery._bias[:n]
+        gallery._bias = gbias
+    copy_rows(gallery._host[n:new_n], embeddings)
+    gallery._lab[n:new_n] = labels
+    gallery._bias[n:new_n] = 0.0
+    gallery._n = new_n
+    return n
+
+
+def compact_host(gallery) -> int:
+    """Drop the tombstoned rows of a store's host master, in place (the
+    write gate has drained every reader); → the live count."""
+    fill = gallery._n
+    live = gallery._bias[:fill] == 0.0
+    kept = int(live.sum())
+    if kept != fill:
+        copy_rows(gallery._host[:kept], take_rows(gallery._host[:fill], live))
+        gallery._lab[:kept] = gallery._lab[:fill][live]
+    gallery._bias[:fill] = 0.0
+    gallery._n = kept
+    gallery._tomb = 0
+    return kept
+
+
+def save_snapshot(gallery, path: str) -> int:
+    """A store's live rows → an atomic ``.npz`` (embeddings, labels);
+    → the row count written."""
+    with gallery._gate.read():
+        n = gallery._n
+        live = gallery._bias[:n] == 0.0
+        emb = take_rows(gallery._host[:n], live)
+        labels = gallery._lab[:n][live]
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, embeddings=emb, labels=labels)
+    os.replace(tmp, path)
+    return emb.shape[0]
+
+
+def store_rows(rows: np.ndarray, dtype: str, width: int,
+               device: torch.device):
+    """Host f32 rows (a strided view is fine) → (store-dtype rows padded
+    to ``width``, int8 scales or None) on ``device``. A CUDA store gets
+    the f32 rows and casts or quantizes them on the card (bf16's
+    round-to-nearest-even, and ``_quantize_rows``' f32 divisions and
+    round-half-even, give the host's values bit for bit); a CPU store
+    casts or quantizes on the host (never truncating to int8)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        t = torch.from_numpy(rows).to(device)
+        if width != t.shape[1]:
+            t = F.pad(t, (0, width - t.shape[1]))
+        if dtype != "int8":
+            return t.to(_DTYPES[dtype]), None
+        # a tensor divisor: torch turns division by a host scalar into a
+        # product with its reciprocal, which rounds otherwise
+        amax = t.abs().amax(dim=1)
+        scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-12)
+        q = torch.round(t / scale[:, None]).clamp_(-127, 127)
+        return q.to(torch.int8), scale
+    if dtype == "int8":
+        q, scale = _quantize_rows(rows)
+        return (torch.from_numpy(_pad_cols(q, width)).to(device),
+                torch.from_numpy(scale).to(device))
+    t = torch.from_numpy(_pad_cols(rows, width))
+    return t.to(_DTYPES[dtype]).to(device), None
+
+
 def _quantize_rows(rows: np.ndarray):
     """Per-row symmetric int8: scale = max|x|/127 (f32), q = x/scale.
     Unit embeddings quantize at ~1e-2 worst-case cosine error — the
@@ -148,6 +255,42 @@ def _quantize_rows(rows: np.ndarray):
     scale = np.maximum(scale, 1e-12).astype(np.float32)
     q = np.clip(np.rint(rows / scale[:, None]), -127, 127)
     return q.astype(np.int8), scale
+
+
+def scan_chunk(gallery, batch: int, cap: int) -> int:
+    """Chunk rows for a chunked plain search of a (batch, cap) store, or
+    0 for one pass: the per-step (B, chunk) scores stay near
+    ``gallery.scan_sims_bytes``; chunking only pays off once the full
+    (B, cap) scores would exceed that budget."""
+    if batch * cap * 4 <= gallery.scan_sims_bytes:
+        return 0
+    r = max(gallery.block,
+            min(gallery.scan_sims_bytes // (4 * batch), 1 << 21))
+    r = (r // gallery.block) * gallery.block
+    return r if cap > r else 0
+
+
+def search_store(gallery, store, store_bias, n_valid: int, k: int, probes,
+                 store_scale=None, probe_scale=None):
+    """One search of a store, left on its device: kernel 3 or 4 (their
+    plain versions on a CPU store), or with ``gallery.use_kernels``
+    False the plain versions, in row chunks past ``scan_sims_bytes``.
+    ``probes``: (B, width) on the store's device; int8 probes with
+    their (B,) scales. → (scores (B, k) f32, rows (B, k) int32)."""
+    if gallery.use_kernels:
+        if store_scale is None:
+            return topk.cosine_topk(store, probes, n_valid, k,
+                                    bias=store_bias)
+        return topk.cosine_topk_q(store, store_scale, probes, probe_scale,
+                                  n_valid, k, bias=store_bias)
+    chunk = scan_chunk(gallery, probes.shape[0], store.shape[0]) or \
+        store.shape[0]
+    if store_scale is None:
+        return topk.cosine_topk_reference(store, probes, n_valid, k,
+                                          bias=store_bias, chunk_rows=chunk)
+    return topk.cosine_topk_q_reference(store, store_scale, probes,
+                                        probe_scale, n_valid, k,
+                                        bias=store_bias, chunk_rows=chunk)
 
 
 class DeviceGallery:
@@ -179,7 +322,7 @@ class DeviceGallery:
         self.device = torch.device(device)
         self.itemsize = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
         # device row width: dim padded to a multiple of 16 bytes
-        self._width = -(-self.dim * self.itemsize // 16) * 16 // self.itemsize
+        self._width = row_width(self.dim, self.itemsize)
         # int8 search: coarse top-(k * rescore_expand) on the device,
         # then the exact f32 rescore of only those rows on the host
         self.rescore_expand = 4
@@ -271,22 +414,7 @@ class DeviceGallery:
                         f"exact-rescored), overflow='stream' (exact "
                         f"streamed search), raise hbm_limit_gb, or "
                         f"search offline with cli.search")
-            if new_n > self._host.shape[0]:
-                new_cap = max(self.block, 2 * self._host.shape[0], new_n)
-                grown = np.zeros((new_cap, self.dim), np.float32)
-                grown[:self._n] = self._host[:self._n]
-                self._host = grown
-                glab = np.zeros((new_cap,), np.int64)
-                glab[:self._n] = self._lab[:self._n]
-                self._lab = glab
-                gbias = np.zeros((new_cap,), np.float32)
-                gbias[:self._n] = self._bias[:self._n]
-                self._bias = gbias
-            offset = self._n
-            self._host[offset:new_n] = embeddings
-            self._lab[offset:new_n] = labels
-            self._bias[offset:new_n] = 0.0
-            self._n = new_n
+            offset = append_host(self, embeddings, labels, self.block)
             if not self._streaming:
                 self._sync_locked(new_rows=embeddings, offset=offset)
             return self._n - self._tomb
@@ -303,16 +431,7 @@ class DeviceGallery:
         self._dev_bias = None
 
     def _store_rows(self, rows: np.ndarray):
-        """Host f32 rows → (store-dtype rows padded to ``_width``,
-        int8 scales or None) on the device. Cast or quantize on the
-        host (never truncate to int8), so bf16 moves half the bytes and
-        int8 a quarter."""
-        if self.dtype == "int8":
-            q, scale = _quantize_rows(rows)
-            return (torch.from_numpy(_pad_cols(q, self._width)).to(self.device),
-                    torch.from_numpy(scale).to(self.device))
-        t = torch.from_numpy(_pad_cols(rows, self._width))
-        return t.to(_DTYPES[self.dtype]).to(self.device), None
+        return store_rows(rows, self.dtype, self._width, self.device)
 
     def _sync_locked(self, new_rows: np.ndarray | None = None,
                      offset: int = 0) -> None:
@@ -422,36 +541,13 @@ class DeviceGallery:
         Finishes on the device before returning, inside the caller's
         read gate."""
         p = torch.from_numpy(_pad_cols(probes, store.shape[1])).to(self.device)
-        if self.use_kernels:
-            if store_scale is None:
-                s, i = topk.cosine_topk(store, p, n, k, bias=store_bias)
-            else:
-                s, i = topk.cosine_topk_q(
-                    store, store_scale, p, torch.from_numpy(probe_scale),
-                    n, k, bias=store_bias)
-        else:
-            chunk = self._scan_chunk(p.shape[0], store.shape[0]) or \
-                store.shape[0]
-            if store_scale is None:
-                s, i = topk.cosine_topk_reference(
-                    store, p, n, k, bias=store_bias, chunk_rows=chunk)
-            else:
-                s, i = topk.cosine_topk_q_reference(
-                    store, store_scale, p, torch.from_numpy(probe_scale),
-                    n, k, bias=store_bias, chunk_rows=chunk)
+        s, i = search_store(
+            self, store, store_bias, n, k, p, store_scale,
+            None if probe_scale is None else torch.from_numpy(probe_scale))
         return s.cpu().numpy(), i.cpu().numpy().astype(np.int64)
 
     def _scan_chunk(self, batch: int, cap: int) -> int:
-        """Chunk rows for the chunked plain search, or 0 for one pass.
-        Chunk size keeps the per-step (B, chunk) scores near
-        ``scan_sims_bytes``; chunking only pays off once the full
-        (B, cap) scores would exceed that budget."""
-        if batch * cap * 4 <= self.scan_sims_bytes:
-            return 0
-        r = max(self.block,
-                min(self.scan_sims_bytes // (4 * batch), 1 << 21))
-        r = (r // self.block) * self.block
-        return r if cap > r else 0
+        return scan_chunk(self, batch, cap)
 
     def _slab_rows(self) -> int:
         """Streaming slab size: ~0.5 GB of store dtype, block-aligned."""
@@ -527,15 +623,7 @@ class DeviceGallery:
         the host buffers (the write gate drained all readers), full
         device upload with the old store freed first. A streaming store
         that now fits the bound resumes residency."""
-        fill = self._n
-        live = self._bias[:fill] == 0.0
-        kept = int(live.sum())
-        if kept != fill:
-            self._host[:kept] = self._host[:fill][live]
-            self._lab[:kept] = self._lab[:fill][live]
-        self._bias[:fill] = 0.0
-        self._n = kept
-        self._tomb = 0
+        kept = compact_host(self)
         self._free_device()
         if self._streaming:
             need = self._bytes_for(kept)
@@ -551,15 +639,7 @@ class DeviceGallery:
     def save(self, path: str) -> int:
         """Atomic snapshot (live rows only) → .npz; returns the row
         count written."""
-        with self._gate.read():
-            n = self._n
-            live = self._bias[:n] == 0.0
-            emb = self._host[:n][live]
-            labels = self._lab[:n][live]
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, embeddings=emb, labels=labels)
-        os.replace(tmp, path)
-        return emb.shape[0]
+        return save_snapshot(self, path)
 
     @classmethod
     def load(cls, path: str, *, block: int = 1024,

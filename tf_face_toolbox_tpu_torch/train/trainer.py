@@ -113,7 +113,7 @@ class TrainConfig:
     stem: str = "face"          # "face" | "imagenet"
     head_variant: str = "gap"
     dropout_rate: float = 0.0   # flatten head, train mode only
-    drop_path_rate: float = 0.0     # ViT family (item 17)
+    drop_path_rate: float = 0.0     # ViT family (item 17b)
     embedding_dim: int = 512
     num_classes: int = 10572          # CASIA-WebFace identity count
     image_size: int = 112
@@ -165,9 +165,9 @@ class TrainConfig:
         if self.quantized:
             _not_ported("quantization-aware training", "18")
         if self.drop_path_rate > 0:
-            _not_ported("drop_path_rate (the ViT family)", "17")
+            _not_ported("drop_path_rate (the ViT family)", "17b")
         if self.stem == "dct" or self.network.startswith("dct_"):
-            _not_ported("DCT input", "17")
+            _not_ported("DCT input", "17b")
         if self.subcenters < 1:
             raise ValueError(f"subcenters must be >= 1 (got "
                              f"{self.subcenters})")
@@ -466,7 +466,7 @@ class StepParts:
                  state: TrainState, mesh=None, *, input_format: str = "u8",
                  teacher=None):
         if input_format != "u8":
-            _not_ported(f"input_format={input_format!r} (DCT input)", "17")
+            _not_ported(f"input_format={input_format!r} (DCT input)", "17b")
         self.teacher, self.alpha = None, 0.0
         if teacher is not None:
             self.alpha = float(cfg.distill_alpha)
