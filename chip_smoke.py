@@ -28,7 +28,8 @@ at config 4; then the data layer (an InsightFace .bin at LFW's counts,
 a .rec, TFRecords; merge; the bundle export) and the HTTP daemon booted
 from that bundle, its /identify through kernels 3 and 4 over 10^6 rows,
 a hot reload and the SIGTERM drain; then the gallery sharded four
-ways at 10^7 rows, and iResNet and MobileFaceNet. Runs that time nothing (the
+ways at 10^7 rows, iResNet and MobileFaceNet, and the DCT input with
+dct_resnet_50 and the ViT family. Runs that time nothing (the
 cli.train, cli.extract and other CLI runs, whose steps, launches and
 outputs are checked) go side by side with other untimed work; every
 timed run (bench, bench_train under torchrun, time_training in this
@@ -241,6 +242,26 @@ Phases:
     (5 steps at batch 64: finite losses, every BN statistic moved) and
     their training faces/s. Phase 23's CLI runs go beside phase 22's
     host work
+24. the DCT input and the JPEG-block-token ViTs at full width (bf16,
+    seeded weights, per-image norm): (a) 128 synthetic faces as 4:4:4
+    JPEG coefficients (Annex K tables at IJG quality 90, built in
+    numpy): decode_dct within 1 LSB of the host's, prepare_coefficients
+    within 1e-4, block_dct's round trip and Parseval, the frequency flip
+    against the pixel flip, prepare_coefficients against block_dct of
+    the standardized decoded faces (per-face cosine >= 0.999); (b)
+    cli.extract --engine auto of dct_vit_small, dct_vit_tiny and
+    dct_resnet_50 over phase 23's 1,024 faces (the module-path fallback
+    logged) against the f32 module path (cosine >= 0.999), coefficient
+    input (flipped in the frequency domain) against pixel input of the
+    decoded faces (>= 0.999), the module path's faces/s plain and e2e
+    (kernel 1 once a batch) beside resnet_v1_50's; (c) cli.train
+    --network dct_vit_small --drop_path 0.1 --pallas_input (batch 128,
+    5 steps, kernel 1 once a step) and dct_resnet_50 (batch 64, 5 steps,
+    every BN statistic moved), one DCT-input step against the u8 step
+    on the decoded frames (losses equal, update cosine >= 0.999), and
+    dct_vit_small's training rate; (d) cli.extract --loader dct_domain
+    and native_dct where native/faceshard builds. Phase 24's CLI runs go
+    beside phase 22's host work
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -840,6 +861,14 @@ def start_train_cli(args: list) -> tuple:
                         "cuda", *args])
 
 
+def kill_train_clis(started: list) -> None:
+    """End ``start_train_cli`` runs still going (a failure beside them)."""
+    for _, (proc, _, _) in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def train_cli(args: list, timeout: int) -> tuple[int, dict, int]:
     """cli.train as a subprocess: (final step, each logged metric's values
     by name, kernel 1 launches it counted)."""
@@ -941,51 +970,10 @@ def phase_train(g, work: str) -> dict:
         f"{plan['persist']}")
     del crops, got, got16, want, want16
 
-    # one full-width step, kernel route vs the plain augment chain
-    cfg = bt.config4()
-    images = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
-                           device="cuda", dtype=torch.uint8)
-    labels = torch.randint(0, cfg.num_classes, (256,), generator=g,
-                           device="cuda")
-    routes = bt.step_routes(cfg, images, labels)
-    say(f"  one step, kernel vs plain route: loss {routes['loss']['kernel']:.5f}"
-        f" / {routes['loss']['plain']:.5f} (rel {routes['loss_rel']:.2e}), "
-        f"update cosine min {routes['min_cos']:.6f} ({routes['worst_leaf']})"
-        f" over {routes['compared_leaves']} leaves, "
-        f"{routes['unmoved_leaves']} unmoved in both (the plain route run "
-        f"twice: cosine min {routes['repeat_min_cos']:.6f}; cuDNN "
-        f"deterministic); launches {routes['launches']}")
-    expect(routes["loss_rel"] <= 0.01, f"routes' losses {routes['loss']}")
-    expect(routes["min_cos"] >= 0.999,
-           f"update cosine {routes['min_cos']} < 0.999 at "
-           f"{routes['worst_leaf']}")
-    expect(routes["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0},
-           f"route launches {routes['launches']}")
-    del images, labels
-    torch.cuda.empty_cache()
-
-    # training faces/sec/GPU
-    torch.cuda.empty_cache()
-    t = bt.time_training(cfg, steps=20, warmup=5)
-    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
-        t["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
-    say(f"  training faces/sec/GPU (config 4, batch 256, bf16, kernel 1, "
-        f"device prefetch): {t['faces_per_sec']:.1f} ({t['ms_per_step']:.2f}"
-        f" ms/step, CUDA events over 20 steps after 5; first step "
-        f"{t['first_step_s']:.1f} s); peak memory {t['peak_memory_gb']:.2f} "
-        f"GB; profiled {t['profiled_wall_ms_per_step']:.2f} ms/step wall, "
-        f"{t['device_ms_per_step']:.2f} device, idle "
-        f"{t['idle_share']:.1%}; {t['step_tflop']:.2f} TFLOP a step, "
-        f"{t['peak_share']:.1%} of 989 TFLOP/s bf16; device ms by kind: "
-        f"{kinds}; {bench.gpu_info()}")
-    say("  top kernels (ms/step): " + "; ".join(
-        f"{ms:.2f} {name[:60]}" for ms, name in t["top_kernels_ms"]))
-    expect(np.isfinite(t["loss"]), f"timed run's loss {t['loss']}")
-    torch.cuda.empty_cache()
-
     # the main path (cli.train, config 4, 30 steps) and a packed shard
     # through both loaders (the native one where its library builds:
-    # native/faceshard links libjpeg), side by side: they time nothing
+    # native/faceshard links libjpeg), side by side with the one-step
+    # route comparison: they time nothing
     from tf_face_toolbox_tpu_torch.data import native
 
     t1 = time.time()
@@ -1005,12 +993,40 @@ def phase_train(g, work: str) -> dict:
     except OSError as e:
         say(f"  --loader native not run: the native loader does not build "
             f"on this machine ({e}); the CPU tests run it")
-    packed = train_clis([
+    packed = [start_train_cli(
         ["--network", "resnet_v1_50", "--stem", "face", "--data", shard,
          "--loader", loader, "--global_batch", "128", "--bf16",
-         "--pallas_input", "--num_steps", "3", "--log_every", "1"]
-        for loader in loaders], timeout=600)
+         "--pallas_input", "--num_steps", "3", "--log_every", "1"])
+        for loader in loaders]
+
+    # one full-width step, kernel route vs the plain augment chain
+    cfg = bt.config4()
+    images = torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, cfg.num_classes, (256,), generator=g,
+                           device="cuda")
+    try:
+        routes = bt.step_routes(cfg, images, labels)
+    except BaseException:
+        kill_train_clis([main, *packed])
+        raise
+    del images, labels
+    torch.cuda.empty_cache()
+    packed = [finish_train_cli(s, 600) for s in packed]
     step, logged, launches = finish_train_cli(main, timeout=900)
+    say(f"  one step, kernel vs plain route: loss {routes['loss']['kernel']:.5f}"
+        f" / {routes['loss']['plain']:.5f} (rel {routes['loss_rel']:.2e}), "
+        f"update cosine min {routes['min_cos']:.6f} ({routes['worst_leaf']})"
+        f" over {routes['compared_leaves']} leaves, "
+        f"{routes['unmoved_leaves']} unmoved in both (the plain route run "
+        f"twice: cosine min {routes['repeat_min_cos']:.6f}; cuDNN "
+        f"deterministic); launches {routes['launches']}")
+    expect(routes["loss_rel"] <= 0.01, f"routes' losses {routes['loss']}")
+    expect(routes["min_cos"] >= 0.999,
+           f"update cosine {routes['min_cos']} < 0.999 at "
+           f"{routes['worst_leaf']}")
+    expect(routes["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0},
+           f"route launches {routes['launches']}")
     losses = logged["loss"]
     say(f"  cli.train config 4, 30 steps: done step={step}, losses "
         f"{[round(v, 4) for v in losses]}, preprocess launches {launches}")
@@ -1025,7 +1041,27 @@ def phase_train(g, work: str) -> dict:
             f"{[round(v, 4) for v in losses_s]}, launches {launches_s}")
         expect(step_s == 3 and launches_s == 3 and len(losses_s) == 3
                and all(np.isfinite(losses_s)), f"--loader {loader} run")
-    say(f"  the cli.train runs side by side: {time.time() - t1:.1f} s")
+    say(f"  the cli.train runs and the route comparison side by side: "
+        f"{time.time() - t1:.1f} s")
+
+    # training faces/sec/GPU, the card to itself
+    torch.cuda.empty_cache()
+    t = bt.time_training(cfg, steps=20, warmup=5)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        t["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+    say(f"  training faces/sec/GPU (config 4, batch 256, bf16, kernel 1, "
+        f"device prefetch): {t['faces_per_sec']:.1f} ({t['ms_per_step']:.2f}"
+        f" ms/step, CUDA events over 20 steps after 5; first step "
+        f"{t['first_step_s']:.1f} s); peak memory {t['peak_memory_gb']:.2f} "
+        f"GB; profiled {t['profiled_wall_ms_per_step']:.2f} ms/step wall, "
+        f"{t['device_ms_per_step']:.2f} device, idle "
+        f"{t['idle_share']:.1%}; {t['step_tflop']:.2f} TFLOP a step, "
+        f"{t['peak_share']:.1%} of 989 TFLOP/s bf16; device ms by kind: "
+        f"{kinds}; {bench.gpu_info()}")
+    say("  top kernels (ms/step): " + "; ".join(
+        f"{ms:.2f} {name[:60]}" for ms, name in t["top_kernels_ms"]))
+    expect(np.isfinite(t["loss"]), f"timed run's loss {t['loss']}")
+    torch.cuda.empty_cache()
 
     say(f"  phase 11: {time.time() - t0:.1f} s")
     return {"max_abs_err": err32, "ms": k_mean, "plain_ms": p_ms,
@@ -3020,40 +3056,97 @@ def phase_optimizers(g, work: str, teacher_dir: str,
         say(f"  (a) the three runs side by side: {time.time() - t1:.1f} s")
     finally:
         host_thread.join()
-    expect(host_runs.keys() == _OPT_LR.keys(), "the host's parity steps")
-    # 2 f32 steps at batch 32, the card's from the host's initial state
-    parity = {}
-    for name in _OPT_LR:
-        (flat, cls), start, host_loss, host = host_runs[name]
-        card, cnet = create_train_state(parity_cfg(name), 0, variables=flat,
-                                        classifier=cls, device="cuda")
-        step = make_train_step(cnet, parity_cfg(name), card)
-        for x, y in data:
-            card, cm = step(card, x, y)
-        # the Dense bias ahead of the head's BatchNorm has no gradient in
-        # exact arithmetic: its update is rounding noise, read apart
-        noise = bt.NOISE_ONLY
-        worst, leaf = _rel_update_diff(
-            {k: v.detach().cpu() for k, v in card.params.items()
-             if k != noise},
-            {k: v for k, v in host.items() if k != noise}, start)
-        noise_rel, _ = _rel_update_diff(
-            {noise: card.params[noise].detach().cpu()},
-            {noise: host[noise]}, start)
-        loss_rel = abs(float(cm["loss"]) / host_loss - 1)
-        parity[name] = worst
-        say(f"  (c) {name}: 2 f32 steps at batch 32, card vs host: largest "
-            f"per-leaf |card - host| / |update| {worst:.3g} ({leaf}; the "
-            f"noise-only {noise} {noise_rel:.3g}), loss relative difference "
-            f"{loss_rel:.2g}")
-        expect(loss_rel < 1e-3, f"{name}: card loss vs host {loss_rel}")
-        expect(worst < _OPT_PARITY[name],
-               f"{name}: card vs host {worst} of {leaf}'s update > "
-               f"{_OPT_PARITY[name]}")
-        del card, cnet
-    del host_runs
-    say(f"  (a), (c) {time.time() - t1:.1f} s")
-    cfg4 = bt.config4()
+    # (e)'s distillation runs (untimed) beside (c) and (d)
+    t_e = time.time()
+    alphas = (1.0, 0.5)
+    distilling = [start_train_cli(
+        [*args4, "--distill_from", teacher_dir, "--distill_network",
+         "resnet_v1_50", "--distill_alpha", str(alpha)]) for alpha in alphas]
+    try:
+        expect(host_runs.keys() == _OPT_LR.keys(), "the host's parity steps")
+        # 2 f32 steps at batch 32, the card's from the host's initial state
+        parity = {}
+        for name in _OPT_LR:
+            (flat, cls), start, host_loss, host = host_runs[name]
+            card, cnet = create_train_state(parity_cfg(name), 0,
+                                            variables=flat,
+                                            classifier=cls, device="cuda")
+            step = make_train_step(cnet, parity_cfg(name), card)
+            for x, y in data:
+                card, cm = step(card, x, y)
+            # the Dense bias ahead of the head's BatchNorm has no gradient in
+            # exact arithmetic: its update is rounding noise, read apart
+            noise = bt.NOISE_ONLY
+            worst, leaf = _rel_update_diff(
+                {k: v.detach().cpu() for k, v in card.params.items()
+                 if k != noise},
+                {k: v for k, v in host.items() if k != noise}, start)
+            noise_rel, _ = _rel_update_diff(
+                {noise: card.params[noise].detach().cpu()},
+                {noise: host[noise]}, start)
+            loss_rel = abs(float(cm["loss"]) / host_loss - 1)
+            parity[name] = worst
+            say(f"  (c) {name}: 2 f32 steps at batch 32, card vs host: "
+                f"largest per-leaf |card - host| / |update| {worst:.3g} "
+                f"({leaf}; the noise-only {noise} {noise_rel:.3g}), loss "
+                f"relative difference {loss_rel:.2g}")
+            expect(loss_rel < 1e-3, f"{name}: card loss vs host {loss_rel}")
+            expect(worst < _OPT_PARITY[name],
+                   f"{name}: card vs host {worst} of {leaf}'s update > "
+                   f"{_OPT_PARITY[name]}")
+            del card, cnet
+        del host_runs
+        say(f"  (a), (c) {time.time() - t1:.1f} s")
+        cfg4 = bt.config4()
+        # exact resume under Adam: 4 straight steps against 2 + save +
+        # restore into a fresh state + 2, cuDNN deterministic
+        t1 = time.time()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg = dataclasses.replace(cfg4, optimizer="adam", base_lr=1e-3)
+            u8 = [(torch.randint(0, 256, (256, 120, 120, 3), generator=g,
+                                 device="cuda", dtype=torch.uint8),
+                   torch.randint(0, 10572, (256,), generator=g, device="cuda"))
+                  for _ in range(4)]
+
+            def run(state, net, batches):
+                step = make_train_step(net, cfg, state)
+                for x, y in batches:
+                    state, _ = step(state, x, y)
+                return state
+
+            straight = run(*create_train_state(cfg, 0, device="cuda"), u8)
+            want = _full_state(straight)
+            del straight
+            half, hnet = create_train_state(cfg, 0, device="cuda")
+            half = run(half, hnet, u8[:2])
+            ckpt = os.path.join(work, "adam_ckpt")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            mgr = CheckpointManager(ckpt)
+            mgr.maybe_save(half, force=True)
+            del half, hnet
+            fresh, fnet = create_train_state(cfg, 1, device="cuda")
+            mgr.restore(fresh)
+            got = _full_state(run(fresh, fnet, u8[2:]))
+            diff = max((got[k] - want[k]).abs().max().item() for k in want)
+            expect(got.keys() == want.keys(), "resumed state's tensors differ")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        say(f"  (d) Adam, 4 straight steps vs 2 + save + restore + 2 (cuDNN "
+            f"deterministic): {len(want)} tensors incl. moments and step, max "
+            f"|diff| {diff}; {time.time() - t1:.1f} s")
+        expect(diff == 0, f"Adam resume max |diff| {diff}")
+        del u8, want, got, fresh, fnet
+        torch.cuda.empty_cache()
+    except BaseException:
+        kill_train_clis(distilling)
+        raise
+    # distillation from phase 12's trained checkpoint
+    distill = {}
+    runs = [finish_train_cli(s, 600) for s in distilling]
+    say(f"  (e) cli.train --distill_from, both alphas side by side (with "
+        f"(c) and (d)): {time.time() - t_e:.1f} s")
     rates = {}
     for name in ("sgd", *_OPT_LR):
         cfg = dataclasses.replace(cfg4, optimizer=name,
@@ -3069,57 +3162,6 @@ def phase_optimizers(g, work: str, teacher_dir: str,
             f"{r['idle_share']:.1%}, peak {r['peak_memory_gb']:.2f} GB")
         expect(np.isfinite(r["loss"]), f"{name} time_training loss")
         torch.cuda.empty_cache()
-    # exact resume under Adam: 4 straight steps against 2 + save +
-    # restore into a fresh state + 2, cuDNN deterministic
-    t1 = time.time()
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        cfg = dataclasses.replace(cfg4, optimizer="adam", base_lr=1e-3)
-        u8 = [(torch.randint(0, 256, (256, 120, 120, 3), generator=g,
-                             device="cuda", dtype=torch.uint8),
-               torch.randint(0, 10572, (256,), generator=g, device="cuda"))
-              for _ in range(4)]
-
-        def run(state, net, batches):
-            step = make_train_step(net, cfg, state)
-            for x, y in batches:
-                state, _ = step(state, x, y)
-            return state
-
-        straight = run(*create_train_state(cfg, 0, device="cuda"), u8)
-        want = _full_state(straight)
-        del straight
-        half, hnet = create_train_state(cfg, 0, device="cuda")
-        half = run(half, hnet, u8[:2])
-        ckpt = os.path.join(work, "adam_ckpt")
-        shutil.rmtree(ckpt, ignore_errors=True)
-        mgr = CheckpointManager(ckpt)
-        mgr.maybe_save(half, force=True)
-        del half, hnet
-        fresh, fnet = create_train_state(cfg, 1, device="cuda")
-        mgr.restore(fresh)
-        got = _full_state(run(fresh, fnet, u8[2:]))
-        diff = max((got[k] - want[k]).abs().max().item() for k in want)
-        expect(got.keys() == want.keys(), "resumed state's tensors differ")
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    say(f"  (d) Adam, 4 straight steps vs 2 + save + restore + 2 (cuDNN "
-        f"deterministic): {len(want)} tensors incl. moments and step, max "
-        f"|diff| {diff}; {time.time() - t1:.1f} s")
-    expect(diff == 0, f"Adam resume max |diff| {diff}")
-    del u8, want, got, fresh, fnet
-    torch.cuda.empty_cache()
-    # distillation from phase 12's trained checkpoint
-    distill = {}
-    t1 = time.time()
-    alphas = (1.0, 0.5)
-    runs = train_clis([[*args4, "--distill_from", teacher_dir,
-                        "--distill_network", "resnet_v1_50",
-                        "--distill_alpha", str(alpha)] for alpha in alphas],
-                      timeout=600)
-    say(f"  (e) cli.train --distill_from, both alphas side by side: "
-        f"{time.time() - t1:.1f} s")
     for alpha, (step, logged, launches) in zip(alphas, runs):
         t1 = time.time()
         dl = logged.get("distill_loss", [])
@@ -4158,6 +4200,10 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
                       for name, s in zoo["train"].items()}
     zoo["t_done"] = time.time()
     secs["phase 23's CLIs (their wait)"] = zoo["t_done"] - t
+    if "dct" in zoo:
+        t = time.time()
+        finish_dct_clis(zoo["dct"])
+        secs["phase 24's CLIs (their wait)"] = zoo["dct"]["t_done"] - t
 
     # (e) times with CUDA events: the sharded search (4 launches, the
     # merge, one read back) against the one store's
@@ -4455,6 +4501,7 @@ def phase_zoo(g, zoo: dict, r50_folded: float) -> dict:
         del forward
         torch.cuda.empty_cache()
     r50 = rates["resnet_v1_50"]["faces_per_sec"]
+    out["r50_module_faces_per_sec"] = r50
     for name in ZOO_EXTRACT:
         r = rates[name]
         out["extract"][name].update(r)
@@ -4500,6 +4547,380 @@ def phase_zoo(g, zoo: dict, r50_folded: float) -> dict:
     total = time.time() - t0
     say(f"  phase 23: {total:.1f} s (its CLIs ran beside phase 22, "
         f"collected {zoo['t_done'] - zoo['t0']:.1f} s after their start)")
+    out["seconds"] = total
+    return out
+
+
+DCT_EXTRACT = ("dct_vit_small", "dct_vit_tiny", "dct_resnet_50")
+DCT_FACES = 128             # phase 24's JPEG-form faces: one batch
+DCT_STEPS = 5               # phase 24's cli.train steps
+# ITU-T T.81 Annex K, tables K.1 (luminance) and K.2 (chrominance), in
+# natural (row-major) order
+JPEG_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60,
+             55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80,
+             62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104,
+             113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98,
+             112, 100, 103, 99)
+JPEG_CHROMA = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99,
+               99, 24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99,
+               99, 99) + (99,) * 32
+
+
+def jpeg_tables(quality: int) -> np.ndarray:
+    """(3, 64) uint16: Annex K's tables scaled as the IJG library scales
+    them for ``quality`` (Y's table, then Cb's and Cr's)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    tables = [np.clip((np.asarray(t, np.int64) * scale + 50) // 100, 1, 255)
+              for t in (JPEG_LUMA, JPEG_CHROMA, JPEG_CHROMA)]
+    return np.stack(tables).astype(np.uint16)
+
+
+def jpeg_coefficients(u8: np.ndarray, quality: int = 90):
+    """What a baseline 4:4:4 JPEG encoder stores for (N, H, W, 3) uint8
+    faces (H, W multiples of 8), in NativeShardReader.dct_batch's form:
+    JFIF YCbCr less 128, the 8x8 DCT in ops/jpeg's basis, divided by the
+    quantization tables and rounded -> (coef int16 (N, H/8, W/8, 3, 64),
+    qtab uint16 (N, 3, 64))."""
+    from tf_face_toolbox_tpu_torch.ops.jpeg import _idct_matrix
+
+    n, h, w, _ = u8.shape
+    r, g, b = (u8[..., i].astype(np.float64) for i in range(3))
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                    0.5 * r - 0.418688 * g - 0.081312 * b + 128.0], -1)
+    blocks = (ycc - 128.0).reshape(n, h // 8, 8, w // 8, 8, 3).transpose(
+        0, 1, 3, 5, 2, 4)
+    a = _idct_matrix().astype(np.float64)
+    q = jpeg_tables(quality)
+    coef = np.round((a @ blocks @ a.T) / q.reshape(3, 8, 8))
+    return (coef.astype(np.int16).reshape(n, h // 8, w // 8, 3, 64),
+            np.ascontiguousarray(np.broadcast_to(q, (n, 3, 64))))
+
+
+def start_dct_clis(work: str, shard: str) -> dict:
+    """Phase 24's untimed runs, started beside phase 22's host work with
+    phase 23's: cli.extract --engine auto of each DCT_EXTRACT net over
+    phase 23's packed faces (per-image norm); cli.train of dct_vit_small
+    (--drop_path 0.1 --pallas_input, batch 128) and of dct_resnet_50
+    (batch 64, checkpointed at its last step), DCT_STEPS steps each."""
+    import shutil
+
+    d = os.path.join(work, "dct24")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    extract = {name: spawn(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--network", name, "--engine", "auto", "--data", shard, "--output",
+         os.path.join(d, f"{name}.npy"), "--image_size", "112",
+         "--crop_from", "112", "--batch", "128", "--loader", "python",
+         "--device", "cuda"])
+        for name in DCT_EXTRACT}
+    common = ["--num_classes", "10572", "--num_steps", str(DCT_STEPS),
+              "--log_every", "1", "--data", "synthetic"]
+    train = {
+        "dct_vit_small": start_train_cli(
+            ["--network", "dct_vit_small", "--drop_path", "0.1",
+             "--pallas_input", "--global_batch", "128", *common]),
+        "dct_resnet_50": start_train_cli(
+            ["--network", "dct_resnet_50", "--global_batch", "64",
+             "--train_dir", os.path.join(d, "dct_resnet_50_run"),
+             "--save_every", str(DCT_STEPS), *common])}
+    return {"dir": d, "shard": shard, "extract": extract, "train": train,
+            "t0": time.time()}
+
+
+def finish_dct_clis(dct: dict) -> None:
+    dct["done"] = {name: collect(p, 900) for name, p in
+                   dct["extract"].items()}
+    dct["trained"] = {name: finish_train_cli(s, 900)
+                      for name, s in dct["train"].items()}
+    dct["t_done"] = time.time()
+
+
+def _dct_ops(g) -> dict:
+    """Phase 24 (a): JPEG-form coefficients of DCT_FACES synthetic faces;
+    decode_dct, prepare_coefficients, block_dct / block_idct and
+    flip_coefficients on the card against the host and their identities."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.ops import dct as dops
+    from tf_face_toolbox_tpu_torch.ops.jpeg import decode_dct
+    from tf_face_toolbox_tpu_torch.ops.preprocess import preprocess_eval
+
+    faces = _smooth_faces(g, DCT_FACES, 112)
+    coef_np, qtab_np = jpeg_coefficients(faces)
+    host = torch.from_numpy(coef_np), torch.from_numpy(qtab_np)
+    coef, qtab = (t.to("cuda") for t in host)
+    dec = decode_dct(coef, qtab)
+    lsb = (dec.cpu().int() - decode_dct(*host).int()).abs().max().item()
+    codec = np.abs(dec.cpu().numpy().astype(int) - faces.astype(int)).mean()
+    prep = dops.prepare_coefficients(coef, qtab)
+    prep_err = (prep.cpu()
+                - dops.prepare_coefficients(*host)).abs().max().item()
+    x = dec.float()
+    z = dops.block_dct(x)
+    round_trip = (dops.block_idct(z) - x).abs().max().item()
+    parseval = (z.double().square().sum((1, 2, 3))
+                / x.double().square().sum((1, 2, 3)) - 1).abs().max().item()
+    flip_err = (dops.flip_coefficients(z)
+                - dops.block_dct(x.flip(2))).abs().max().item()
+    cos = per_image_cos(prep, dops.block_dct(preprocess_eval(dec, 112, 112)))
+    dec_ms = bench.time_ms(lambda: decode_dct(coef, qtab))
+    prep_ms = bench.time_ms(lambda: dops.prepare_coefficients(coef, qtab))
+    say(f"  (a) {DCT_FACES} faces as 4:4:4 JPEG coefficients (Annex K "
+        f"tables, IJG quality 90; the decoded faces {codec:.2f} LSB from "
+        f"the sources on average): decode_dct on the card vs the host max "
+        f"{lsb} LSB ({dec_ms:.3f} ms); prepare_coefficients max |diff| "
+        f"{prep_err:.3g} ({prep_ms:.3f} ms); block_idct(block_dct) max "
+        f"|diff| {round_trip:.3g}, Parseval {parseval:.2e}; the frequency "
+        f"flip vs the pixel flip max |diff| {flip_err:.3g}; "
+        f"prepare_coefficients vs block_dct of the standardized decoded "
+        f"faces min cosine {cos.min().item():.6f}")
+    expect(lsb <= 1, f"decode_dct card vs host {lsb} LSB > 1")
+    expect(prep_err <= 1e-4, f"prepare_coefficients card vs host {prep_err}")
+    expect(round_trip <= 1e-3 and parseval <= 1e-5,
+           f"block_dct round trip {round_trip}, Parseval {parseval}")
+    expect(flip_err <= 1e-3, f"flip_coefficients vs pixel flip {flip_err}")
+    expect(cos.min().item() >= 0.999,
+           f"prepare_coefficients vs the pixel chain {cos.min().item()}")
+    return {"coef": coef, "qtab": qtab, "decoded": dec, "prepared": prep,
+            "decode_lsb": lsb, "prepare_max_abs": prep_err,
+            "decode_ms": dec_ms, "prepare_ms": prep_ms,
+            "prepare_vs_pixels_min_cos": cos.min().item()}
+
+
+def _dct_native(work: str, faces: torch.Tensor) -> dict | None:
+    """Phase 24 (d): cli.extract --loader dct_domain and --loader
+    native_dct of dct_resnet_50 over a --recode_size 112 shard, where
+    native/faceshard builds (it links libjpeg); None where it does not."""
+    from PIL import Image
+
+    from tf_face_toolbox_tpu_torch.data import native
+
+    try:
+        native._load_library()
+    except OSError as e:
+        say(f"  (d) cli.extract --loader dct_domain / native_dct not run: "
+            f"the native loader does not build on this machine ({e}); the "
+            f"CPU tests run both")
+        return None
+    d = os.path.join(work, "dct24", "recoded")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "list.txt"), "w") as f:
+        for i, face in enumerate(faces.cpu().numpy()):
+            Image.fromarray(face).save(os.path.join(d, f"{i}.jpg"),
+                                       quality=95)
+            f.write(f"{i}.jpg {i}\n")
+    shard = os.path.join(d, "recoded.faceshard")
+    _cli_done(_cli("pack", "--list", os.path.join(d, "list.txt"), "--root",
+                   d, "--output", shard, "--recode_size", "112"))
+    runs = {loader: _cli(
+        "extract", "--network", "dct_resnet_50", "--loader", loader,
+        "--data", shard, "--output", os.path.join(d, f"{loader}.npy"),
+        "--image_size", "112", "--crop_from", "112", "--batch", "128",
+        "--device", "cuda") for loader in ("dct_domain", "native_dct")}
+    for started in runs.values():
+        _cli_done(started)
+    a, b = (np.load(os.path.join(d, f"{loader}.npy")) for loader in runs)
+    cos = per_image_cos(torch.from_numpy(a), torch.from_numpy(b)).min().item()
+    say(f"  (d) cli.extract dct_resnet_50 over a --recode_size 112 shard of "
+        f"{len(a)} faces: --loader dct_domain vs --loader native_dct min "
+        f"cosine {cos:.6f}")
+    expect(a.shape == b.shape == (len(faces), 512) and cos >= 0.999,
+           f"dct_domain vs native_dct: {a.shape} {b.shape}, cosine {cos}")
+    return {"min_cos": cos}
+
+
+def phase_dct(g, dct: dict, r50_module: float, work: str) -> dict:
+    """Phase 24: the DCT input and the JPEG-block-token ViTs at full
+    width (bf16, seeded weights, per-image norm): (a) the DCT ops on the
+    card; (b) cli.extract --engine auto of dct_vit_small, dct_vit_tiny and
+    dct_resnet_50 (collected in phase 22) against the f32 module path,
+    coefficient input against pixel input, the module path's faces/s
+    plain and e2e beside resnet_v1_50's; (c) cli.train of dct_vit_small
+    (drop path, kernel 1) and dct_resnet_50, the DCT-input step against
+    the u8 step, dct_vit_small's training rate; (d) the native DCT
+    loaders where they build."""
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard, make_extract_fn
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+    from tf_face_toolbox_tpu_torch.ops import fused_preprocess as fp
+    from tf_face_toolbox_tpu_torch.ops.preprocess import preprocess_eval
+    from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_face_toolbox_tpu_torch.train.trainer import (
+        create_train_state, make_train_step)
+
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[24 dct input, dct_vit_small/tiny, dct_resnet_50] {gpu}")
+    ops = _dct_ops(g)
+    out = {"ops": {k: v for k, v in ops.items()
+                   if not isinstance(v, torch.Tensor)},
+           "extract": {}, "train": {}}
+    # (b) cli.extract --engine auto: the module path, logged; against the
+    # f32 module path; coefficient input against the decoded pixels
+    for name in DCT_EXTRACT:
+        proc = dct["done"][name]
+        why = ("does not fold the dct stem" if name == "dct_resnet_50"
+               else "supports the ResNet family")
+        expect(proc.returncode == 0,
+               f"cli.extract {name} failed:\n{proc.stderr[-3000:]}")
+        expect("serving engine not applicable" in proc.stderr
+               and why in proc.stderr
+               and "kernel launches: fused_block=0" in proc.stdout,
+               f"cli.extract {name}: no module-path fallback logged: "
+               f"{proc.stderr[-800:]}")
+        got = np.load(os.path.join(dct["dir"], f"{name}.npy"))
+        net32 = create_network(name)
+        flat = random_variables(net32, 0)
+        want = extract_shard(net32, flat, FaceShardSource(dct["shard"]),
+                             image_size=112, crop_from=112, batch=128,
+                             loader="python", device="cuda")
+        cos = per_image_cos(torch.from_numpy(got), torch.from_numpy(want))
+        net16 = load_jax_variables(create_network(name, dtype=torch.bfloat16),
+                                   flat).to("cuda")
+        extract = make_extract_fn(net16)
+        coef_cos = per_image_cos(
+            extract(ops["prepared"]),
+            extract(preprocess_eval(ops["decoded"], 112, 112)))
+        del net32, net16, extract
+        torch.cuda.empty_cache()
+        expect(got.shape == (ZOO_FACES, 512) and np.isfinite(got).all()
+               and cos.min().item() >= 0.999,
+               f"cli.extract {name}: {got.shape}, cosine vs the f32 module "
+               f"path {cos.min().item()}")
+        expect(coef_cos.min().item() >= 0.999,
+               f"{name}: coefficient vs pixel input cosine "
+               f"{coef_cos.min().item()}")
+        out["extract"][name] = {"min_cos": cos.min().item(),
+                                "coef_vs_pixels_min_cos":
+                                    coef_cos.min().item()}
+    # the module path's rate at batch 128 (256 images), bf16, plain and
+    # e2e (kernel 1 once a batch), beside resnet_v1_50's face-stem module
+    # path (phase 23, this process)
+    pixels = torch.randn((128, 112, 112, 3), generator=g, device="cuda")
+    u8 = bench.make_inputs(128, e2e=True)
+    for name in DCT_EXTRACT:
+        r = out["extract"][name]
+        for e2e, x in ((False, pixels), (True, u8)):
+            forward = bench.build_forward(impl="module", e2e=e2e,
+                                          network=name, stem="face")
+            fp.fused_preprocess.launches = 0
+            forward(x)
+            torch.cuda.synchronize()
+            launches = fp.fused_preprocess.launches
+            torch.cuda.reset_peak_memory_stats()
+            ms = bench.time_ms(forward, x, iters=5, warmup=2)
+            tag = "e2e_" if e2e else ""
+            r[f"{tag}faces_per_sec"] = 128e3 / ms
+            r[f"{tag}ms_per_batch"] = ms
+            if e2e:
+                r["e2e_launches"] = launches
+                expect(launches == 1, f"{name} --e2e: kernel 1 launched "
+                                      f"{launches} times in a batch")
+            else:
+                r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                p = bt.device_profile(forward, x, iters=3)
+                r.update(device_ms=p["device_ms"], idle_share=p["idle_share"],
+                         device_ms_by_kind=p["device_ms_by_kind"])
+            del forward
+            torch.cuda.empty_cache()
+        kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            r["device_ms_by_kind"].items(), key=lambda kv: -kv[1])[:3])
+        say(f"  (b) {name}: cli.extract --engine auto, {ZOO_FACES} faces: "
+            f"the module-path fallback logged; vs the f32 module path min "
+            f"cosine {r['min_cos']:.6f}; coefficient vs pixel input "
+            f"{r['coef_vs_pixels_min_cos']:.6f}; module path bf16 at batch "
+            f"128: {r['faces_per_sec']:.1f} faces/s plain, "
+            f"{r['e2e_faces_per_sec']:.1f} e2e (kernel 1 x"
+            f"{r['e2e_launches']}), {r['ms_per_batch']:.2f} ms/batch, device "
+            f"{r['device_ms']:.2f} ms, idle {r['idle_share']:.1%}, peak "
+            f"{r['peak_memory_gb']:.2f} GB, "
+            f"{r['faces_per_sec'] / r50_module:.3f} x resnet_v1_50's "
+            f"face-stem module path {r50_module:.1f}; "
+            f"device ms by kind: {kinds}")
+    # (c) cli.train: finite losses; dct_vit_small's kernel 1 once a step,
+    # dct_resnet_50's BN statistics all moved
+    for name, (step, logged, launches) in dct["trained"].items():
+        losses = logged["loss"]
+        moved = total = 0
+        if name == "dct_resnet_50":
+            stats = CheckpointManager(os.path.join(
+                dct["dir"], f"{name}_run")).restore_raw(DCT_STEPS)[
+                    "batch_stats"]
+            total = len(stats)
+            moved = sum(bool((v != (1.0 if k.endswith("var") else 0.0)).any())
+                        for k, v in stats.items())
+        want_launches = DCT_STEPS if name == "dct_vit_small" else 0
+        expect(step == DCT_STEPS and len(losses) == DCT_STEPS
+               and all(np.isfinite(v) for v in losses)
+               and moved == total and launches == want_launches,
+               f"cli.train {name}: step {step}, losses {losses}, "
+               f"{moved}/{total} BN statistics moved, kernel 1 x{launches}")
+        out["train"][name] = {"losses": losses, "launches": launches}
+        say(f"  (c) cli.train --network {name}"
+            + (" --drop_path 0.1 --pallas_input, batch 128" if not total
+               else f", batch 64 (all {total} BN statistics moved)")
+            + f", {DCT_STEPS} steps, 10,572 classes: losses "
+            f"{[round(v, 4) for v in losses]}, kernel 1 x{launches}")
+    # one step from (a)'s coefficients (input_format "dct": decode_dct on
+    # the card, then the u8 step) against the u8 step on their decoded
+    # frames, from the same variables and draws
+    cfg = bt.config4(network="dct_vit_small", global_batch=DCT_FACES,
+                     crop_from=112, drop_path_rate=0.1)
+    labels = torch.randint(0, cfg.num_classes, (DCT_FACES,), generator=g,
+                           device="cuda")
+    runs = {}
+    for fmt, images in (("dct", (ops["coef"], ops["qtab"])),
+                        ("u8", ops["decoded"])):
+        state, net = create_train_state(cfg, 0, device="cuda")
+        before = {k: v.detach().clone() for k, v in bt._leaves(state).items()}
+        step_fn = make_train_step(net, cfg, state, input_format=fmt)
+        fp.fused_preprocess.launches = 0
+        state, m = step_fn(state, images, labels)
+        torch.cuda.synchronize()
+        runs[fmt] = (float(m["loss"]), fp.fused_preprocess.launches,
+                     {k: (v.detach() - before[k]).double().ravel()
+                      for k, v in bt._leaves(state).items()})
+        del state, net, step_fn, before
+        torch.cuda.empty_cache()
+    (l_dct, n_dct, u_dct), (l_u8, _, u_u8) = runs["dct"], runs["u8"]
+    cos = min(float(a @ u_u8[k] / (a.norm() * u_u8[k].norm()))
+              for k, a in u_dct.items()
+              if k != bt.NOISE_ONLY and (a.any() or u_u8[k].any()))
+    del runs, u_dct, u_u8
+    torch.cuda.empty_cache()
+    say(f"  (c) one dct_vit_small step (batch {DCT_FACES}, drop path 0.1, "
+        f"kernel 1) from (a)'s coefficients, input_format dct vs the u8 "
+        f"step on their decoded frames: loss {l_dct:.6f} vs {l_u8:.6f}, "
+        f"min per-leaf update cosine {cos:.6f}, kernel 1 x{n_dct}")
+    expect(abs(l_dct - l_u8) <= 1e-3 * abs(l_u8) and cos >= 0.999
+           and n_dct == 1, f"DCT-input step: losses {l_dct} / {l_u8}, "
+                           f"update cosine {cos}, kernel 1 x{n_dct}")
+    out["dct_step"] = {"loss": l_dct, "u8_loss": l_u8, "min_cos": cos,
+                       "launches": n_dct}
+    # dct_vit_small's training rate at batch 128, the card to itself
+    r = bt.time_training(bt.config4(network="dct_vit_small", global_batch=128,
+                                    drop_path_rate=0.1),
+                         steps=6, warmup=2, profile_steps=1)
+    out["train"]["dct_vit_small"].update({k: r[k] for k in (
+        "faces_per_sec", "ms_per_step", "peak_memory_gb", "idle_share",
+        "device_ms_per_step", "peak_share", "device_ms_by_kind")})
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        r["device_ms_by_kind"].items(), key=lambda kv: -kv[1])[:3])
+    say(f"  (c) dct_vit_small training (bench_train, batch 128, drop path "
+        f"0.1, kernel 1): {r['faces_per_sec']:.1f} faces/s "
+        f"({r['ms_per_step']:.2f} ms/step, device "
+        f"{r['device_ms_per_step']:.2f} ms, idle {r['idle_share']:.1%}, peak "
+        f"{r['peak_memory_gb']:.2f} GB, {r['peak_share']:.1%} of 989 "
+        f"TFLOP/s); device ms by kind: {kinds}")
+    expect(np.isfinite(r["loss"]), f"dct_vit_small timed loss {r['loss']}")
+    out["native"] = _dct_native(work, ops["decoded"])
+    total = time.time() - t0
+    say(f"  phase 24: {total:.1f} s (its CLIs ran beside phase 22, "
+        f"collected {dct['t_done'] - dct['t0']:.1f} s after their start)")
     out["seconds"] = total
     return out
 
@@ -4785,11 +5206,15 @@ def main() -> None:
         g, work, data20,
         backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
     # ---- 22. the sharded gallery at 10^7 rows, kernels 3 and 4 a shard;
-    # phase 23's CLI runs go beside its host work
+    # phase 23's and 24's CLI runs go beside its host work
     zoo = start_zoo_clis(g, work)
+    zoo["dct"] = start_dct_clis(work, zoo["shard"])
     sharded = phase_sharded_gallery(g, work, data20, daemon, zoo)
     # ---- 23. iResNet and MobileFaceNet at full width
-    phase_zoo(g, zoo, backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
+    zoo23 = phase_zoo(g, zoo,
+                      backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
+    # ---- 24. the DCT input, dct_resnet_50 and the ViT family
+    dct24 = phase_dct(g, zoo["dct"], zoo23["r50_module_faces_per_sec"], work)
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -4862,7 +5287,15 @@ def main() -> None:
          "optimizers_launches": opt19["cli_launches"],
          "distill_launches": {str(a): d["launches"]
                               for a, d in opt19["distill"].items()},
-         "optimizers_steps": 10},
+         "optimizers_steps": 10,
+         # phase 24: one launch a batch of each DCT net's e2e extraction,
+         # one a step of dct_vit_small's cli.train (5 steps), and one in
+         # the DCT-input step (after decode_dct, on the decoded frames)
+         "dct_e2e_launches": {k: v["e2e_launches"]
+                              for k, v in dct24["extract"].items()},
+         "dct_train_launches": dct24["train"]["dct_vit_small"]["launches"],
+         "dct_train_steps": DCT_STEPS,
+         "dct_step_launches": dct24["dct_step"]["launches"]},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",

@@ -131,16 +131,33 @@ def test_cli_extract_and_eval_lfw_match_jax(tmp_path):
 
 
 def test_cli_refuses_unported_inputs(tmp_path):
-    # --bundle is ported (tests/test_torch_bundle.py); a network the
-    # port lacks still refuses, naming its ROADMAP item
+    # --bundle is ported (tests/test_torch_bundle.py), and so is every
+    # network since item 17b: dct_vit_small extracts through the module
+    # path; an int8 bundle still refuses, naming item 18
+    from tf_face_toolbox_tpu.serving.bundle import write_bundle
+
     shard = _shard(tmp_path / "faces.faceshard", n=2)
     proc = subprocess.run(
         [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
-         "--network", "dct_vit_small", "--data", shard,
+         "--network", "dct_vit_small", "--data", shard, "--nobf16",
          "--output", str(tmp_path / "e.npy"), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "serving engine not applicable" in proc.stderr
+    emb = np.load(tmp_path / "e.npy")
+    assert emb.shape == (2, 512) and np.isfinite(emb).all()
+    path = str(tmp_path / "q.bundle.npz")
+    write_bundle(path, {"params": {"x": np.zeros(1, np.float32)}},
+                 dict(network="dct_vit_small", embedding_dim=512,
+                      image_size=112, input_norm="per_image",
+                      quant_mode="dynamic"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.extract",
+         "--bundle", path, "--data", shard, "--output",
+         str(tmp_path / "q.npy"), "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "not ported" in proc.stderr and "item 17" in proc.stderr
+    assert "not ported" in proc.stderr and "item 18" in proc.stderr
 
 
 def test_cli_weights_sources_are_exclusive(tmp_path):

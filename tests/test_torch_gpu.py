@@ -1004,3 +1004,50 @@ def test_store_rows_on_the_card_equal_the_hosts(cuda, dtype):
         assert torch.equal(got.cpu(), want)
         if dtype == "int8":
             assert torch.equal(gs.cpu(), ws)
+
+
+@pytest.mark.parametrize("name", ["dct_vit_small", "dct_vit_tiny",
+                                  "dct_resnet_50"])
+def test_dct_nets_bf16_on_the_card_track_the_f32_module(cuda, name):
+    """The DCT nets' module path in bf16 on the card, from pixels and
+    from their coefficients, against the f32 module on the host:
+    per-face cosine >= 0.999."""
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import (create_network,
+                                                  random_variables)
+    from tf_face_toolbox_tpu_torch.ops.dct import block_dct
+
+    net32 = create_network(name, embedding_dim=64)
+    flat = random_variables(net32, seed=0)
+    load_jax_variables(net32, flat)
+    net16 = load_jax_variables(create_network(
+        name, embedding_dim=64, dtype=torch.bfloat16), flat).to("cuda")
+    x = torch.randn((8, 112, 112, 3), generator=cuda, device="cuda")
+    with torch.no_grad():
+        want = net32(x.cpu())
+        for entry in (x, block_dct(x)):
+            got = net16(entry).cpu()
+            assert got.dtype == torch.float32 and torch.isfinite(got).all()
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+            assert cos.min().item() >= 0.999, cos
+
+
+def test_dct_ops_on_the_card_equal_the_hosts(cuda):
+    """decode_dct within 1 LSB of the host's, prepare_coefficients within
+    1e-4, and the frequency flip equal to the pixel flip, on the card."""
+    from tf_face_toolbox_tpu_torch.ops import dct
+    from tf_face_toolbox_tpu_torch.ops.jpeg import decode_dct
+
+    rng = np.random.default_rng(3)
+    coef = torch.from_numpy(rng.integers(-60, 60, (4, 14, 14, 3, 64),
+                                         dtype=np.int16))
+    coef[..., 8:] //= 8                  # a JPEG's small high frequencies
+    qtab = torch.from_numpy(rng.integers(1, 20, (4, 3, 64), dtype=np.uint16))
+    host = decode_dct(coef, qtab)
+    card = decode_dct(coef.cuda(), qtab.cuda()).cpu()
+    assert (card.int() - host.int()).abs().max().item() <= 1
+    prep = dct.prepare_coefficients(coef.cuda(), qtab.cuda()).cpu()
+    assert (prep - dct.prepare_coefficients(coef, qtab)).abs().max() <= 1e-4
+    x = host.float().cuda()
+    flipped = dct.flip_coefficients(dct.block_dct(x))
+    assert (flipped - dct.block_dct(x.flip(2))).abs().max().item() <= 1e-3

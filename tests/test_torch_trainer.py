@@ -421,7 +421,9 @@ def test_unported_fields_raise_naming_their_item():
     step = make_train_step(net, cfg, state, teacher=(teacher, None))
     _, m = step(state, *_batches(steps=1)[0])
     assert np.isfinite(float(m["distill_loss"]))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the DCT input (item 17b) is ported: it needs the augment chain, as
+    # JAX's (held against the u8 step in tests/test_torch_dct.py)
+    with pytest.raises(ValueError, match="requires the augment"):
         make_train_step(net, cfg, state, input_format="dct")
 
 

@@ -167,9 +167,12 @@ def test_structural_pins_and_int8_refuse_as_jax(caplog):
     assert "pins stem=mobile; ignoring stem=face" in caplog.text
     assert "pins head_variant=flatten; ignoring head_variant=gap" in \
         caplog.text
-    for name in ("dct_vit_small", "dct_resnet_50"):
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            create_network(name)
+    # the DCT nets (item 17b, ported) pin their stem the same way
+    with caplog.at_level(logging.WARNING):
+        for name in ("dct_vit_small", "dct_resnet_50"):
+            assert create_network(name, stem="face").stem == "dct"
+    assert "network dct_resnet_50 pins stem=dct; ignoring stem=face" in \
+        caplog.text
 
 
 def test_gdconv_einsum_equals_depthwise_valid_conv():

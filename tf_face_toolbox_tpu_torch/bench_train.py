@@ -86,34 +86,20 @@ def head_kind(cfg: TrainConfig) -> str:
 
 def forward_flops(net: torch.nn.Module, cfg: TrainConfig, device,
                   columns: int | None = None) -> float:
-    """Operations (2 per multiply-add) of one image's forward: every conv
-    (a module holding a 4-d ``weight``: ConvBN, grouped or not, and
-    DenseNet's plain convs) and Dense from its shapes, and the classifier
-    GEMM over ``columns`` classifier rows (default every class's)."""
+    """Operations (2 per multiply-add) of one image's forward: every
+    conv, matmul and Dense the network runs (torch's FlopCounterMode:
+    the ViT's token-wise Dense and attention products included), and the
+    classifier GEMM over ``columns`` classifier rows (default every
+    class's)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     if columns is None:
         columns = cfg.num_classes * cfg.subcenters
-    total = [2.0 * cfg.embedding_dim * columns]
-
-    def conv_hook(mod, _inp, out):
-        o, i, kh, kw = mod.weight.shape
-        total.append(2.0 * out.shape[1] * out.shape[2] * o * i * kh * kw)
-
-    def dense_hook(mod, _inp, _out):
-        total.append(2.0 * mod.in_features * mod.out_features)
-
-    hooks = [m.register_forward_hook(conv_hook) for m in net.modules()
-             if getattr(m, "weight", None) is not None
-             and m.weight.dim() == 4]
-    hooks += [m.register_forward_hook(dense_hook) for m in net.modules()
-              if isinstance(m, torch.nn.Linear)]
-    try:
-        with torch.no_grad():
-            net(torch.zeros((1, cfg.image_size, cfg.image_size, 3),
-                            device=device))
-    finally:
-        for h in hooks:
-            h.remove()
-    return sum(total)
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        net(torch.zeros((1, cfg.image_size, cfg.image_size, 3),
+                        device=device))
+    return 2.0 * cfg.embedding_dim * columns + counter.get_total_flops()
 
 
 REMAT = {"false": False, "true": True, "save_convs": "save_convs"}

@@ -82,9 +82,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "stride-1 bottleneck blocks in the fused-block "
                         "kernel")
     p.add_argument("--loader", default="auto",
-                   choices=["auto", "native", "python"],
+                   choices=["auto", "native", "python", "native_dct",
+                            "dct_domain"],
                    help="host decode: native = C++ pool, python = PIL "
-                        "threads, auto = native when it loads")
+                        "threads, auto = native when it loads; native_dct "
+                        "= entropy decode only, the device finishes the "
+                        "JPEG (a cli.pack --recode_size shard of crop_from "
+                        "geometry); dct_domain = zero-decode coefficients "
+                        "straight into a stem=dct net (a shard recoded at "
+                        "image_size exactly)")
     p.add_argument("--input_norm", default="per_image",
                    choices=["per_image", "fixed"],
                    help="per_image = tf.image standardization; fixed = "

@@ -76,7 +76,6 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
 
 # flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
 _NOT_PORTED = {
-    "drop_path": (0.0, "17b"),
     "qat": (False, "18"),
 }
 
@@ -103,6 +102,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--head", default="gap", choices=["gap", "flatten"])
     p.add_argument("--dropout", type=float, default=0.0,
                    help="flatten-head dropout rate (train mode only)")
+    p.add_argument("--drop_path", type=float, default=0.0,
+                   help="stochastic depth for the ViT family: per-block "
+                        "branch-drop rate ramping to this value at the "
+                        "last block (train mode only)")
     p.add_argument("--embedding_dim", type=int, default=512)
     p.add_argument("--num_classes", type=int, default=0,
                    help="identity count (0 = from the data; synthetic 100)")
@@ -181,8 +184,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="init/data seed")
     p.add_argument("--loader", default="auto",
                    choices=["auto", "native", "python", "native_dct"],
-                   help="host decode: native C++ pool or Python threads "
-                        "(native_dct: item 17b)")
+                   help="host decode: native C++ pool or Python threads; "
+                        "native_dct = entropy decode only, the train step "
+                        "finishes the JPEG on the device (needs a cli.pack "
+                        "--recode_size=<crop_from> shard)")
     p.add_argument("--ema_decay", type=float, default=0.0)
     p.add_argument("--distill_from", default="",
                    help="embedding distillation teacher: a port train dir "
@@ -357,9 +362,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"--{name} is not ported yet (ROADMAP.md §1 "
                              f"item {item})")
-    if args.loader == "native_dct":
-        raise SystemExit("--loader=native_dct is not ported yet "
-                         "(ROADMAP.md §1 item 17b)")
 
 
 def build_config(args, num_classes: int):
@@ -395,7 +397,8 @@ def build_config(args, num_classes: int):
     try:
         return TrainConfig(
             network=args.network, stem=args.stem, head_variant=args.head,
-            dropout_rate=args.dropout, embedding_dim=args.embedding_dim,
+            dropout_rate=args.dropout, drop_path_rate=args.drop_path,
+            embedding_dim=args.embedding_dim,
             num_classes=num_classes, image_size=args.image_size,
             global_batch=args.global_batch, optimizer=args.optimizer,
             base_lr=args.base_lr, lr_schedule=args.lr_schedule,
@@ -608,7 +611,7 @@ def _train(args, argv, topo) -> None:
     from tf_face_toolbox_tpu_torch.data.pipeline import (
         FaceShardSource, balanced_batch_iterator, batch_iterator,
         device_prefetch, host_prefetch, mixed_batch_iterator,
-        mixture_sources, native_batch_iterator)
+        mixture_sources, native_batch_iterator, native_dct_batch_iterator)
     from tf_face_toolbox_tpu_torch.ops.fused_preprocess import (
         fused_preprocess)
     from tf_face_toolbox_tpu_torch.train.checkpoint import CheckpointManager
@@ -627,6 +630,11 @@ def _train(args, argv, topo) -> None:
     latest = (CheckpointManager(args.train_dir).latest_step()
               if args.train_dir else None) or 0
     pk = _balanced_pk(args, host_batch)
+    if args.loader == "native_dct" and (args.data == "synthetic"
+                                        or "," in args.data):
+        raise SystemExit("--loader=native_dct entropy-decodes ONE FaceShard "
+                         "--data packed with --recode_size=<crop_from>; got "
+                         f"--data={args.data}")
     if args.data == "synthetic":
         # restarts from its seed on resume, as the JAX CLI's does
         cfg = build_config(args, args.num_classes or 100)
@@ -686,6 +694,10 @@ def _train(args, argv, topo) -> None:
             batches = balanced_batch_iterator(
                 source, ids_per_batch=pk[0], images_per_id=pk[1],
                 start_step=latest, resize_to=(cfg.crop_from, cfg.crop_from))
+        elif args.loader == "native_dct":
+            batches = native_dct_batch_iterator(
+                source, host_batch, size=cfg.crop_from,
+                start_epoch=start_epoch, start_step=start_step)
         elif use_native:
             batches = native_batch_iterator(
                 source, host_batch, out_h=cfg.crop_from,
@@ -734,7 +746,9 @@ def _train(args, argv, topo) -> None:
                         should_stop=stop.is_set, warm_start=warm_start,
                         teacher=teacher,
                         max_consecutive_skips=args.max_consecutive_skips,
-                        mesh=topo, device=device)
+                        mesh=topo, device=device,
+                        input_format=("dct" if args.loader == "native_dct"
+                                      else "u8"))
     step = result.state.step
     print(f"kernel launches: preprocess={fused_preprocess.launches - before}",
           flush=True)

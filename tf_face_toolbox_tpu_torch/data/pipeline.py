@@ -279,6 +279,22 @@ def native_batch_iterator(source: FaceShardSource, batch_size: int, *,
         fetch=lambda reader, ids: reader.decode_batch(ids, out_h, out_w))
 
 
+def native_dct_batch_iterator(source: FaceShardSource, batch_size: int, *,
+                              size: int, start_epoch: int = 0,
+                              start_step: int = 0,
+                              num_threads: int = 4) -> Iterator[dict]:
+    """``native_batch_iterator`` with entropy decode only on the host:
+    ``image`` is the (coef, qtab) pair of ``NativeShardReader.dct_batch``
+    for the train step to finish on the device (``input_format="dct"``,
+    ``ops/jpeg.decode_dct``). Needs a uniform 4:4:4 shard of exactly
+    ``size`` x ``size`` faces (``cli.pack --recode_size``, size =
+    crop_from). The same ordering, labels and resume."""
+    return _native_epoch_batches(
+        source, batch_size, start_epoch=start_epoch,
+        start_step=start_step, num_threads=num_threads,
+        fetch=lambda reader, ids: reader.dct_batch(ids, size, size))
+
+
 def mixture_sources(paths, *, seed: int = 0, host_index: int = 0,
                     host_count: int = 1) -> list[FaceShardSource]:
     """The readers of a shard mixture, source i shuffled with seed ``seed
@@ -393,25 +409,28 @@ def device_prefetch(it: Iterator[dict], *, depth: int = 2,
     On a CUDA device each batch's arrays go through pinned memory and
     are copied on a side stream; the consumer's stream waits on the
     copy's event before the batch is yielded. Elsewhere the arrays
-    become tensors on ``device``.
+    become tensors on ``device``. A tuple of arrays (the DCT loader's
+    (coef, qtab)) moves array by array.
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
     buf: collections.deque = collections.deque()
 
+    def move(v):
+        if isinstance(v, tuple) and all(isinstance(a, np.ndarray)
+                                        for a in v):
+            return tuple(move(a) for a in v)
+        if not isinstance(v, np.ndarray):
+            return v
+        t = torch.from_numpy(v)
+        if not cuda:
+            return t.to(device)
+        with torch.cuda.stream(stream):
+            return t.pin_memory().to(device, non_blocking=True)
+
     def put(item):
-        out = {}
-        for k, v in item.items():
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(v)
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        t = t.pin_memory().to(device, non_blocking=True)
-                else:
-                    t = t.to(device)
-                v = t
-            out[k] = v
+        out = {k: move(v) for k, v in item.items()}
         event = None
         if cuda:
             event = torch.cuda.Event()
@@ -424,8 +443,9 @@ def device_prefetch(it: Iterator[dict], *, depth: int = 2,
             main = torch.cuda.current_stream(device)
             main.wait_event(event)
             for v in out.values():
-                if isinstance(v, torch.Tensor):
-                    v.record_stream(main)
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(main)
         return out
 
     for item in it:

@@ -1,9 +1,10 @@
 """Feature extraction: flip-averaged, L2-normalized face embeddings.
 
-Counterpart of ``tf_face_toolbox_tpu/extract.py`` for pixel inputs:
-each face and its mirror go through ONE forward pass as ``[x; flip(x)]``,
-the two halves are summed and L2-normalized. Embeddings are f32 under
-any compute dtype. ``with_quality`` also returns each face's
+Counterpart of ``tf_face_toolbox_tpu/extract.py``: each face and its
+mirror go through ONE forward pass as ``[x; flip(x)]``, the two halves
+are summed and L2-normalized. A dct-stem net's coefficient input
+(``loader="dct_domain"``) flips in the frequency domain. Embeddings
+are f32 under any compute dtype. ``with_quality`` also returns each face's
 pre-normalization feature magnitude (MagFace's quality signal);
 ``make_extract_fn(mesh=)`` splits each batch over the data ranks of a
 ``parallel.mesh.Topology``; ``extract_shard_to_npy`` writes a resumable
@@ -18,21 +19,28 @@ import numpy as np
 import torch
 
 from tf_face_toolbox_tpu_torch.models.layers import l2_normalize
+from tf_face_toolbox_tpu_torch.ops.dct import flip_coefficients
 
 
 def flip_averaged_embeddings(apply_fn: Callable, images: torch.Tensor,
                              with_quality: bool = False):
-    """l2norm(f(x) + f(flip(x))) for NHWC pixel ``images``.
+    """l2norm(f(x) + f(flip(x))) for NHWC ``images``.
 
     ``apply_fn(images) -> (N, D)`` runs the backbone in eval mode. The
     flip is along the width axis (NHWC axis 2), as
-    tf.image.flip_left_right. ``with_quality``: also return
+    tf.image.flip_left_right; a DCT-coefficient tensor (trailing dim
+    C * 64) flips in the frequency domain (``ops/dct.flip_coefficients``,
+    exact). ``with_quality``: also return
     ``0.5 * sqrt(sum(s * s) + 1e-12)`` of the f32 sum ``s`` before the
     normalization, the magnitude of (f(x) + f(flip(x))) / 2 -> (embeddings,
     quality (N,) f32).
     """
     n = images.shape[0]
-    both = torch.cat([images, images.flip(2)], dim=0)
+    if images.shape[-1] != 3 and images.shape[-1] % 64 == 0:
+        flipped = flip_coefficients(images)
+    else:
+        flipped = images.flip(2)
+    both = torch.cat([images, flipped], dim=0)
     emb = apply_fn(both)
     s = (emb[:n] + emb[n:]).to(torch.float32)
     out = l2_normalize(s)
@@ -99,12 +107,18 @@ def extract_shard(net, variables, source, *, image_size: int,
     ``extract_fn(images) -> embeddings`` defaults to the module path:
     ``net`` (a port module) with ``variables`` (the JAX key space,
     nested or flat) loaded into it. ``loader``: "auto" (native C++
-    pool when it loads, else the Python pool), "native" or "python".
-    ``with_quality``: also return per-face feature-norm quality scores ->
-    ``(embeddings (N, D), quality (N,))``; a given ``extract_fn`` must
-    then return the pair.
+    pool when it loads, else the Python pool), "native", "python",
+    "native_dct" (entropy decode on the host, ``ops/jpeg.decode_dct`` on
+    the device; a ``cli.pack --recode_size`` shard of crop_from
+    geometry) or "dct_domain" (a dct-stem net's zero-decode input: the
+    coefficients through ``ops/dct.prepare_coefficients``, flipped in
+    the frequency domain; a shard recoded at image_size, and crop_from
+    defaults to it). ``with_quality``: also return per-face
+    feature-norm quality scores -> ``(embeddings (N, D), quality
+    (N,))``; a given ``extract_fn`` must then return the pair.
     """
     device = torch.device(device)
+    crop_from = _dct_domain_crop(net, loader, image_size, crop_from)
     if extract_fn is None:
         extract_fn = make_extract_fn(_module(net, variables, device),
                                      with_quality=with_quality)
@@ -127,6 +141,20 @@ def extract_shard(net, variables, source, *, image_size: int,
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
     return np.concatenate(outs)
+
+
+def _dct_domain_crop(net, loader: str, image_size: int,
+                     crop_from: int) -> int:
+    """``crop_from`` as the loader takes it: ``dct_domain`` feeds a
+    dct-stem net only (another would convolve 192 coefficients as
+    channels), and no crop exists in the coefficient domain, so its
+    source size defaults to ``image_size``."""
+    if loader != "dct_domain":
+        return crop_from
+    if getattr(net, "stem", None) != "dct":
+        raise ValueError("loader='dct_domain' requires a stem='dct' "
+                         "backbone (e.g. dct_resnet_50)")
+    return crop_from or image_size
 
 
 def _module(net, variables, device) -> torch.nn.Module:
@@ -193,6 +221,7 @@ def extract_shard_to_npy(net, variables, source, output_path: str, *,
     chunk_rows = chunk_rows or 64 * batch
     # chunks on the batch grid: a resumed chunk batches as the first run
     chunk_rows = max(batch, chunk_rows - chunk_rows % batch)
+    crop_from = _dct_domain_crop(net, loader, image_size, crop_from)
     full_range = (row_lo, row_hi) == (0, n_total)
     sidecar = output_path + ("" if full_range
                              else f".rows{row_lo}-{row_hi}") \
@@ -289,7 +318,9 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
                           device: str | torch.device = "cuda"):
     """Yield the eval-chain standardized image batches of a shard
     (decode -> resize to crop_from -> center crop -> standardize), f32
-    NHWC on ``device``. ``rows``: half-open [lo, hi) record range."""
+    NHWC on ``device``; with ``loader="dct_domain"``, the standardized
+    coefficients (N, image_size / 8, image_size / 8, 192) instead.
+    ``rows``: half-open [lo, hi) record range."""
     from tf_face_toolbox_tpu_torch.ops.preprocess import preprocess_eval
 
     crop_from = crop_from or image_size + 8
@@ -301,10 +332,9 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
     if loader == "auto":
         from tf_face_toolbox_tpu_torch.data.native import native_available
         loader = "native" if native_available() else "python"
-    if loader not in ("native", "python"):
-        raise NotImplementedError(
-            f"loader {loader!r} is not ported yet (ROADMAP.md §1 item 17b); "
-            "use native or python")
+    if loader not in ("native", "python", "native_dct", "dct_domain"):
+        raise ValueError(f"unknown loader {loader!r}; have auto|native|"
+                         "python|native_dct|dct_domain")
     n = source.index.count
     row_lo, row_hi = rows if rows is not None else (0, n)
     if not 0 <= row_lo <= row_hi <= n:
@@ -316,17 +346,43 @@ def _standardized_batches(source, *, image_size: int, crop_from: int = 0,
     def to_device(u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(u8).to(device)
 
-    if loader == "native":
+    if loader == "dct_domain":
+        if norm != "per_image":
+            raise ValueError(
+                "loader='dct_domain' standardizes in the frequency "
+                "domain (per-image only); fixed-norm imported models "
+                "use a pixel loader")
+        if crop_from != image_size:
+            raise ValueError(
+                f"loader='dct_domain' needs crop_from == image_size "
+                f"(got {crop_from} vs {image_size}): center-cropping "
+                f"coefficients would need a block-aligned offset; pack "
+                f"the shard with --recode_size={image_size}")
+        if image_size % 8:
+            raise ValueError("image_size must be a multiple of 8 for "
+                             "the dct domain")
+
+    if loader in ("native", "native_dct", "dct_domain"):
         from tf_face_toolbox_tpu_torch.data.native import NativeShardReader
+        from tf_face_toolbox_tpu_torch.ops.dct import prepare_coefficients
+        from tf_face_toolbox_tpu_torch.ops.jpeg import decode_dct
         reader = NativeShardReader(source.index.path,
                                    num_threads=num_threads)
         try:
             for bi, ids in enumerate(windows):
                 if bi + 1 < len(windows):  # readahead next window
                     reader.prefetch(windows[bi + 1])
-                u8 = reader.decode_batch(ids, crop_from, crop_from)
-                yield preprocess_eval(to_device(u8), image_size, image_size,
-                                      norm)
+                if loader == "native":
+                    u8 = to_device(reader.decode_batch(ids, crop_from,
+                                                       crop_from))
+                else:
+                    coef, qtab = (to_device(a) for a in reader.dct_batch(
+                        ids, crop_from, crop_from))
+                    if loader == "dct_domain":
+                        yield prepare_coefficients(coef, qtab)
+                        continue
+                    u8 = decode_dct(coef, qtab)
+                yield preprocess_eval(u8, image_size, image_size, norm)
         finally:
             reader.close()
         return

@@ -16,9 +16,12 @@ cout) <-> (cout, cin / groups, kh, kw)) included, a depthwise one
 ((3, 3, 1, C) <-> (C, 1, 3, 3)) among them, or the kernel of a
 bias-free plain conv that sits on its module itself (DenseNet's
 ``Conv_0`` and ``_BNReLUConv_i``, iResNet's and MobileFaceNet's convs).
-PReLU's ``alpha`` and the GDConv head's (h, w, c) ``gdconv`` keep their
-names and layouts. Loading is total both ways: every key
-is consumed and every parameter and buffer is set, or it raises.
+PReLU's ``alpha``, the GDConv head's (h, w, c) ``gdconv`` and the
+ViT's (1, T, W) ``pos_embedding`` (a parameter of the network itself,
+``params/pos_embedding``) keep their names and layouts; a LayerNorm's
+``scale`` and ``bias`` map as a BatchNorm's do. Loading is total both
+ways: every key is consumed and every parameter and buffer is set, or
+it raises.
 """
 
 from __future__ import annotations
@@ -88,11 +91,12 @@ def load_variables_npz(path: str) -> dict:
 
 
 # state_dict leaf name -> (collection, JAX leaf) for the rank-free ones
-# (PReLU's alpha and MobileFaceNet's (h, w, c) GDConv weight keep their
-# flax names and layouts)
+# (PReLU's alpha, MobileFaceNet's (h, w, c) GDConv weight and the ViT's
+# positional table keep their flax names and layouts)
 _JAX_LEAF = {"bias": ("params", "bias"),
              "alpha": ("params", "alpha"),
              "gdconv": ("params", "gdconv"),
+             "pos_embedding": ("params", "pos_embedding"),
              "running_mean": ("batch_stats", "mean"),
              "running_var": ("batch_stats", "var")}
 
@@ -103,14 +107,15 @@ def jax_key(name: str, tensor: torch.Tensor) -> tuple[str, str]:
     Dense kernel, a 1-d one a BN scale. The one name -> key mapping:
     ``jax_leaves`` names a network's tensors through it, and a saved
     state (no network at hand) is named through it too."""
-    path, leaf = name.rsplit(".", 1)
-    path = path.replace(".", "/")
+    path, _, leaf = name.rpartition(".")
+    # a leaf of the network itself (the ViT's pos_embedding) has no path
+    path = path.replace(".", "/") + "/" if path else ""
     if leaf == "weight":
         kind = {4: "conv", 2: "dense"}.get(tensor.dim(), "plain")
         jleaf = "scale" if kind == "plain" else "kernel"
-        return f"params/{path}/{jleaf}", kind
+        return f"params/{path}{jleaf}", kind
     collection, jleaf = _JAX_LEAF[leaf]
-    return f"{collection}/{path}/{jleaf}", "plain"
+    return f"{collection}/{path}{jleaf}", "plain"
 
 
 def jax_leaves(net: nn.Module) -> Iterator[tuple[str, torch.Tensor, str]]:

@@ -6,10 +6,9 @@ a fresh training init.
     embeddings = net(images)                       # (N, 512) float32
     init_parameters(net, seed=0)                   # before training
 
-The ResNet family (ResNet, SE-ResNet, ResNeXt, SE-ResNeXt), DenseNet,
-iResNet and MobileFaceNet entries of the JAX registry are ported; the
-others (the dct stem and the ViT family) raise NotImplementedError
-naming the ROADMAP.md item.
+Every entry of the JAX registry is ported: the ResNet family (ResNet,
+SE-ResNet, ResNeXt, SE-ResNeXt, the dct-stem ResNet), DenseNet, iResNet,
+MobileFaceNet and the JPEG-block-token ViT family.
 """
 
 from __future__ import annotations
@@ -25,11 +24,13 @@ from tf_face_toolbox_tpu_torch.models.densenet import DenseNet
 from tf_face_toolbox_tpu_torch.models.iresnet import IResNet
 from tf_face_toolbox_tpu_torch.models.mobilefacenet import MobileFaceNet
 from tf_face_toolbox_tpu_torch.models.resnet import ResNet
+from tf_face_toolbox_tpu_torch.models.vit import FaceViT
 
 # ResNeXt 32x4d: bottleneck width 128 at stage 0 with expansion 2
 _RESNEXT = dict(groups=32, width_per_group=4, expansion=2)
 _IRESNET = dict(stem="face", head_variant="flatten")
 _MOBILE = dict(stem="mobile", head_variant="gdconv")
+_VIT = dict(stem="dct", head_variant="gap")
 
 # name -> (module class, fixed kwargs), as in the JAX registry
 _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
@@ -43,6 +44,10 @@ _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
     "resnext_101": (ResNet, dict(stage_sizes=(3, 4, 23, 3), **_RESNEXT)),
     "se_resnext_50": (ResNet, dict(stage_sizes=(3, 4, 6, 3), **_RESNEXT,
                                    se_reduction=16)),
+    # the JPEG-domain ResNet: r50's late stages after a 28x28 w128 stage
+    "dct_resnet_50": (ResNet, dict(stage_sizes=(3, 6, 3),
+                                   stage_widths=(128, 256, 512),
+                                   stem="dct")),
     "densenet_121": (DenseNet, dict(stage_sizes=(6, 12, 24, 16))),
     "densenet_169": (DenseNet, dict(stage_sizes=(6, 12, 32, 32))),
     # iResNet and MobileFaceNet: stem and head pinned (structural)
@@ -56,6 +61,13 @@ _REGISTRY: dict[str, tuple[type, dict[str, Any]]] = {
     "mobilefacenet_tiny": (MobileFaceNet,
                            dict(stages=((2, 16, 1, 2), (2, 16, 1, 2)),
                                 stem_width=8, head_width=32, **_MOBILE)),
+    # the JPEG-block-token ViTs: stem and head pinned (structural);
+    # dct_vit_test is a two-block smoke-test net, not a real model
+    "dct_vit_small": (FaceViT, dict(depth=12, width=384, num_heads=6,
+                                    **_VIT)),
+    "dct_vit_tiny": (FaceViT, dict(depth=12, width=192, num_heads=3,
+                                   **_VIT)),
+    "dct_vit_test": (FaceViT, dict(depth=2, width=32, num_heads=2, **_VIT)),
     # Tiny variant for smoke tests, not a reference model.
     "resnet_tiny": (ResNet, dict(stage_sizes=(1,), width_per_group=16)),
 }
@@ -72,15 +84,15 @@ def create_network(name: str, *, embedding_dim: int = 512,
 
     ``overrides``: any field of the network's module (stem,
     head_variant, stage_sizes, width_per_group, growth_rate,
-    input_size, ...). A stem or head the registry pins (iResNet,
-    MobileFaceNet) is structural: it wins over a conflicting override,
+    input_size, drop_path_rate, ...). A stem or head the registry pins
+    (the dct ResNet's stem, iResNet, MobileFaceNet, the ViTs) is
+    structural: it wins over a conflicting override,
     with a warning, as in the JAX factory (CLIs pass their --stem/--head
     defaults unconditionally).
     """
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"network '{name}' is not ported (ROADMAP.md §1 item 17b); "
-            f"available: {list_networks()}")
+        raise ValueError(
+            f"unknown network '{name}'; available: {list_networks()}")
     cls, kwargs = _REGISTRY[name]
     for pinned in ("stem", "head_variant"):
         if pinned in kwargs and overrides.get(
@@ -106,8 +118,12 @@ def random_variables(net: torch.nn.Module, seed: int = 0
     U(0.2, 0.5), as a trained net's branches are small against the
     identity; with unit scales the random net's activations grow block
     by block. DenseNet has no residual branch: all its scales are
-    U(0.8, 1.2). PReLU slopes are U(0.1, 0.3); GDConv weights
-    N(0, 2 / (h * w)).
+    U(0.8, 1.2). For the same reason each ViT block's branch-closing
+    Dense kernels (``attn/out``, ``mlp2``) have their output columns
+    scaled by U(0.2, 0.5): twelve random full-size branches would grow
+    the bf16 residual stream past where a cosine against f32 says much.
+    PReLU slopes are U(0.1, 0.3); GDConv weights N(0, 2 / (h * w)); the
+    ViT's positional table N(0, 0.02) (its init).
     """
     from tf_face_toolbox_tpu_torch.interop import port
 
@@ -123,6 +139,10 @@ def random_variables(net: torch.nn.Module, seed: int = 0
             fan_in = int(np.prod(shape[:-1]))
             gain = 2.0 if kind == "conv" else 1.0
             v = rng.standard_normal(shape) * np.sqrt(gain / fan_in)
+            if key.endswith(("/attn/out/kernel", "/mlp2/kernel")):
+                v = v * rng.uniform(0.2, 0.5, shape[-1:])
+        elif leaf == "pos_embedding":
+            v = rng.normal(0.0, 0.02, shape)
         elif leaf == "scale":
             branch_end = "/ConvBN_2/" in key or key in ends
             v = rng.uniform(0.2, 0.5, shape) if branch_end \
@@ -166,7 +186,9 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     - BatchNorm: scale 1 (0 for each ResNet branch's last BN, so a
       block starts as the identity), bias 0, running mean 0, var 1;
     - PReLU slopes 0.25; GDConv: variance_scaling(2.0, "fan_in"),
-      fan_in = h * w.
+      fan_in = h * w;
+    - the ViT: Dense kernels as above, the positional table N(0,
+      0.02), LayerNorm scales 1 and biases 0.
 
     flax's truncated normal divides the standard deviation by
     0.87962566 (the std of N(0, 1) truncated to +-2), so the kernels
@@ -194,6 +216,8 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 h, w, _ = tensor.shape
                 v = _truncated_normal(tensor.shape, math.sqrt(2.0 / (h * w))
                                       / 0.87962566103423978, g)
+            elif leaf == "pos_embedding":
+                v = torch.randn(tensor.shape, generator=g) * 0.02
             elif leaf == "scale":
                 v = torch.full(tensor.shape,
                                0.0 if "/ConvBN_2/" in key else 1.0)

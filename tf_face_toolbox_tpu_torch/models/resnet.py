@@ -2,11 +2,15 @@
 
 Counterpart of ``tf_face_toolbox_tpu/models/resnet.py``: bottleneck
 blocks with a grouped 3x3 (``groups``, ResNeXt) and squeeze-excite
-after the last 1x1 (``se_reduction``, SE-ResNet); face, imagenet and
-space2depth stems. The dct stem and int8 serving raise
-NotImplementedError naming the ROADMAP.md item that ports them. Eval by
-default; ``net(images, train=TrainContext(...))`` runs train mode
-(models/layers.py).
+after the last 1x1 (``se_reduction``, SE-ResNet); face, imagenet,
+space2depth and dct stems. The dct stem takes standardized pixels,
+which it turns into 8x8 block coefficients (``ops/dct.block_dct``), or
+coefficients (N, H/8, W/8, 192) from ``ops/dct.prepare_coefficients``;
+a frequency BatchNorm, a 1x1 ConvBN to 4 * ``dct_stem_features`` and a
+depth-to-space take them to (H/4, W/4, ``dct_stem_features``). int8
+serving raises NotImplementedError naming the ROADMAP.md item that
+ports it. Eval by default; ``net(images, train=TrainContext(...))``
+runs train mode (models/layers.py).
 
 ``remat`` (the JAX module's argument) recomputes each bottleneck block
 in backward instead of keeping its activations: ``True`` keeps only the
@@ -24,12 +28,14 @@ from torch import nn
 from torch.utils import checkpoint
 
 from tf_face_toolbox_tpu_torch.models.layers import (
+    BatchNorm,
     ConvBN,
     EmbeddingHead,
     SqueezeExcite,
     TrainContext,
     max_pool_same_nhwc,
 )
+from tf_face_toolbox_tpu_torch.ops.dct import block_dct
 
 
 class BottleneckBlock(nn.Module):
@@ -70,9 +76,9 @@ def _unsupported(what: str, item: str):
 
 
 def block_strides(stage_idx: int, block_idx: int, stem: str) -> int:
-    """The face stem keeps stage 0 at stride 2 (112 -> 56); the imagenet
-    and space2depth stems already downsampled, so their stage 0 runs at
-    stride 1."""
+    """The face stem keeps stage 0 at stride 2 (112 -> 56); the imagenet,
+    space2depth and dct stems already downsampled, so their stage 0 runs
+    at stride 1."""
     first = block_idx == 0
     return 2 if first and (stage_idx > 0 or stem == "face") else 1
 
@@ -93,16 +99,14 @@ class ResNet(nn.Module):
                  dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32,
                  quantized: bool | str = False, remat: bool | str = False,
-                 input_size: int = 112):
+                 input_size: int = 112, dct_stem_features: int = 256):
         super().__init__()
         if quantized:
             _unsupported("int8 serving", "18")
         if remat not in (False, True, "save_convs"):
             raise ValueError(f"unknown remat {remat!r}; have False, True, "
                              "'save_convs'")
-        if stem == "dct":
-            _unsupported("the dct stem", "17b")
-        if stem not in ("face", "imagenet", "space2depth"):
+        if stem not in ("face", "imagenet", "space2depth", "dct"):
             raise ValueError(f"unknown stem: {stem}")
         self.stage_sizes = tuple(stage_sizes)
         self.groups = groups
@@ -112,16 +116,24 @@ class ResNet(nn.Module):
         self.dtype = dtype
 
         size = input_size
+        channels = 64
         if stem == "face":
             self.ConvBN_0 = ConvBN(3, 64, 3, 1, dtype=dtype)
         elif stem == "space2depth":
             self.ConvBN_0 = ConvBN(12, 64, 3, 1, dtype=dtype)
             size //= 2
+        elif stem == "dct":
+            # the frequency norm, then the 1x1 up-projection whose 4 * C
+            # channels depth-to-space lays out as a 2x2 block each
+            self.BatchNorm_0 = BatchNorm(192)
+            self.ConvBN_0 = ConvBN(192, 4 * dct_stem_features, 1, 1,
+                                   dtype=dtype)
+            size = size // 8 * 2
+            channels = dct_stem_features
         else:
             self.ConvBN_0 = ConvBN(3, 64, 7, 2, dtype=dtype)
             size = -(-size // 2)
             size = -(-size // 2)          # max pool 3x3/s2
-        channels = 64
         counter = 0
         for stage_idx, num_blocks in enumerate(self.stage_sizes):
             features = (stage_widths[stage_idx] if stage_widths is not None
@@ -141,17 +153,32 @@ class ResNet(nn.Module):
             channels, embedding_dim, head_variant, spatial=(size, size),
             dtype=dtype, dropout_rate=dropout_rate)
 
+    def _dct_stem(self, x: torch.Tensor,
+                  train: TrainContext | None) -> torch.Tensor:
+        if x.shape[-1] == 3:
+            x = block_dct(x).to(self.dtype)
+        elif x.shape[-1] != 192:
+            raise ValueError(
+                f"dct stem wants (N,H,W,3) pixels or (N,h,w,192) "
+                f"coefficients, got trailing dim {x.shape[-1]}")
+        x = self.ConvBN_0(self.BatchNorm_0(x, self.dtype, train), train)
+        return depth_to_space(x)
+
     def blocks(self) -> list[BottleneckBlock]:
         return [getattr(self, f"BottleneckBlock_{i}")
                 for i in range(self.num_blocks)]
 
     def forward(self, images: torch.Tensor,
                 train: TrainContext | None = None) -> torch.Tensor:
-        """images: (N, H, W, 3) standardized pixels -> (N, D) f32."""
+        """images: (N, H, W, 3) standardized pixels (or, with the dct
+        stem, (N, H/8, W/8, 192) coefficients) -> (N, D) f32."""
         x = images.to(self.dtype)
         if self.stem == "space2depth":
             x = space_to_depth(x)
-        x = self.ConvBN_0(x, train)
+        if self.stem == "dct":
+            x = self._dct_stem(x, train)
+        else:
+            x = self.ConvBN_0(x, train)
         if self.stem == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
         for block in self.blocks():
@@ -170,6 +197,15 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h // 2, w // 2, 4 * c)
+
+
+def depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """The dct stem's re-layout, (N, H, W, 4C) -> (N, 2H, 2W, C): each
+    pixel's channels as (row in the 2x2 block, column, channel)."""
+    n, h, w, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(n, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, 2 * h, 2 * w, c)
 
 
 def _save_conv_outputs(ctx, op, *args, **kwargs):

@@ -94,8 +94,7 @@ def network_from_meta(meta: dict[str, Any], *, dtype: torch.dtype):
     stem/head_variant are the resolved module attributes recorded at
     export. ``dtype`` is the serving-side compute choice (the bundle's
     params are f32). An int8 bundle (``quant_mode`` other than "none")
-    needs int8 serving, not yet ported (ROADMAP.md §1 item 18); a
-    network the port lacks raises naming item 17b (``create_network``).
+    needs int8 serving, not yet ported (ROADMAP.md §1 item 18).
     """
     from tf_face_toolbox_tpu_torch.models import create_network
 

@@ -13,9 +13,10 @@ into convs with biases; ``make_serving_apply`` returns
   folded, as in JAX (the kernel has no SE).
 
 Scope: the ResNet family with groups=1 (ResNet, SE-ResNet; face,
-imagenet and space2depth stems). ResNeXt's grouped 3x3 and DenseNet's
-concat topology are refused (``build_plan`` raises ValueError), as
-JAX's engine refuses them; they serve through the module path.
+imagenet and space2depth stems). ResNeXt's grouped 3x3, the dct stem,
+DenseNet's concat topology and the other families are refused
+(``build_plan`` raises ValueError), as JAX's engine refuses them; they
+serve through the module path.
 """
 
 from __future__ import annotations
@@ -129,13 +130,18 @@ def _fold_block(params: Any, stats: Any, *, strides: int,
 
 def check_servable(net) -> None:
     """Raise ValueError (JAX's messages) for a net outside the engine's
-    scope: anything but the ResNet family, or grouped convs."""
+    scope: anything but the ResNet family, grouped convs, or the dct
+    stem."""
     if not isinstance(net, ResNet):
         raise ValueError(f"serving engine supports the ResNet family, got "
                          f"{type(net).__name__}; use the module path")
     if net.groups != 1:
         raise ValueError("serving engine does not support grouped convs "
                          "(ResNeXt); use the module path")
+    if net.stem == "dct":
+        raise ValueError(
+            "serving engine does not fold the dct stem (frequency BN + "
+            "1x1 + depth2space); use the module path")
 
 
 def build_plan(net: ResNet, variables: dict) -> ServingPlan:

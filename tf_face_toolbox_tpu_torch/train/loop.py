@@ -61,6 +61,7 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                teacher=None,
                max_consecutive_skips: int = 100,
                mesh=None,
+               input_format: str = "u8",
                device="cuda") -> LoopResult:
     """Run (or resume) training to ``num_steps`` total steps on ``device``.
 
@@ -77,7 +78,8 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
     step (``last_metrics["preempted"]`` = 1). ``mesh``: this rank's
     topology (``device`` is then its device). ``teacher``: a frozen
     distillation teacher, a module or ``(module, variables)``, as
-    ``make_train_step`` takes it.
+    ``make_train_step`` takes it. ``input_format="dct"``: the batches'
+    images are (coef, qtab) pairs (``native_dct_batch_iterator``).
     """
     if mesh is not None:
         device = mesh.device
@@ -96,7 +98,8 @@ def train_loop(cfg: TrainConfig, batches: Iterator[dict], *,
                          mgr.directory)
     if warm_start is not None and not resumed:
         state = warm_start(state)
-    step_fn = make_train_step(net, cfg, state, mesh=mesh, teacher=teacher)
+    step_fn = make_train_step(net, cfg, state, mesh=mesh, teacher=teacher,
+                              input_format=input_format)
     logger = logger or MetricLogger(train_dir if main else None,
                                     batch_size=cfg.global_batch)
     stop_sync = 10 if mesh is not None and mesh.distributed else 1

@@ -69,6 +69,7 @@ from tf_face_toolbox_tpu_torch.models.layers import (
     l2_normalize,
 )
 from tf_face_toolbox_tpu_torch.ops import preprocess as pp
+from tf_face_toolbox_tpu_torch.ops.jpeg import decode_dct
 from tf_face_toolbox_tpu_torch.ops.losses import (
     AdaFaceConfig,
     MagFaceConfig,
@@ -113,7 +114,7 @@ class TrainConfig:
     stem: str = "face"          # "face" | "imagenet"
     head_variant: str = "gap"
     dropout_rate: float = 0.0   # flatten head, train mode only
-    drop_path_rate: float = 0.0     # ViT family (item 17b)
+    drop_path_rate: float = 0.0     # ViT family: stochastic depth
     embedding_dim: int = 512
     num_classes: int = 10572          # CASIA-WebFace identity count
     image_size: int = 112
@@ -164,10 +165,11 @@ class TrainConfig:
                              "have fixed|magface|adaface|curricular")
         if self.quantized:
             _not_ported("quantization-aware training", "18")
-        if self.drop_path_rate > 0:
-            _not_ported("drop_path_rate (the ViT family)", "17b")
-        if self.stem == "dct" or self.network.startswith("dct_"):
-            _not_ported("DCT input", "17b")
+        if self.drop_path_rate > 0 and not self.network.startswith("dct_vit"):
+            raise ValueError(
+                "drop_path_rate is a ViT-family knob (stochastic depth over "
+                f"transformer blocks); network={self.network!r} has no block "
+                "drop path")
         if self.subcenters < 1:
             raise ValueError(f"subcenters must be >= 1 (got "
                              f"{self.subcenters})")
@@ -250,7 +252,9 @@ def _generator(device, *parts: int) -> torch.Generator:
 
 def build_network(cfg: TrainConfig, **overrides) -> torch.nn.Module:
     """The backbone ``cfg`` names (``overrides``: other ResNet fields, such
-    as ``remat``)."""
+    as ``remat``); a ViT's drop path rate where it is set."""
+    if cfg.drop_path_rate > 0:
+        overrides["drop_path_rate"] = cfg.drop_path_rate
     return create_network(cfg.network, embedding_dim=cfg.embedding_dim,
                           dtype=cfg.dtype, stem=cfg.stem,
                           head_variant=cfg.head_variant,
@@ -417,12 +421,15 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
     a zero gradient).
 
     ``images``: (B, crop_from, crop_from, 3) uint8 when ``cfg.augment``,
-    else (B, image_size, image_size, 3) standardized f32; ``labels``:
-    (B,) ints. Tensors on the state's device, or numpy arrays. With
-    ``mesh`` (a ``parallel.mesh.Topology`` of several ranks) B is the
-    global batch, of which this rank takes its rows, or this rank's
-    rows alone; every rank calls ``step_fn`` once a step. The state is
-    updated in place and returned. Metrics (the same on every rank):
+    else (B, image_size, image_size, 3) standardized f32; with
+    ``input_format="dct"``, the (coef, qtab) pair of
+    ``data.pipeline.native_dct_batch_iterator`` instead, which the step
+    decodes to uint8 frames on the device (``ops/jpeg.decode_dct``)
+    before the u8 step; ``labels``: (B,) ints. Tensors on the state's
+    device, or numpy arrays. With ``mesh`` (a ``parallel.mesh.Topology``
+    of several ranks) B is the global batch, of which this rank takes
+    its rows, or this rank's rows alone; every rank calls ``step_fn``
+    once a step. The state is updated in place and returned. Metrics (the same on every rank):
     ``loss`` (the global batch's objective: the margin loss plus the
     weighted auxiliary terms), ``grad_norm`` (before the clip),
     ``center_loss``, ``triplet_loss``, ``magface_reg_loss`` (each term
@@ -450,7 +457,17 @@ def make_train_step(net: torch.nn.Module, cfg: TrainConfig,
                                       for t in pair], mesh)
         return parts.apply(state, dict(zip(terms, mean)), stats, update)
 
-    return step_fn
+    if input_format == "u8":
+        return step_fn
+
+    def dct_step(state: TrainState, images, labels):
+        # this rank's rows, decoded: the u8 step then takes them whole
+        coef, qtab = (torch.as_tensor(a) for a in images)
+        coef, rows = parts.rows(coef, labels)
+        qtab, _ = parts.rows(qtab, labels)
+        return step_fn(state, decode_dct(coef, qtab), rows)
+
+    return dct_step
 
 
 class StepParts:
@@ -465,8 +482,13 @@ class StepParts:
     def __init__(self, net: torch.nn.Module, cfg: TrainConfig,
                  state: TrainState, mesh=None, *, input_format: str = "u8",
                  teacher=None):
-        if input_format != "u8":
-            _not_ported(f"input_format={input_format!r} (DCT input)", "17b")
+        if input_format not in ("u8", "dct"):
+            raise ValueError(f"unknown input_format {input_format!r}; have "
+                             "u8|dct")
+        if input_format == "dct" and not cfg.augment:
+            raise ValueError(
+                "input_format='dct' decodes to uint8 crop_from² frames — "
+                "it requires the augment preprocessing chain (cfg.augment)")
         self.teacher, self.alpha = None, 0.0
         if teacher is not None:
             self.alpha = float(cfg.distill_alpha)
