@@ -28,8 +28,10 @@ at config 4; then the data layer (an InsightFace .bin at LFW's counts,
 a .rec, TFRecords; merge; the bundle export) and the HTTP daemon booted
 from that bundle, its /identify through kernels 3 and 4 over 10^6 rows,
 a hot reload and the SIGTERM drain; then the gallery sharded four
-ways at 10^7 rows, iResNet and MobileFaceNet, and the DCT input with
-dct_resnet_50 and the ViT family. Runs that time nothing (the
+ways at 4 x 10^6 rows, iResNet and MobileFaceNet, the DCT input with
+dct_resnet_50 and the ViT family, and int8 serving (W8A8 convs on the
+int8 tensor cores, calibrated static bundles, the int8 daemon) with
+quantization-aware training. Runs that time nothing (the
 cli.train, cli.extract and other CLI runs, whose steps, launches and
 outputs are checked) go side by side with other untimed work; every
 timed run (bench, bench_train under torchrun, time_training in this
@@ -65,10 +67,10 @@ Phases:
     plain version and its bound; one full-width step through the
     kernel and through the plain augment chain from the same variables
     and draws (loss within 1%, every leaf's update cosine >= 0.999);
-    cli.train for 30 config-4 steps (one kernel launch a step, finite
+    cli.train for 12 config-4 steps (one kernel launch a step, finite
     losses); a packed shard through the python loader and, where
     native/faceshard builds (it links libjpeg), the native one;
-    training faces/sec (bench_train: CUDA events over 20 steps after 5,
+    training faces/sec (bench_train: CUDA events over 10 steps after 3,
     peak memory, idle share from torch.profiler, share of the bf16 peak);
     kernel 1's library route at the train shape
 12. checkpoints (BASELINE config 4 on a packed shard of synthetic
@@ -88,7 +90,7 @@ Phases:
 13. data-parallel training (BASELINE config 5; this machine has one
     GPU, so its 8 replicas of 256 are cut to 1): (a) torchrun, one rank,
     NCCL: cli.train --preset v5e8_data_parallel --multihost
-    --pallas_input for 20 steps (kernel 1 once a step), then bench_train
+    --pallas_input for 10 steps (kernel 1 once a step), then bench_train
     --preset v5e8_data_parallel (faces/s, ms/step, idle share, peak
     memory, the NCCL all-reduce of the step's gradients, timed apart:
     the trainer skips it at one rank); (b) two ranks sharing cuda:0 over
@@ -102,11 +104,11 @@ Phases:
     and (b)'s ranks (untimed) run in phase 12 beside its preemption flow
 14. the class-sharded Partial-FC head (BASELINE config 7; the preset's
     2 x 4 mesh of 256 rows a device cut to this card's one rank): (a)
-    cli.train --preset large_id_pfc_v5e8 --pallas_input for 20 steps
+    cli.train --preset large_id_pfc_v5e8 --pallas_input for 10 steps
     (93,431 classes, sampled at 0.1: budget 9,344; kernel 1 once a
     step), then time_training in this process (bench_train's
     measurement) for the sampled head and for the exact one
-    (pfc_sample_rate 1; 10 steps after 3, 2 profiled): faces/s, ms/step,
+    (pfc_sample_rate 1; 8 steps after 2, 1 profiled): faces/s, ms/step,
     peak memory, device ms by kind with the head's share, against phase
     11's config-4 rate; (b)
     four ranks sharing cuda:0 over gloo as data 2 x model 2, config 7
@@ -119,22 +121,22 @@ Phases:
     process, each step from the ranks' state before it (losses within 1%,
     per-leaf update cosine >= 0.999 with the classifier reassembled from
     its shards, BN running statistics within 2 bf16 steps); kernel 1 2
-    launches a rank a head. Phase 15's cli.train and four ranks (untimed)
-    run beside (b)
+    launches a rank a head. Phase 15's cli.train (untimed) runs beside
+    (b), and its two gloo heads run on (b)'s four ranks after (b)'s two
 15. the loss heads (BASELINE preset 8, ``adaface_noisy_data``): (a)
-    cli.train --preset adaface_noisy_data --pallas_input for 20 steps
+    cli.train --preset adaface_noisy_data --pallas_input for 10 steps
     (r50 face stem, bf16, 10,572 classes x 3 sub-centers, batch 256,
     random erase 0.25, cosine LR; kernel 1 once a step, finite losses,
     the logged adaface_norm_mean moving from 20), then time_training of
-    adaface_noisy_data in this process (bench_train's measurement; 10
-    steps after 3, 2 profiled: faces/s, ms/step, peak memory, device ms
+    adaface_noisy_data in this process (bench_train's measurement; 8
+    steps after 2, 1 profiled: faces/s, ms/step, peak memory, device ms
     by kind with the head's share) against phase 11's config-4 rate; (b) at config 4's width, one step from the same state
     through kernel 1 and through the plain augment chain for MagFace,
     CurricularFace, and CosFace with center loss and triplet on a P x K
     batch of 64 identities x 4 faces drawn by balanced_batch_iterator
     from phase 11's shard (losses within 1%, every leaf's update cosine
-    >= 0.999, the head state included); (c) four gloo ranks sharing
-    cuda:0 as data 2 x model 2, preset 8 (r50 face stem, 3 sub-centers,
+    >= 0.999, the head state included); (c) phase 14(b)'s four gloo ranks
+    sharing cuda:0 as data 2 x model 2, preset 8 (r50 face stem, 3 sub-centers,
     random erase, its schedule) at 16 rows a rank: AdaFace with center
     loss, then CurricularFace, 2 bf16 steps each, held as phase 14(b)
     holds config 7 (the centers split and compared as the classifier is;
@@ -180,16 +182,17 @@ Phases:
     plain host computation (TAR equal, templates within 1e-5), and
     cli.eval_templates on a 10^6-pair file beside the host computation;
     each stage's seconds
-19. Adam, AdamW and LARS at config 4: cli.train 10 steps under each
+19. Adam, AdamW and LARS at config 4: cli.train 6 steps under each
     (kernel 1 once a step; the three runs side by side, as the two
     distillation runs below), faces/s, device ms and peak memory under
-    each beside SGD's (time_training, 8 steps after 2); 2 f32 steps at
+    each beside phase 11's SGD (time_training, 8 steps after 2); 2 f32 steps at
     batch 32 from one state and one set of batches on the card and on
     the host (TF32 off), the largest per-leaf difference over the
     update (< 1 under Adam and AdamW, < 0.1 under LARS); an exact
     resume under Adam (max |diff| 0); distillation of a fresh
     resnet_v1_50 from phase 12's checkpoint at alpha 1 and 0.5
-    (cli.train 10 steps: distill_loss falling at alpha 1; faces/s)
+    (cli.train 6 steps: distill_loss falling at alpha 1; faces/s at
+    0.5, whose step computes both losses)
 20. the data layer: a synthetic InsightFace lfw.bin at LFW's counts
     (6,000 pairs, 12,000 112x112 JPEG faces, 3 PNG entries, entries as
     bytes and as uint8 arrays), a .rec/.idx of 200 faces of 40 sparse
@@ -219,10 +222,10 @@ Phases:
     Embed and EmbedBatch against HTTP's rows where grpc is installed;
     (f) bulk faces/s, single /embed p50/p99 at 32 clients, /identify
     latency, beside phase 16's folded rate
-22. the sharded gallery: 10^7 seeded unit 512-d rows (8 planted groups
-    of 4 equal rows across shards, one 1,024-row label) in a
-    DistributedGallery over [cuda:0] * 4 at 8 GB a shard, bf16 (one
-    bf16 DeviceGallery at 8 GB refuses the rows) and int8: searches at
+22. the sharded gallery: 4 x 10^6 seeded unit 512-d rows (8 planted
+    groups of 4 equal rows across shards, one 1,024-row label) in a
+    DistributedGallery over [cuda:0] * 4 at 3.2 GB a shard, bf16 (one
+    bf16 DeviceGallery at 3.2 GB refuses the rows) and int8: searches at
     B 1 and 64, k 5 (int8: coarse k 20) launch kernel 3 or 4 once a
     shard; labels and scores against one unbounded DeviceGallery and
     the plain programs, the groups in the reference's shard-major order
@@ -262,6 +265,27 @@ Phases:
     dct_vit_small's training rate; (d) cli.extract --loader dct_domain
     and native_dct where native/faceshard builds. Phase 24's CLI runs go
     beside phase 22's host work
+25. int8 serving and QAT at full width (resnet_v1_50, face stem, 512-d,
+    bf16): (a) int8_conv2d_nhwc (torch._int_mm on the int8 tensor cores,
+    over an int8 im2col) at each of the net's int8 conv shapes, and at
+    resnext_50's grouped 3x3s (block-diagonal), at 256 images, bit
+    for bit against its float64 plain version, its time
+    beside the bf16 cuDNN conv of the shape and its bound (int8
+    operations at 1,979 TOP/s, bytes at 3.35 TB/s); (b) faces/s at
+    batch 128 e2e (kernel 1 once a batch, 52 _int_mm convs a forward) of
+    dynamic and static int8 beside the fp module path (and phase 16's
+    folded rate); cli.export --quant_mode static --calibrate_data of phase 12's
+    checkpoint, then cli.extract --bundle of its 512 eval faces, held
+    against the f32 module path (cosine >= 0.98) and against the same
+    int8 module with its convs on the float64 plain route (>= 0.9999);
+    (c) cli.serve --bundle over the int8 bundle with phase 21's 10^6-row
+    gallery in f32 and in int8: /identify through kernels 3 and 4 against
+    the plain programs; cli.train --qat --pallas_input (5 steps at batch
+    64: finite losses, kernel 1 once a step), then its static bundle
+    (cli.export) served on the bundle's module path. Phase 25's CLI
+    chains run beside
+    phase 22's host work; phase 22 joins them, and waits for (c)'s
+    daemons to be serving, before it times anything
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -296,7 +320,14 @@ def expect(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_START = time.time()
+
+
 def say(*parts) -> None:
+    """Print a line; a phase's header ("[N name] ...") also gets the
+    seconds since the smoke started."""
+    if parts and isinstance(parts[0], str) and parts[0][:1] == "[":
+        parts = (*parts, f"(+{time.time() - _START:.1f} s)")
     print(*parts, flush=True)
 
 
@@ -902,6 +933,9 @@ def finish_train_cli(started: tuple, timeout: int) -> tuple[int, dict, int]:
     return step, logged, launches
 
 
+TRAIN_STEPS = 12            # phase 11's cli.train steps (config 4)
+
+
 def phase_train(g, work: str) -> dict:
     """Phase 11: training, BASELINE config 4, on the card."""
     from tf_face_toolbox_tpu_torch import bench
@@ -970,7 +1004,7 @@ def phase_train(g, work: str) -> dict:
         f"{plan['persist']}")
     del crops, got, got16, want, want16
 
-    # the main path (cli.train, config 4, 30 steps) and a packed shard
+    # the main path (cli.train, config 4, TRAIN_STEPS) and a packed shard
     # through both loaders (the native one where its library builds:
     # native/faceshard links libjpeg), side by side with the one-step
     # route comparison: they time nothing
@@ -980,8 +1014,8 @@ def phase_train(g, work: str) -> dict:
     main = start_train_cli(
         ["--network", "resnet_v1_50", "--stem", "face", "--data",
          "synthetic", "--num_classes", "10572", "--global_batch", "256",
-         "--bf16", "--pallas_input", "--num_steps", "30", "--log_every",
-         "10"])
+         "--bf16", "--pallas_input", "--num_steps", str(TRAIN_STEPS),
+         "--log_every", str(TRAIN_STEPS // 3)])
     shard = os.path.join(work, "train.faceshard")
     faces = torch.randint(0, 256, (512, 120, 120, 3), generator=g,
                           device="cuda", dtype=torch.uint8).cpu().numpy()
@@ -1028,12 +1062,13 @@ def phase_train(g, work: str) -> dict:
     expect(routes["launches"] == {"kernel": 1, "plain": 0, "plain_again": 0},
            f"route launches {routes['launches']}")
     losses = logged["loss"]
-    say(f"  cli.train config 4, 30 steps: done step={step}, losses "
+    say(f"  cli.train config 4, {TRAIN_STEPS} steps: done step={step}, losses "
         f"{[round(v, 4) for v in losses]}, preprocess launches {launches}")
-    expect(step == 30, f"cli.train stopped at step {step}")
+    expect(step == TRAIN_STEPS, f"cli.train stopped at step {step}")
     expect(len(losses) == 3 and all(np.isfinite(losses)),
            f"cli.train logged losses {losses}")
-    expect(launches == 30, f"kernel 1 launched {launches} times in 30 steps")
+    expect(launches == TRAIN_STEPS,
+           f"kernel 1 launched {launches} times in {TRAIN_STEPS} steps")
     for loader, (step_s, logged_s, launches_s) in zip(loaders, packed):
         losses_s = logged_s["loss"]
         say(f"  cli.train packed shard (512 faces, 64 ids), --loader "
@@ -1046,12 +1081,12 @@ def phase_train(g, work: str) -> dict:
 
     # training faces/sec/GPU, the card to itself
     torch.cuda.empty_cache()
-    t = bt.time_training(cfg, steps=20, warmup=5)
+    t = bt.time_training(cfg, steps=10, warmup=3, profile_steps=2)
     kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
         t["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
     say(f"  training faces/sec/GPU (config 4, batch 256, bf16, kernel 1, "
         f"device prefetch): {t['faces_per_sec']:.1f} ({t['ms_per_step']:.2f}"
-        f" ms/step, CUDA events over 20 steps after 5; first step "
+        f" ms/step, CUDA events over 10 steps after 3; first step "
         f"{t['first_step_s']:.1f} s); peak memory {t['peak_memory_gb']:.2f} "
         f"GB; profiled {t['profiled_wall_ms_per_step']:.2f} ms/step wall, "
         f"{t['device_ms_per_step']:.2f} device, idle "
@@ -1501,17 +1536,36 @@ def _torchrun(started: tuple, timeout: int) -> subprocess.CompletedProcess:
 
 def _start_data_parallel_runs(work: str) -> tuple:
     """Phase 13's untimed runs, started in phase 12 beside its preemption
-    flow: config 5's cli.train under torchrun (one NCCL rank, 20 steps)
-    and two ``_dp_rank`` processes on cuda:0 over gloo."""
+    flow: config 5's cli.train under torchrun (one NCCL rank, PRESET_STEPS)
+    and two ``_dp_rank`` processes on cuda:0 over gloo; and (a)'s timed
+    bench_train under torchrun, which starts up beside them and then
+    waits (``--start_after``) until phase 13 lets it time."""
+    import atexit
     import multiprocessing as mp
     import socket
 
     from tf_face_toolbox_tpu_torch import bench_train as bt
 
+    go = os.path.join(work, "bench13.go")
+    for path in (go, go + ".ready"):
+        if os.path.exists(path):
+            os.remove(path)
+    bench = _start_torchrun(
+        ["tf_face_toolbox_tpu_torch.bench_train", "--preset",
+         "v5e8_data_parallel", "--steps", "10", "--warmup", "3",
+         "--start_after", go])
+
+    def stop_bench() -> None:
+        # SIGTERM: torchrun passes it on to its worker
+        if bench[1][0].poll() is None:
+            bench[1][0].terminate()
+
+    atexit.register(stop_bench)
     dp_cli = _start_torchrun(
         ["tf_face_toolbox_tpu_torch.cli.train", "--preset",
          "v5e8_data_parallel", "--multihost", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "10"])
+         "synthetic", "--num_steps", str(PRESET_STEPS), "--log_every",
+         str(PRESET_STEPS // 2)])
     cfg_kw = dict(bt.CONFIG4, global_batch=64)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1523,11 +1577,13 @@ def _start_data_parallel_runs(work: str) -> tuple:
              for r in range(2)]
     for p in procs:
         p.start()
-    return dp_cli, procs, paths, cfg_kw
+    return dp_cli, procs, paths, cfg_kw, (bench, go)
 
 
 def _finish_data_parallel_runs(started: tuple) -> dict:
-    dp_cli, procs, paths, cfg_kw = started
+    """The untimed runs at their end, and the timed bench up and waiting
+    (it touches the card no more until phase 13 lets it go)."""
+    dp_cli, procs, paths, cfg_kw, (bench, go) = started
     try:
         for p in procs:
             p.join(timeout=600)
@@ -1538,8 +1594,16 @@ def _finish_data_parallel_runs(started: tuple) -> dict:
                 p.join(timeout=30)
     expect([p.exitcode for p in procs] == [0, 0],
            f"gloo ranks exited {[p.exitcode for p in procs]}")
+    deadline = time.time() + 300
+    while (not os.path.exists(go + ".ready") and bench[1][0].poll() is None
+           and time.time() < deadline):
+        time.sleep(0.1)
+    if not os.path.exists(go + ".ready"):
+        _torchrun(bench, timeout=1)     # fails with its output
+        expect(False, "bench_train --start_after never came up")
     return {"ranks": [torch.load(path, weights_only=True) for path in paths],
-            "cfg_kw": cfg_kw, "cli": _torchrun(dp_cli, timeout=600)}
+            "cfg_kw": cfg_kw, "cli": _torchrun(dp_cli, timeout=600),
+            "bench": (bench, go)}
 
 
 def phase_data_parallel(work: str, single_faces_per_sec: float,
@@ -1556,12 +1620,13 @@ def phase_data_parallel(work: str, single_faces_per_sec: float,
     t0 = time.time()
     say(f"[13 data parallel] {bench.gpu_info()}")
     # (a) config 5 on the production path: torchrun, NCCL, one replica;
-    # bench_train timed alone (cli.train ran beside (b) in phase 12)
+    # bench_train timed alone (it started up in phase 12 and has waited
+    # since; cli.train ran beside (b) there)
     t1 = time.time()
-    proc = _torchrun(_start_torchrun(
-        ["tf_face_toolbox_tpu_torch.bench_train", "--preset",
-         "v5e8_data_parallel", "--steps", "10", "--warmup", "3"]),
-                     timeout=600)
+    timed, go = runs["bench"]
+    with open(go, "w"):
+        pass
+    proc = _torchrun(timed, timeout=600)
     timing = json.loads(proc.stdout.strip().splitlines()[-1])
     kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
         timing["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
@@ -1638,7 +1703,7 @@ def phase_data_parallel(work: str, single_faces_per_sec: float,
 
     proc = runs["cli"]
     out = proc.stdout.strip().splitlines()
-    expect(out and out[-1].startswith("done: step=20"),
+    expect(out and out[-1].startswith(f"done: step={PRESET_STEPS}"),
            f"torchrun cli.train printed {out[-3:]}")
     launches = next(int(line.split("preprocess=")[1]) for line in out
                     if line.startswith("kernel launches:"))
@@ -1649,8 +1714,9 @@ def phase_data_parallel(work: str, single_faces_per_sec: float,
         f"--pallas_input (NCCL, 1 rank of 256; the preset's 8 x 256 cut to "
         f"the card's 1), beside (b) in phase 12: {out[-1]}, losses "
         f"{[round(v, 4) for v in losses]}, kernel 1 launches {launches} in "
-        f"20 steps")
-    expect(launches == 20, f"kernel 1 launched {launches} times in 20 steps")
+        f"{PRESET_STEPS} steps")
+    expect(launches == PRESET_STEPS,
+           f"kernel 1 launched {launches} times in {PRESET_STEPS} steps")
     expect(len(losses) == 2 and all(np.isfinite(losses)),
            f"config-5 losses {losses}")
     # (c) remat at a replica's batch (config 4/5: 256)
@@ -1801,8 +1867,8 @@ def _state_at(cfg, saved: list, k: int):
 
 def _time_preset(preset: str, **overrides) -> dict:
     """What ``bench_train --preset <preset>`` measures (``time_training``
-    of the preset at 256 rows, kernel 1 on), in this process, as phase
-    11's config 4 rate is: 10 steps after 3, 2 of them profiled, the
+    of the preset at 256 rows, kernel 1 on), in this process as phase
+    11's config 4 rate is, at 8 steps after 2, 1 of them profiled, the
     card to itself."""
     import dataclasses
 
@@ -1812,7 +1878,7 @@ def _time_preset(preset: str, **overrides) -> dict:
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(configs.get_config(preset), pallas_input=True,
                               global_batch=256, **overrides)
-    r = bt.time_training(cfg, steps=10, warmup=3, profile_steps=2)
+    r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1)
     torch.cuda.empty_cache()
     r["gpu"] = bench.gpu_info()
     return r
@@ -1835,6 +1901,7 @@ def _say_bench(label: str, r: dict, single_faces_per_sec: float) -> None:
 # steps of the gloo ranks of phases 13(b), 14(b) and 15(c) (3 until the
 # smoke outgrew its time)
 GRID_STEPS = 2
+PRESET_STEPS = 10           # phases 13-15's untimed cli.train runs
 
 
 def _start_grid(work: str, tag: str, heads: list, steps: int) -> tuple:
@@ -1973,8 +2040,9 @@ def _grid_against_reference(ranks: list, paths: list, name: str, cfg,
 
 def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
     """Phase 14: the class-sharded Partial-FC head (BASELINE config 7).
-    Phase 15's untimed runs (its gloo ranks and its cli.train) go beside
-    (b) and end with it: ``out["loss_heads_runs"]``."""
+    Phase 15's untimed runs (its cli.train, and its two heads on (b)'s
+    four gloo ranks) go beside (b) and end with it:
+    ``out["loss_heads_runs"]``."""
     from tf_face_toolbox_tpu_torch import bench
 
     t0 = time.time()
@@ -1995,24 +2063,31 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
     t1 = time.time()
     pfc_cli = start_train_cli(
         ["--preset", "large_id_pfc_v5e8", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "10"])
+         "synthetic", "--num_steps", str(PRESET_STEPS), "--log_every",
+         str(PRESET_STEPS // 2)])
 
     # (b) four ranks on cuda:0 over gloo, data 2 x model 2, beside (a)'s
-    # cli.train and phase 15's four ranks and cli.train
+    # cli.train and phase 15's cli.train; the same four ranks then run
+    # phase 15's two heads (one set of processes: each rank's start-up
+    # costs more host time than its steps)
     heads = [("exact", _pfc_config(1.0)), ("sampled", _pfc_config(0.1))]
-    grid = _start_grid(work, "pfc", heads, GRID_STEPS)
-    loss_heads = _start_loss_heads_runs(work)
-    ranks, paths = _finish_grid(grid)
+    ada_cli = _start_loss_heads_cli()
+    grid = _start_grid(work, "grid", heads + _loss_heads_grid(), GRID_STEPS)
+    try:
+        ranks, paths = _finish_grid(grid)
+    except BaseException:
+        kill_train_clis([pfc_cli, ada_cli])
+        raise
     step, logged, cli_launches = finish_train_cli(pfc_cli, timeout=600)
     losses = logged["loss"]
     say(f"  (a) cli.train --preset large_id_pfc_v5e8 --pallas_input (1 rank "
         f"of 256, the preset's 2 x 4 mesh cut to the card's 1; 93,431 "
         f"classes, sampled at 0.1, budget 9,344), beside (b): done "
         f"step={step}, losses {[round(v, 4) for v in losses]}, kernel 1 "
-        f"launches {cli_launches} in 20 steps")
-    expect(step == 20, f"config 7 stopped at step {step}")
-    expect(cli_launches == 20,
-           f"kernel 1 launched {cli_launches} times in 20 steps")
+        f"launches {cli_launches} in {PRESET_STEPS} steps")
+    expect(step == PRESET_STEPS, f"config 7 stopped at step {step}")
+    expect(cli_launches == PRESET_STEPS,
+           f"kernel 1 launched {cli_launches} times in {PRESET_STEPS} steps")
     expect(len(losses) == 2 and all(np.isfinite(losses)),
            f"config-7 losses {losses}")
     out = {}
@@ -2034,8 +2109,9 @@ def phase_partial_fc(work: str, single_faces_per_sec: float) -> dict:
             f"steps; kernel 1 launches {r['launches']}; rank 0's steps (host "
             f"clock, the gloo exchanges through the host included) "
             f"{[round(v, 3) for v in r['seconds']]} s")
-    out["loss_heads_runs"] = _finish_loss_heads_runs(loss_heads)
-    say(f"  (b) {time.time() - t1:.1f} s (with phase 15's ranks and "
+    out["loss_heads_runs"] = {"cli": finish_train_cli(ada_cli, timeout=600),
+                              "ranks": ranks, "paths": paths}
+    say(f"  (b) {time.time() - t1:.1f} s (with phase 15's heads and "
         f"cli.train); phase 14: {time.time() - t0:.1f} s")
     out.update(cli_launches=cli_launches, timing=timing,
                seconds=time.time() - t0)
@@ -2049,21 +2125,13 @@ def _loss_heads_grid() -> list:
                                          margin_m2=0.5, margin_m3=0.0))]
 
 
-def _start_loss_heads_runs(work: str) -> tuple:
-    """Phase 15's untimed runs, started in phase 14(b): preset 8's
-    cli.train (20 steps) and the four gloo ranks of (c)."""
-    ada_cli = start_train_cli(
+def _start_loss_heads_cli() -> tuple:
+    """Phase 15's untimed cli.train (preset 8, PRESET_STEPS), started in
+    phase 14(b); its gloo heads run on phase 14's four ranks."""
+    return start_train_cli(
         ["--preset", "adaface_noisy_data", "--pallas_input", "--data",
-         "synthetic", "--num_steps", "20", "--log_every", "5"])
-    return ada_cli, _start_grid(work, "heads", _loss_heads_grid(),
-                                GRID_STEPS)
-
-
-def _finish_loss_heads_runs(started: tuple) -> dict:
-    ada_cli, grid = started
-    ranks, paths = _finish_grid(grid)
-    return {"cli": finish_train_cli(ada_cli, timeout=600), "ranks": ranks,
-            "paths": paths}
+         "synthetic", "--num_steps", str(PRESET_STEPS), "--log_every",
+         str(PRESET_STEPS // 2)])
 
 
 def _heads_config(**overrides):
@@ -2150,13 +2218,13 @@ def phase_loss_heads(g, work: str, single_faces_per_sec: float,
         f"erase 0.25, cosine LR; synthetic faces), in phase 14(b): done "
         f"step={step}, losses {[round(v, 4) for v in losses]}, "
         f"adaface_norm_mean {[round(v, 4) for v in means]}, kernel 1 "
-        f"launches {cli_launches} in 20 steps")
-    expect(step == 20, f"preset 8 stopped at step {step}")
-    expect(cli_launches == 20,
-           f"kernel 1 launched {cli_launches} times in 20 steps")
-    expect(len(losses) == 4 and all(np.isfinite(losses)),
+        f"launches {cli_launches} in {PRESET_STEPS} steps")
+    expect(step == PRESET_STEPS, f"preset 8 stopped at step {step}")
+    expect(cli_launches == PRESET_STEPS,
+           f"kernel 1 launched {cli_launches} times in {PRESET_STEPS} steps")
+    expect(len(losses) == 2 and all(np.isfinite(losses)),
            f"preset-8 losses {losses}")
-    expect(len(means) == 4 and all(np.isfinite(means)) and means[-1] != 20.0,
+    expect(len(means) == 2 and all(np.isfinite(means)) and means[-1] != 20.0,
            f"AdaFace's EMA mean {means} did not move from 20")
     grid = {}
     for head, cfg in heads:
@@ -2252,7 +2320,10 @@ def phase_backbones(g, u8: torch.Tensor, work: str,
         expect(host_cos >= 0.99999 and host_centered >= 0.99,
                f"{label}: f32 module on the card vs on the host: cosine "
                f"{host_cos}, batch-centered {host_centered}")
-        forward = bench.build_forward(impl=impl, network=network, stem=stem)
+        # one build: the e2e forward and its plain one share the weights
+        e2e = bench.build_forward(impl=impl, e2e=True, network=network,
+                                  stem=stem)
+        forward = e2e.plain
         fp.fused_preprocess.launches = 0
         fb.fused_bottleneck_block.launches = 0
         emb = forward(pixels)
@@ -2275,8 +2346,6 @@ def phase_backbones(g, u8: torch.Tensor, work: str,
         ms = bench.time_ms(forward, pixels, iters=5, warmup=2)
         peak = torch.cuda.max_memory_allocated()
         prof = bt.device_profile(forward, pixels, iters=3)
-        e2e = bench.build_forward(impl=impl, e2e=True, network=network,
-                                  stem=stem)
         fp.fused_preprocess.launches = 0
         emb_e2e = e2e(faces)
         torch.cuda.synchronize()
@@ -2952,6 +3021,7 @@ def phase_templates(g, work: str) -> dict:
 
 # the optimizers' learning rates at config 4 (SGD keeps the preset's 0.1)
 _OPT_LR = {"adam": 1e-3, "adamw": 1e-3, "lars": 0.1}
+OPT_STEPS = 6               # phase 19's cli.train steps
 # phase 19(c)'s bound on the largest per-leaf |card - host| / |update|
 # after 2 f32 steps (the noise-only leaf apart). The card's and the
 # host's convolutions round differently; Adam's update is near the sign
@@ -2980,14 +3050,14 @@ def phase_optimizers(g, work: str, teacher_dir: str,
                      single_faces_per_sec: float) -> dict:
     """Phase 19: Adam, AdamW, LARS and distillation at config 4 (r50 face
     stem, bf16, batch 256, CosFace over 10,572 classes, --pallas_input):
-    cli.train 10 steps under each optimizer (kernel 1 once a step),
+    cli.train OPT_STEPS steps under each optimizer (kernel 1 once a step),
     faces/s, device ms and peak memory under each (time_training, 8
-    steps after 2); 2 f32 steps at batch 32 from one state and one set
+    steps after 2; SGD's is phase 11's); 2 f32 steps at batch 32 from one state and one set
     of batches on the card and on the host (TF32 off) per optimizer, the
     host's in a thread beside the cli.train runs; an
     exact resume under Adam; distillation of a fresh resnet_v1_50 from
-    ``teacher_dir`` at alpha 1 and 0.5 (cli.train, 10 steps), its
-    distill_loss and its faces/s."""
+    ``teacher_dir`` at alpha 1 and 0.5 (cli.train, OPT_STEPS steps), its
+    distill_loss, and its faces/s at 0.5 (both losses a step)."""
     import dataclasses
     import shutil
 
@@ -3005,7 +3075,8 @@ def phase_optimizers(g, work: str, teacher_dir: str,
     say(f"[19 optimizers, distillation] {gpu}")
     args4 = ["--network", "resnet_v1_50", "--stem", "face", "--num_classes",
              "10572", "--global_batch", "256", "--bf16", "--pallas_input",
-             "--data", "synthetic", "--num_steps", "10", "--log_every", "2"]
+             "--data", "synthetic", "--num_steps", str(OPT_STEPS),
+             "--log_every", "2"]
     # (c)'s host half runs in a thread beside (a)'s subprocesses (the
     # host's f32 steps take ~10 s each; (a) times nothing)
     rng = np.random.default_rng(19)
@@ -3038,7 +3109,8 @@ def phase_optimizers(g, work: str, teacher_dir: str,
     t1 = time.time()
     host_thread = threading.Thread(target=host_steps)
     host_thread.start()
-    cli = {}
+    cli, distilling = {}, []
+    alphas = (1.0, 0.5)
     try:
         # the three runs side by side: (a) times nothing
         runs = train_clis([[*args4, "--optimizer", name, "--base_lr",
@@ -3049,19 +3121,20 @@ def phase_optimizers(g, work: str, teacher_dir: str,
             cli[name] = launches
             say(f"  (a) cli.train --optimizer {name} --base_lr {lr}: step "
                 f"{step}, losses {[round(v, 4) for v in logged['loss']]}, "
-                f"kernel 1 launches {launches} in 10 steps")
-            expect(step == 10 and launches == 10,
+                f"kernel 1 launches {launches} in {OPT_STEPS} steps")
+            expect(step == OPT_STEPS and launches == OPT_STEPS,
                    f"{name}: step {step}, {launches} kernel 1 launches")
             expect(all(np.isfinite(logged["loss"])), f"{name} losses")
         say(f"  (a) the three runs side by side: {time.time() - t1:.1f} s")
+        # (e)'s distillation runs (untimed) beside the rest of (c)'s host
+        # steps, (c) and (d)
+        t_e = time.time()
+        distilling = [start_train_cli(
+            [*args4, "--distill_from", teacher_dir, "--distill_network",
+             "resnet_v1_50", "--distill_alpha", str(alpha)])
+            for alpha in alphas]
     finally:
         host_thread.join()
-    # (e)'s distillation runs (untimed) beside (c) and (d)
-    t_e = time.time()
-    alphas = (1.0, 0.5)
-    distilling = [start_train_cli(
-        [*args4, "--distill_from", teacher_dir, "--distill_network",
-         "resnet_v1_50", "--distill_alpha", str(alpha)]) for alpha in alphas]
     try:
         expect(host_runs.keys() == _OPT_LR.keys(), "the host's parity steps")
         # 2 f32 steps at batch 32, the card's from the host's initial state
@@ -3147,17 +3220,16 @@ def phase_optimizers(g, work: str, teacher_dir: str,
     runs = [finish_train_cli(s, 600) for s in distilling]
     say(f"  (e) cli.train --distill_from, both alphas side by side (with "
         f"(c) and (d)): {time.time() - t_e:.1f} s")
+    # SGD's rate is phase 11's (config 4, the same step)
     rates = {}
-    for name in ("sgd", *_OPT_LR):
+    for name in _OPT_LR:
         cfg = dataclasses.replace(cfg4, optimizer=name,
-                                  base_lr=_OPT_LR.get(name, cfg4.base_lr))
+                                  base_lr=_OPT_LR[name])
         r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1)
         rates[name] = r
         say(f"  (b) time_training {name}: {r['faces_per_sec']:.1f} faces/s "
             f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x phase 11's "
-            f"{single_faces_per_sec:.1f}; "
-            f"{r['faces_per_sec'] / rates['sgd']['faces_per_sec']:.4f} "
-            f"x SGD here), {r['ms_per_step']:.2f} ms/step, "
+            f"SGD {single_faces_per_sec:.1f}), {r['ms_per_step']:.2f} ms/step, "
             f"{r['device_ms_per_step']:.2f} device ms, idle "
             f"{r['idle_share']:.1%}, peak {r['peak_memory_gb']:.2f} GB")
         expect(np.isfinite(r["loss"]), f"{name} time_training loss")
@@ -3165,28 +3237,33 @@ def phase_optimizers(g, work: str, teacher_dir: str,
     for alpha, (step, logged, launches) in zip(alphas, runs):
         t1 = time.time()
         dl = logged.get("distill_loss", [])
-        expect(step == 10 and launches == 10,
+        expect(step == OPT_STEPS and launches == OPT_STEPS,
                f"distill alpha {alpha}: step {step}, {launches} launches")
-        expect(len(dl) == 5 and (alpha < 1 or dl[-1] < dl[0]),
+        expect(len(dl) == OPT_STEPS // 2 and (alpha < 1 or dl[-1] < dl[0]),
                f"distill alpha {alpha}: distill_loss {dl} not falling")
         expect((alpha < 1) == ("margin_loss" in logged),
                f"alpha {alpha}: margin_loss logged {'margin_loss' in logged}")
-        cfg = dataclasses.replace(cfg4, distill_alpha=alpha)
-        teacher = build_teacher(cfg, teacher_dir)
-        r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1,
-                             teacher=teacher)
-        del teacher
-        torch.cuda.empty_cache()
-        distill[alpha] = {"launches": launches, "faces_per_sec":
-                          r["faces_per_sec"], "distill_loss": dl}
+        distill[alpha] = {"launches": launches, "distill_loss": dl}
+        timed = ""
+        if alpha < 1:
+            # timed at 0.5 only: its step computes the distill and the
+            # margin loss, a superset of alpha 1's
+            cfg = dataclasses.replace(cfg4, distill_alpha=alpha)
+            teacher = build_teacher(cfg, teacher_dir)
+            r = bt.time_training(cfg, steps=8, warmup=2, profile_steps=1,
+                                 teacher=teacher)
+            del teacher
+            torch.cuda.empty_cache()
+            distill[alpha]["faces_per_sec"] = r["faces_per_sec"]
+            timed = (f"; time_training {r['faces_per_sec']:.1f} faces/s "
+                     f"({r['faces_per_sec'] / single_faces_per_sec:.4f} x "
+                     f"phase 11's config 4), {r['device_ms_per_step']:.2f} "
+                     f"device ms, peak {r['peak_memory_gb']:.2f} GB; "
+                     f"time_training {time.time() - t1:.1f} s")
         say(f"  (e) distill alpha {alpha} from {os.path.relpath(teacher_dir, ROOT)}: "
-            f"cli.train 10 steps, distill_loss {[round(v, 4) for v in dl]}, "
-            f"kernel 1 launches {launches}; time_training "
-            f"{r['faces_per_sec']:.1f} faces/s "
-            f"({r['faces_per_sec'] / rates['sgd']['faces_per_sec']:.4f} x "
-            f"config 4 here), {r['device_ms_per_step']:.2f} device ms, peak "
-            f"{r['peak_memory_gb']:.2f} GB; time_training "
-            f"{time.time() - t1:.1f} s")
+            f"cli.train {OPT_STEPS} steps, distill_loss "
+            f"{[round(v, 4) for v in dl]}, "
+            f"kernel 1 launches {launches}{timed}")
     total = time.time() - t0
     say(f"  phase 19: {total:.1f} s; {gpu}")
     return {"cli_launches": cli, "rates": {k: v["faces_per_sec"]
@@ -3965,8 +4042,8 @@ def phase_daemon(g, work: str, data: dict, folded_faces_per_sec: float
             "snap": snaps["f32"]}
 
 
-SHARDED_ROWS = 10_000_000   # phase 22: one bf16 DeviceGallery at 8 GB refuses
-SHARD_HBM_GB = 8.0          # its bound, a shard's and the one store's
+SHARDED_ROWS = 4_000_000    # phase 22: one bf16 DeviceGallery at 3.2 GB refuses
+SHARD_HBM_GB = 3.2          # its bound, a shard's and the one store's
 SHARDS = 4                  # phase 22's shards, all on cuda:0
 ZOO_EXTRACT = ("iresnet_100", "mobilefacenet")
 ZOO_TRAIN = ("iresnet_50", "mobilefacenet")
@@ -4009,12 +4086,12 @@ def _check_sharded(tag: str, got, want, plain, probe_labels, groups,
 
 def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
                           zoo: dict) -> dict:
-    """Phase 22: DistributedGallery over [cuda:0] * 4 at 10^7 rows (bf16 and
+    """Phase 22: DistributedGallery over [cuda:0] * 4 at 4 x 10^6 rows (bf16 and
     int8), kernels 3 and 4 on each shard, against one unbounded
     DeviceGallery and the plain programs; a tombstone, a compaction
-    crossing and the snapshot; the sharded CLIs and daemon. Phase 23's CLI
-    runs (``zoo``, untimed) run beside its host work and end before its
-    timings."""
+    crossing and the snapshot; the sharded CLIs and daemon. Phase 23's,
+    24's and 25's CLI runs (``zoo``, untimed) run beside its host work
+    and end before its timings, phase 25's daemons serving by then."""
     import shutil
 
     from tf_face_toolbox_tpu_torch import bench
@@ -4041,7 +4118,7 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
     served = _Daemon(["--bundle", data20["bundle"], "--gallery", snap21,
                       "--gallery_shards", "-1"])
 
-    # (a) 10^7 seeded unit rows made on the card, f32 on the host, labels
+    # (a) 4 x 10^6 seeded unit rows made on the card, f32 on the host, labels
     # their indices: 8 groups of 4 equal rows in the first fifth (rows b,
     # b+1, b+2, b+5: shards 1, 2, 3, 2), the probes' rows after them, and
     # one label (-1) on the last four fifths (its removal crosses
@@ -4068,8 +4145,8 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
     # the CLIs' inputs: the first 10^6 rows, 1,024 probes near them
     gal_npy, probe_npy = (os.path.join(d22, f) for f in ("gal.npy",
                                                         "probe.npy"))
-    np.save(gal_npy, rows[:n // 10])
-    near = rows[rng.choice(n // 10, 1024, replace=False)] + \
+    np.save(gal_npy, rows[:GALLERY_ROWS])
+    near = rows[rng.choice(GALLERY_ROWS, 1024, replace=False)] + \
         0.05 * rng.standard_normal((1024, d)).astype(np.float32)
     np.save(probe_npy, near / np.linalg.norm(near, axis=1, keepdims=True))
     # 256 probes a batch: each run's (B, 10^6) scores and top-k keys stay
@@ -4082,7 +4159,7 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
                 for flag in (0, 1)}
     secs["rows"] = time.time() - t0
 
-    # (b) the bf16 store over four shards at 8 GB a shard; one store at
+    # (b) the bf16 store over four shards at 3.2 GB a shard; one store at
     # that bound refuses the same rows; the one unbounded store over them
     t = time.time()
     bf = DistributedGallery(d, devices=shards, dtype="bfloat16",
@@ -4164,7 +4241,7 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
     expect(cli_err <= TOPK_TOL
            and (m0["indices"] == m1["indices"])[~cli_near].all(),
            f"cli.search --data_parallel differs: max |score| {cli_err}")
-    say(f"  (c) cli.search --data_parallel over {n // 10:,} rows and 1,024 "
+    say(f"  (c) cli.search --data_parallel over {GALLERY_ROWS:,} rows and 1,024 "
         f"probes equals cli.search without it: the summary line, indices "
         f"away from near-ties ({int(cli_near.sum())}), scores within "
         f"{TOPK_TOL} (cuBLAS products of another shape: max |diff| "
@@ -4192,7 +4269,22 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
         f"faces equals phase 21's answers (max |score diff| {err21:.3g}); "
         f"drained with topk={len(bodies)}")
 
-    # phase 23's CLI runs end here: the card is this phase's from now on
+    # (f) the int8 store over four shards (kernel 4 a shard, then the
+    # exact rescore) and the one unbounded int8 store, from the bf16
+    # store's host master (one after the other: two host copies side by
+    # side page slower than in turn); untimed, beside the CLI runs
+    t = time.time()
+    q8 = DistributedGallery(d, devices=shards, dtype="int8",
+                            hbm_limit_gb=SHARD_HBM_GB)
+    q8.enroll(bf._host[:n], bf._lab[:n])
+    ref8 = DeviceGallery(d, dtype="int8", hbm_limit_gb=0, device="cuda")
+    ref8.enroll(bf._host[:n], bf._lab[:n])
+    secs["int8 stores"] = time.time() - t
+    for b in (1, 64):
+        compare("int8", q8, ref8, b)
+
+    # phase 23's, 24's and 25's CLI runs end here, and phase 25's daemons
+    # are up and idle: the card is this phase's from now on
     t = time.time()
     zoo["done"] = {name: collect(p, 900) for name, p in
                    zoo["extract"].items()}
@@ -4204,6 +4296,11 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
         t = time.time()
         finish_dct_clis(zoo["dct"])
         secs["phase 24's CLIs (their wait)"] = zoo["dct"]["t_done"] - t
+    if "int8" in zoo:
+        t = time.time()
+        finish_int8_clis(zoo["int8"])
+        secs["phase 25's CLIs and daemons' boot (their wait)"] = (
+            zoo["int8"]["t_done"] - t)
 
     # (e) times with CUDA events: the sharded search (4 launches, the
     # merge, one read back) against the one store's
@@ -4218,25 +4315,9 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
                               iters=10, warmup=2))
 
     time_both("bf16", bf, ref)
-    del ref
-    torch.cuda.empty_cache()
-
-    # (f) the int8 store over four shards (kernel 4 a shard, then the
-    # exact rescore) and the one unbounded int8 store, from the bf16
-    # store's host master (one after the other: two 20 GB copies side by
-    # side page slower than in turn)
-    t = time.time()
-    q8 = DistributedGallery(d, devices=shards, dtype="int8",
-                            hbm_limit_gb=SHARD_HBM_GB)
-    q8.enroll(bf._host[:n], bf._lab[:n])
-    ref8 = DeviceGallery(d, dtype="int8", hbm_limit_gb=0, device="cuda")
-    ref8.enroll(bf._host[:n], bf._lab[:n])
-    secs["int8 stores"] = time.time() - t
-    del bf
-    torch.cuda.empty_cache()
-    for b in (1, 64):
-        compare("int8", q8, ref8, b)
     time_both("int8", q8, ref8)
+    del ref, bf
+    torch.cuda.empty_cache()
     say(f"  (e) bf16 and int8, B 1 and 64, k 5 (int8: coarse k 20, then "
         f"the rescore): each search launched kernel 3 or 4 once a shard; "
         f"labels and scores equal the one unbounded store's and the plain "
@@ -4804,9 +4885,11 @@ def phase_dct(g, dct: dict, r50_module: float, work: str) -> dict:
     u8 = bench.make_inputs(128, e2e=True)
     for name in DCT_EXTRACT:
         r = out["extract"][name]
+        # one build: the e2e forward and its plain one share the weights
+        e2e_fwd = bench.build_forward(impl="module", e2e=True, network=name,
+                                      stem="face")
         for e2e, x in ((False, pixels), (True, u8)):
-            forward = bench.build_forward(impl="module", e2e=e2e,
-                                          network=name, stem="face")
+            forward = e2e_fwd if e2e else e2e_fwd.plain
             fp.fused_preprocess.launches = 0
             forward(x)
             torch.cuda.synchronize()
@@ -4826,7 +4909,8 @@ def phase_dct(g, dct: dict, r50_module: float, work: str) -> dict:
                 r.update(device_ms=p["device_ms"], idle_share=p["idle_share"],
                          device_ms_by_kind=p["device_ms_by_kind"])
             del forward
-            torch.cuda.empty_cache()
+        del e2e_fwd
+        torch.cuda.empty_cache()
         kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
             r["device_ms_by_kind"].items(), key=lambda kv: -kv[1])[:3])
         say(f"  (b) {name}: cli.extract --engine auto, {ZOO_FACES} faces: "
@@ -4923,6 +5007,376 @@ def phase_dct(g, dct: dict, r50_module: float, work: str) -> dict:
         f"collected {dct['t_done'] - dct['t0']:.1f} s after their start)")
     out["seconds"] = total
     return out
+
+
+INT8_FACES = 512            # phase 25's served faces: phase 12's eval shard
+QAT_STEPS = 5               # phase 25's cli.train --qat steps
+
+
+def start_int8_clis(work: str) -> dict:
+    """Phase 25's untimed runs, started beside phase 22's host work: (A)
+    cli.export --quant_mode static --calibrate_data of phase 12's
+    step-20 checkpoint (calibrated on its 512 eval faces), then
+    cli.extract --bundle over them; as soon as (A)'s bundle is written,
+    phase 25 (c)'s two daemons boot from it over phase 21's 10^6-row
+    snapshot (f32 and int8 galleries; up and idle by phase 23, which
+    times nothing beside them but their idle threads); (B) cli.train
+    --qat --pallas_input (resnet_v1_50 face stem, bf16, batch 64,
+    QAT_STEPS steps, a checkpoint at the last), then its static bundle
+    (phase 25 serves it in its own process). Each chain runs in a thread
+    (``_beside``);
+    the daemons are killed at exit if phase 25 never drains them."""
+    import atexit
+    import shutil
+
+    d = os.path.join(work, "int8_25")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    eval_shard = os.path.join(work, "ckpt_eval.faceshard")
+    net = ["--network", "resnet_v1_50", "--stem", "face", "--embedding_dim",
+           "512", "--image_size", "112"]
+
+    daemons: dict = {}
+
+    def boot_daemons(bundle: str) -> None:
+        snap = os.path.join(work, "daemon21", "gallery_1m.npz")  # phase 21's
+        for tag, dtype in (("f32", "float32"), ("int8", "int8")):
+            link = os.path.join(d, f"gallery_{tag}.npz")
+            os.link(snap, link)
+            daemons[tag] = _Daemon(["--bundle", bundle, "--gallery", link,
+                                    "--gallery_dtype", dtype])
+        daemons["t0"] = time.time()
+
+    def kill_daemons() -> None:
+        for dmn in daemons.values():
+            if isinstance(dmn, _Daemon) and dmn.proc.poll() is None:
+                dmn.proc.kill()
+
+    atexit.register(kill_daemons)
+
+    def export_extract(run: str, tag: str, extract: bool = True) -> dict:
+        t = time.time()
+        bundle = os.path.join(d, f"{tag}.int8.npz")
+        out = _cli_done(_cli("export", "--checkpoint_dir", run, *net,
+                             "--output", bundle, "--quant_mode", "static",
+                             "--calibrate_data", eval_shard,
+                             "--calibrate_batches", "4", "--device", "cuda"))
+        export_s = time.time() - t
+        if tag == "r50":
+            boot_daemons(bundle)
+        if not extract:
+            return {"bundle": bundle, "export": out[-1], "export_s": export_s,
+                    "s": time.time() - t}
+        emb = os.path.join(d, f"{tag}.npy")
+        _cli_done(_cli("extract", "--bundle", bundle, "--data", eval_shard,
+                       "--output", emb, "--batch", "128", "--loader",
+                       "python", "--device", "cuda"))
+        return {"bundle": bundle, "emb": np.load(emb), "export": out[-1],
+                "export_s": export_s, "s": time.time() - t}
+
+    def qat():
+        t = time.time()
+        run = os.path.join(d, "qat_run")
+        step, logged, launches = train_cli(
+            ["--network", "resnet_v1_50", "--stem", "face", "--qat",
+             "--pallas_input", "--global_batch", "64", "--num_classes",
+             "10572", "--num_steps", str(QAT_STEPS), "--log_every", "1",
+             "--data", "synthetic", "--train_dir", run, "--save_every",
+             str(QAT_STEPS)], 900)
+        train_s = time.time() - t
+        return {"step": step, "losses": logged["loss"], "launches": launches,
+                "train_s": train_s, **export_extract(run, "qat", False)}
+
+    return {"dir": d, "eval_shard": eval_shard, "t0": time.time(),
+            "daemons": daemons,
+            "r50": _beside(lambda: export_extract(
+                os.path.join(work, "ckpt_run"), "r50")),
+            "qat": _beside(qat)}
+
+
+def finish_int8_clis(int8: dict) -> None:
+    """Join phase 25's chains and wait for its two daemons' ``serving
+    on``: nothing of phase 25 runs on the card after this."""
+    int8["r50"] = int8["r50"]()
+    int8["qat"] = int8["qat"]()
+    for tag in ("f32", "int8"):
+        int8["daemons"][tag].wait_serving()
+    int8["t_done"] = time.time()
+
+
+def phase_int8(g, int8: dict, work: str, daemon21: dict,
+               folded_e2e_faces_per_sec: float) -> dict:
+    """Phase 25: int8 serving at full width (resnet_v1_50, face stem,
+    512-d, bf16). (a) ``int8_conv2d_nhwc`` at each of its conv shapes at
+    256 images on the card's int8 tensor cores (``torch._int_mm``), bit
+    for bit against the float64 plain version, timed beside the bf16
+    cuDNN conv of the shape and its bound; (b) the static bundle of phase
+    12's checkpoint (cli.export --calibrate_data, beside phase 22)
+    served by cli.extract --bundle, held against the f32 module path and
+    against the same int8 module with its convs on the plain route;
+    faces/s at batch 128 e2e (kernel 1) of dynamic and static int8
+    beside the fp module path and phase 16's folded rate of the same
+    net, batch and input; (c) cli.serve
+    --bundle over the int8 bundle with the 10^6-row gallery, /identify
+    through kernels 3 and 4 against the plain programs; cli.train --qat
+    (beside phase 22) and its static bundle served."""
+    import shutil
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch import bench_train as bt
+    from tf_face_toolbox_tpu_torch.bench_int8 import NETS, face_conv_shapes
+    from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+    from tf_face_toolbox_tpu_torch.extract import extract_shard
+    from tf_face_toolbox_tpu_torch.interop.port import flatten_variables
+    from tf_face_toolbox_tpu_torch.models import layers
+    from tf_face_toolbox_tpu_torch.ops import fused_preprocess as fp
+    from tf_face_toolbox_tpu_torch.pretrained import load_variables
+    from tf_face_toolbox_tpu_torch.serving.bundle import (
+        network_from_meta, read_bundle)
+    from tf_face_toolbox_tpu_torch.serving.gallery import DeviceGallery
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[25 int8] {gpu}")
+
+    # ---- (a) the conv on the card, alone: resnet_v1_50's convs, then
+    # resnext_50's grouped 3x3s (one _int_mm over a block-diagonal kernel)
+    convs = []
+    grouped = [sh for sh in face_conv_shapes(*NETS["resnext_50"])
+               if sh[5] > 1]
+    for net, shapes in (("resnet_v1_50", face_conv_shapes()),
+                        ("resnext_50", grouped)):
+        for h, c, k, s, o, gr, n in shapes:
+            xq = torch.randint(-127, 128, (256, h, h, c), generator=g,
+                               device="cuda", dtype=torch.int8)
+            kq = torch.randint(-127, 128, (o, c // gr, k, k), generator=g,
+                               device="cuda", dtype=torch.int8)
+            before = layers.int8_conv2d_nhwc.launches
+            got = layers.int8_conv2d_nhwc(xq, kq, s, gr)
+            routed = layers.int8_conv2d_nhwc.launches - before
+            equal = torch.equal(got, layers.int8_conv2d_plain(xq, kq, s, gr))
+            del got
+            ms = bench.time_ms(lambda: layers.int8_conv2d_nhwc(xq, kq, s, gr))
+            xb, kb = xq.to(torch.bfloat16), kq.to(torch.bfloat16)
+            bf16_ms = bench.time_ms(
+                lambda: layers.conv2d_same_nhwc(xb, kb, s, groups=gr))
+            ho = -(-h // s)
+            m = 256 * ho * ho
+            b_ms, b_by = bound(xq.numel() + kq.numel() + 4 * m * o,
+                               2 * m * (c // gr) * k * k * o, "int8")
+            shape = (f"{h}x{h}x{c} {k}x{k}/{s} -> {o}"
+                     + (f" in {gr} groups" if gr > 1 else ""))
+            convs.append({"net": net, "shape": shape, "count": n,
+                          "equal": equal, "routed": routed, "ms": ms,
+                          "bf16_cudnn_ms": bf16_ms, "bound_ms": b_ms,
+                          "bound_by": b_by})
+            say(f"  (a) {net} int8 conv {shape} (x{n}) at 256 images: "
+                f"_int_mm {ms:.3f} ms, bf16 cuDNN {bf16_ms:.3f} ms "
+                f"({bf16_ms / ms:.2f} x), bound {b_ms:.3f} ms ({b_by}, "
+                f"{b_ms / ms:.1%} of it); bit-equal to float64: {equal}")
+            expect(equal, f"int8 conv {shape} differs from its float64 "
+                          "plain version")
+            expect(routed == 1, f"int8 conv {shape}: {routed} wrapper "
+                                "calls, want 1")
+            del xq, kq, xb, kb
+            torch.cuda.empty_cache()
+    net_ms = {}
+    for net in ("resnet_v1_50", "resnext_50"):
+        mine = [cv for cv in convs if cv["net"] == net]
+        net_ms[net] = {key: sum(cv[key] * cv["count"] for cv in mine)
+                       for key in ("ms", "bf16_cudnn_ms", "bound_ms")}
+        say(f"  (a) {net}'s {sum(cv['count'] for cv in mine)} "
+            f"{'int8' if net == 'resnet_v1_50' else 'grouped int8'} convs "
+            f"at 256 images: _int_mm {net_ms[net]['ms']:.2f} ms, bf16 "
+            f"cuDNN {net_ms[net]['bf16_cudnn_ms']:.2f} ms, bound "
+            f"{net_ms[net]['bound_ms']:.2f} ms")
+    say(f"  (a) {time.time() - t0:.1f} s")
+
+    # ---- (b) faces/s, alone: batch 128 e2e (kernel 1), seeded weights
+    u8 = bench.make_inputs(128, True)
+    rates, launches, embs, profiles = {}, {}, {}, {}
+    for label, q in (("dynamic int8", "dynamic"), ("static int8", "static"),
+                     ("fp module", False)):
+        fwd = bench.build_forward(impl="module", e2e=True,
+                                  network="resnet_v1_50", stem="face",
+                                  quantized=q)
+        fp.fused_preprocess.launches = 0
+        before = layers.int8_conv2d_nhwc.launches
+        embs[label] = fwd(u8)
+        torch.cuda.synchronize()
+        launches[label] = {"preprocess": fp.fused_preprocess.launches,
+                           "int8_conv": layers.int8_conv2d_nhwc.launches
+                           - before}
+        ms = sorted(bench.time_ms(fwd, u8, iters=5, warmup=2)
+                    for _ in range(3))[1]
+        rates[label] = 128 * 1000.0 / ms
+        if label in ("static int8", "fp module"):
+            # where the module path's time goes (the int8 GEMMs count
+            # under bench_train's "head (GEMMs, ...)" kind)
+            prof = bt.device_profile(fwd, u8, iters=3)
+            kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                prof["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+            top = "; ".join(f"{name[:48]} {t:.2f}"
+                            for t, name in prof["kernels_ms"][:6])
+            profiles[label] = prof
+            say(f"  (b) {label}: device {prof['device_ms']:.2f} of "
+                f"{prof['wall_ms']:.2f} ms wall a batch (idle "
+                f"{prof['idle_share']:.1%}): {kinds} ms; top kernels {top}")
+        del fwd
+        torch.cuda.empty_cache()
+    for label, r in rates.items():
+        cos = per_image_cos(embs[label], embs["fp module"]).min().item()
+        say(f"  (b) {label:12s} e2e batch 128: {r:.1f} faces/s "
+            f"({r / rates['fp module']:.3f} x the fp module path, "
+            f"{r / folded_e2e_faces_per_sec:.3f} x phase 16's folded "
+            f"{folded_e2e_faces_per_sec:.1f}); launches {launches[label]}; "
+            f"cos vs fp module (seeded weights) min {cos:.4f}")
+    for label in ("dynamic int8", "static int8"):
+        expect(launches[label] == {"preprocess": 1, "int8_conv": 52},
+               f"{label} launches {launches[label]}, want kernel 1 once "
+               "and 52 _int_mm convs (one forward of 256 images)")
+        expect(bool(torch.isfinite(embs[label]).all()), f"{label} finite")
+    del embs
+    torch.cuda.empty_cache()
+
+    t_b = time.time()
+    # ---- (c)'s daemons booted beside phase 22 (``start_int8_clis``),
+    # up since phase 22 joined the chains
+    a, b = int8["r50"], int8["qat"]
+    d = int8["dir"]
+    snap = os.path.join(work, "daemon21", "gallery_1m.npz")   # phase 21's
+    daemons = {tag: int8["daemons"][tag] for tag in ("f32", "int8")}
+    try:
+        # (b) checks: the CLI's int8 faces against the f32 module path and
+        # against the int8 module with its convs on the plain route
+        run = os.path.join(work, "ckpt_run")
+        source = FaceShardSource(int8["eval_shard"])
+        net32, flat32 = load_variables(run, "resnet_v1_50", 512, 112,
+                                       torch.float32)
+        fp32 = extract_shard(net32, flat32, source, image_size=112,
+                             batch=128, loader="python", device="cuda")
+        variables, meta = read_bundle(a["bundle"])
+        flat = flatten_variables(variables)
+        qnet = network_from_meta(meta, dtype=torch.bfloat16)
+        route = layers.int8_conv2d_int_mm
+        layers.int8_conv2d_int_mm = layers.int8_conv2d_plain
+        try:
+            plain = extract_shard(qnet, flat, source, image_size=112,
+                                  batch=128, loader="python", device="cuda")
+        finally:
+            layers.int8_conv2d_int_mm = route
+        got = a["emb"]
+        c_fp = _face_cos(got, fp32)
+        c_plain = _face_cos(got, plain)
+        n_stats = sum(k.startswith("quant_stats/") for k in flat)
+        say(f"  (b) cli.export --quant_mode static --calibrate_data (phase "
+            f"12's step 20, {n_stats} frozen scales; {a['export_s']:.1f} s) "
+            f"then cli.extract --bundle of {got.shape[0]} faces (bf16, the "
+            f"module path): vs the f32 module path per-face cos min "
+            f"{c_fp[0]:.6f} (max |diff| {c_fp[1]:.3g}); vs the same int8 "
+            f"module on the float64 plain conv route min {c_plain[0]:.6f} "
+            f"(max |diff| {c_plain[1]:.3g}); chain {a['s']:.1f} s")
+        expect(meta["quant_mode"] == "static" and n_stats == 52 + 16,
+               f"bundle meta {meta['quant_mode']}, {n_stats} stats")
+        expect(got.shape == (INT8_FACES, 512) and np.isfinite(got).all(),
+               f"int8 extraction {got.shape}")
+        expect(c_fp[0] >= 0.98, f"int8 vs f32 module cosine {c_fp[0]}")
+        expect(c_plain[0] >= 0.9999,
+               f"int8 vs its plain conv route cosine {c_plain[0]}")
+        del net32, qnet, fp32, plain
+        torch.cuda.empty_cache()
+
+        # QAT: cli.train --qat, its static bundle (cli.export), served
+        # here through the bundle's module path, as cli.extract --bundle
+        # serves (b)'s
+        variables, meta = read_bundle(b["bundle"])
+        qat_net = network_from_meta(meta, dtype=torch.bfloat16)
+        qat_emb = extract_shard(qat_net, flatten_variables(variables),
+                                source, image_size=112, batch=128,
+                                loader="python", device="cuda")
+        del qat_net, variables
+        expect(meta["quant_mode"] == "static",
+               f"the QAT bundle's mode {meta['quant_mode']}")
+        say(f"  (c) cli.train --qat --pallas_input (batch 64, "
+            f"{QAT_STEPS} steps): done step={b['step']}, losses "
+            f"{[round(x, 3) for x in b['losses']]}, kernel 1 launches "
+            f"{b['launches']}; its static bundle (cli.export) served on "
+            f"the bundle's module path: {qat_emb.shape}, |norm-1| max "
+            f"{np.abs(np.linalg.norm(qat_emb, axis=1) - 1).max():.2e}")
+        expect(b["step"] == QAT_STEPS and len(b["losses"]) == QAT_STEPS
+               and np.isfinite(b["losses"]).all(),
+               f"cli.train --qat: step {b['step']}, losses {b['losses']}")
+        expect(b["launches"] == QAT_STEPS,
+               f"cli.train --qat kernel 1 launches {b['launches']}")
+        expect(qat_emb.shape == (INT8_FACES, 512)
+               and np.isfinite(qat_emb).all()
+               and np.abs(np.linalg.norm(qat_emb, axis=1) - 1).max() < 1e-4,
+               "the QAT bundle's served faces")
+
+        t_c = time.time()
+        # (c) /identify over 10^6 rows + the probes, kernel 3 and kernel 4
+        with np.load(snap) as z:
+            rows, row_labels = z["embeddings"], z["labels"]
+        bodies = daemon21["bodies"][:16]
+        n_q = len(bodies)
+        answers = {}
+        for tag, dmn in daemons.items():
+            dmn.wait_serving()
+            _enroll(dmn.base, bodies)
+            probes, labels, scores, _ = _identify(dmn.base, bodies)
+            plain = DeviceGallery(512, dtype="float32" if tag == "f32"
+                                  else "int8", device="cuda")
+            plain.use_kernels = False
+            plain.enroll(rows, row_labels)
+            plain.enroll(probes, np.arange(n_q))
+            pl, ps = plain.search(probes, k=6 if tag == "f32" else 5)
+            del plain
+            torch.cuda.empty_cache()
+            err = float(np.abs(scores - ps[:, :5]).max())
+            same = labels == pl[:, :5]
+            if tag == "f32":
+                same |= near_ties(ps, 5)
+            own = int((labels[:, 0] == np.arange(n_q)).sum())
+            answers[tag] = (own, bool(same.all()), err)
+            say(f"  (c) cli.serve --bundle (static int8, bf16) with the "
+                f"{GALLERY_ROWS:,}-row {tag} gallery: /enroll {n_q}, "
+                f"/identify {n_q} at k 5 (kernel {3 if tag == 'f32' else 4}):"
+                f" top-1 own label {own}/{n_q}; vs the plain programs: "
+                f"labels equal {bool(same.all())}, max |score diff| "
+                f"{err:.3g}")
+            expect(own == n_q, f"int8 daemon ({tag} gallery) top-1")
+            expect(same.all() and err <= (TOPK_TOL if tag == "f32" else 1e-6),
+                   f"int8 daemon ({tag} gallery) /identify differs from "
+                   "the plain programs")
+        del rows
+        # both drain (and save) at once; each gets one SIGTERM (a second
+        # one, once its drain has ended, would kill its exit)
+        t_drain = time.time()
+        drains = [_beside(lambda: daemons["f32"].expect_drained(
+                      topk=n_q, topk_q=0)),
+                  _beside(lambda: daemons["int8"].expect_drained(
+                      topk=0, topk_q=n_q))]
+        for wait in drains:
+            wait()
+        t_end = time.time()
+    finally:
+        for dmn in daemons.values():
+            dmn.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    total = time.time() - t0
+    say(f"  phase 25: {total:.1f} s ((a) and (b)'s rates {t_b - t0:.1f}, "
+        f"(b)'s checks {t_c - t_b:.1f}, (c) {t_drain - t_c:.1f}, the drains "
+        f"{t_end - t_drain:.1f}; its CLIs ran beside phase 22, collected "
+        f"{int8['t_done'] - int8['t0']:.1f} s after their start; (c) "
+        f"began {t_c - int8['daemons']['t0']:.1f} s after the daemons' "
+        f"start)")
+    rates["folded (phase 16)"] = folded_e2e_faces_per_sec
+    return {"convs": convs, "net_ms": net_ms, "rates": rates,
+            "profiles": profiles, "launches": launches, "cos_fp": c_fp[0], "cos_plain": c_plain[0],
+            "qat": {k: b[k] for k in ("step", "losses", "launches")},
+            "daemon_launches": {"topk": n_q, "topk_q": n_q},
+            "seconds": total}
 
 
 def _full_state(state) -> dict:
@@ -5155,14 +5609,23 @@ def main() -> None:
             f"{s['library_route_ms']:.3f} ms ({lo:.3f}-{hi:.3f}; graph "
             f"replay {s['library_route_graph_ms']:.3f}), bound "
             f"{s['bound_ms']:.3f} ms ({s['bound_by']})")
-    for batch in (128, 256):
-        for e2e in (False, True):
-            for impl in bench.IMPLS:
-                r = bench.run(impl=impl, e2e=e2e, batch=batch, iters=5,
-                              warmup=2, repeats=3)
-                say(f"  bench impl={impl:6s} e2e={int(e2e)} batch={batch}: "
-                    f"{r['value']:.1f} faces/s (min {r['min']:.1f}, max "
-                    f"{r['max']:.1f}), {r['ms_per_batch']:.2f} ms/batch")
+    # one build an engine: its plain and e2e forwards share the weights
+    rows = {}
+    for impl in bench.IMPLS:
+        e2e_fwd = bench.build_forward(impl=impl, e2e=True)
+        for batch in (128, 256):
+            for e2e in (False, True):
+                rows[batch, e2e, impl] = bench.measure(
+                    e2e_fwd if e2e else e2e_fwd.plain,
+                    bench.make_inputs(batch, e2e), iters=5, warmup=2,
+                    repeats=3)
+        del e2e_fwd
+        torch.cuda.empty_cache()
+    for (batch, e2e, impl), r in sorted(rows.items(), key=lambda kv: (
+            kv[0][0], kv[0][1], bench.IMPLS.index(kv[0][2]))):
+        say(f"  bench impl={impl:6s} e2e={int(e2e)} batch={batch}: "
+            f"{r['value']:.1f} faces/s (min {r['min']:.1f}, max "
+            f"{r['max']:.1f}), {r['ms_per_batch']:.2f} ms/batch")
 
     # ---- 7-10. 1:N search: top-k kernels, gallery slice, CLIs, times
     topk_err = phase_topk_kernels(g)
@@ -5205,16 +5668,21 @@ def main() -> None:
     daemon = phase_daemon(
         g, work, data20,
         backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
-    # ---- 22. the sharded gallery at 10^7 rows, kernels 3 and 4 a shard;
+    # ---- 22. the sharded gallery at 4 x 10^6 rows, kernels 3 and 4 a shard;
     # phase 23's and 24's CLI runs go beside its host work
     zoo = start_zoo_clis(g, work)
     zoo["dct"] = start_dct_clis(work, zoo["shard"])
+    zoo["int8"] = int8 = start_int8_clis(work)
     sharded = phase_sharded_gallery(g, work, data20, daemon, zoo)
     # ---- 23. iResNet and MobileFaceNet at full width
     zoo23 = phase_zoo(g, zoo,
                       backbones["nets"]["resnet_v1_50/face"]["faces_per_sec"])
     # ---- 24. the DCT input, dct_resnet_50 and the ViT family
     dct24 = phase_dct(g, zoo["dct"], zoo23["r50_module_faces_per_sec"], work)
+    # ---- 25. int8 serving and QAT at full width
+    int8_25 = phase_int8(
+        g, int8, work, daemon,
+        backbones["nets"]["resnet_v1_50/face"]["e2e_faces_per_sec"])
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)
@@ -5244,7 +5712,7 @@ def main() -> None:
          "library_route_graph_ms": route["graph_ms"],
          "library_route_max_abs": route_err,
          # the training path: (256, 112, 112, 3) crops, identity resize,
-         # random flips -> bf16; launches in cli.train's 30 steps
+         # random flips -> bf16; launches in cli.train's TRAIN_STEPS steps
          "train_launches": train["launches"],
          "train_max_abs_err": train["max_abs_err"], "train_ms": train["ms"],
          "train_plain_ms": train["plain_ms"],
@@ -5255,22 +5723,22 @@ def main() -> None:
          # phase 12's cli.train runs (preempted at step k, resumed to 20)
          "checkpoint_train_launches": ckpt["launches"],
          "checkpoint_train_steps": [ckpt["k"], 20 - ckpt["k"]],
-         # phase 13: config 5 under torchrun (20 steps, one rank), and
+         # phase 13: config 5 under torchrun (PRESET_STEPS, one rank), and
          # each of two gloo ranks on cuda:0 (2 steps)
          "data_parallel_launches": dp["cli_launches"],
-         "data_parallel_steps": 20,
+         "data_parallel_steps": PRESET_STEPS,
          "data_parallel_rank_launches": dp["rank_launches"],
-         # phase 14: config 7 through cli.train (20 steps, one rank), and
+         # phase 14: config 7 through cli.train (PRESET_STEPS, one rank), and
          # each of four gloo ranks on cuda:0 (2 steps a head)
          "partial_fc_launches": pfc["cli_launches"],
-         "partial_fc_steps": 20,
+         "partial_fc_steps": PRESET_STEPS,
          "partial_fc_rank_launches": {h: pfc[h]["launches"]
                                       for h in ("exact", "sampled")},
-         # phase 15: preset 8 through cli.train (20 steps), one step a
+         # phase 15: preset 8 through cli.train (PRESET_STEPS), one step a
          # head through each route, and each of four gloo ranks on
          # cuda:0 (2 steps a head)
          "loss_heads_launches": heads["cli_launches"],
-         "loss_heads_steps": 20,
+         "loss_heads_steps": PRESET_STEPS,
          "loss_heads_route_launches": {
              h: r["launches"]["kernel"] for h, r in heads["routes"].items()},
          "loss_heads_rank_launches": {h: r["launches"]
@@ -5282,12 +5750,12 @@ def main() -> None:
          "backbones_train_launches": {k: v["launches"] for k, v in
                                       backbones["train"].items()},
          "backbones_train_steps": 5,
-         # phase 19: cli.train 10 steps under each optimizer, and 10
+         # phase 19: cli.train OPT_STEPS under each optimizer, and as many
          # steps distilling at each alpha
          "optimizers_launches": opt19["cli_launches"],
          "distill_launches": {str(a): d["launches"]
                               for a, d in opt19["distill"].items()},
-         "optimizers_steps": 10,
+         "optimizers_steps": OPT_STEPS,
          # phase 24: one launch a batch of each DCT net's e2e extraction,
          # one a step of dct_vit_small's cli.train (5 steps), and one in
          # the DCT-input step (after decode_dct, on the decoded frames)
@@ -5295,7 +5763,13 @@ def main() -> None:
                               for k, v in dct24["extract"].items()},
          "dct_train_launches": dct24["train"]["dct_vit_small"]["launches"],
          "dct_train_steps": DCT_STEPS,
-         "dct_step_launches": dct24["dct_step"]["launches"]},
+         "dct_step_launches": dct24["dct_step"]["launches"],
+         # phase 25: one launch a batch of the dynamic and static int8
+         # module paths' e2e extraction, one a step of cli.train --qat
+         "int8_e2e_launches": {k: v["preprocess"] for k, v in
+                               int8_25["launches"].items()},
+         "qat_train_launches": int8_25["qat"]["launches"],
+         "qat_train_steps": QAT_STEPS},
         {"name": "fused_block", "route": "cuda",
          "source": "tf_face_toolbox_tpu_torch/csrc/fused_block.cu",
          "replaces": "tf_face_toolbox_tpu/serving/fused_block.py:122",
@@ -5342,13 +5816,16 @@ def main() -> None:
             # phase 21: the daemon's /identify, one search each (f32
             # gallery: kernel 3; int8 gallery: kernel 4)
             "daemon_launches": daemon["launches"][name],
-            # phase 22: one launch a shard a search of the 10^7-row
+            # phase 22: one launch a shard a search of the 4 x 10^6-row
             # four-shard stores (bf16: kernel 3; int8: kernel 4) and of the
             # in-process daemon's four-shard gallery (kernel 3); the
             # --gallery_shards -1 daemon's /identify (one shard)
             "sharded_launches": sharded["launches"][name],
             "sharded_daemon_launches": (sharded["served_launches"]
                                         if name == "topk" else 0),
+            # phase 25: the static-int8 daemon's /identify, one search
+            # each (f32 gallery: kernel 3; int8 gallery: kernel 4)
+            "int8_daemon_launches": int8_25["daemon_launches"][name],
             "sharded_search_ms": {
                 tag: {"sharded": ms, "one_store": one_ms}
                 for tag, (ms, one_ms) in sharded["times_ms"].items()

@@ -208,9 +208,22 @@ def test_unported_networks_and_options_still_raise():
     # the DCT nets raised naming item 17b until it was ported
     for name in ("dct_vit_small", "dct_resnet_50"):
         assert create_network(name).stem == "dct"
+    # int8 (item 18) raised here until it was ported: the ResNet family
+    # and DenseNet build every mode (held against JAX in
+    # tests/test_torch_int8.py); iResNet, MobileFaceNet and the ViT
+    # refuse as JAX's do
     for name in ("resnet_tiny", "se_resnet_50", "densenet_121"):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        net = create_network(name, quantized="static")
+        assert net.quantized == "static"
+        convs = [m for m in net.modules() if hasattr(m, "act_max")]
+        assert convs and all(m.mode == "static" for m in convs)
+    for name, family in (("iresnet_tiny", "iresnet"),
+                         ("mobilefacenet_tiny", "mobilefacenet"),
+                         ("dct_vit_test", "the ViT family")):
+        with pytest.raises(ValueError, match=f"not supported for {family}"):
             create_network(name, quantized="static")
+    with pytest.raises(ValueError, match="unknown quantized mode"):
+        create_network("resnet_tiny", quantized="int4")
     with pytest.raises(ValueError, match="unknown stem"):
         create_network("densenet_121", stem="space2depth")
 

@@ -117,8 +117,10 @@ def test_both_packages_refuse_the_same_artifacts(tmp_path, case):
             module.read_bundle(path)
 
 
-# the DCT nets (item 17b) refused until they were ported: their bundles
-# now boot (a JAX dct_vit_test bundle served: tests/test_torch_vit.py)
+# the DCT nets (item 17b) and int8 bundles (item 18) refused until they
+# were ported: their bundles now boot (a JAX dct_vit_test bundle served:
+# tests/test_torch_vit.py; int8 bundles both ways: tests/test_torch_int8.py).
+# The ids keep the items that once refused.
 @pytest.mark.parametrize("change,item", [
     ({"quant_mode": "dynamic"}, "item 18"),
     ({"quant_mode": "static"}, "item 18"),
@@ -131,12 +133,25 @@ def test_network_from_meta_refuses_what_the_port_lacks(change, item):
         net = bundle.network_from_meta(dict(META, **change),
                                        dtype=torch.float32)
         assert net.stem == "dct" and not net.training
-        with pytest.raises(NotImplementedError, match="item 18"):
-            bundle.network_from_meta(dict(META, **change, quant_mode="static"),
-                                     dtype=torch.float32)
+        if change["network"] == "dct_resnet_50":
+            q = bundle.network_from_meta(
+                dict(META, **change, quant_mode="static"),
+                dtype=torch.float32)
+            assert q.quantized == "static" and q.stem == "dct"
+            assert q.BottleneckBlock_0.ConvBN_0.act_max.shape == ()
+        else:
+            # JAX has no int8 ViT: the port refuses with its words
+            with pytest.raises(ValueError, match="not supported for the "
+                               "ViT family"):
+                bundle.network_from_meta(
+                    dict(META, **change, quant_mode="static"),
+                    dtype=torch.float32)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        bundle.network_from_meta(dict(META, **change), dtype=torch.float32)
+    net = bundle.network_from_meta(dict(META, **change), dtype=torch.float32)
+    mode = change["quant_mode"]
+    assert net.quantized == mode and not net.training
+    assert hasattr(net, "block_0_in_max") == (mode == "static")
+    assert net.ConvBN_0.quantized is False       # the stem stays fp
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,10 +232,17 @@ def test_cli_export_from_variables_npz_and_refusals(tmp_path, capsys):
     got, meta = jax_bundle.read_bundle(out)
     assert meta["input_norm"] == "fixed" and meta["crop_from"] == 20
     _assert_same_flat(jax_flatten(got), jax_flatten(variables))
+    # int8 (item 18, refused until ported): dynamic bakes its mode in;
+    # static calibrates here and so needs a shard (a calibrated bundle is
+    # held against JAX's in tests/test_torch_int8.py)
+    export.main(["--variables_npz", npz, "--output", out, *_NET,
+                 "--quant_mode", "dynamic"])
+    got, meta = jax_bundle.read_bundle(out)
+    assert meta["quant_mode"] == "dynamic" and "quant_stats" not in got
+    _assert_same_flat(jax_flatten(got), jax_flatten(variables))
     for argv, match in (
-            (["--variables_npz", npz, "--quant_mode", "static",
-              "--calibrate_data", npz], "item 18"),
-            (["--variables_npz", npz, "--quant_mode", "dynamic"], "item 18"),
+            (["--variables_npz", npz, "--quant_mode", "static"],
+             "needs --calibrate_data"),
             (["--variables_npz", npz, "--checkpoint_dir", str(tmp_path)],
              "exactly one"),
             (["--variables_npz", npz, "--step", "2"], "don't apply")):

@@ -285,8 +285,12 @@ def test_dct_resnet_structure_and_refusals(caplog):
     assert net.BottleneckBlock_11.ConvBN_2.weight.shape[0] == 2048
     with pytest.raises(ValueError, match="dct stem wants"):
         net(torch.zeros(1, 14, 14, 64))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        create_network("dct_resnet_50", quantized="static")
+    # int8 (item 18) raised here until it was ported: the dct stem stays
+    # fp and the blocks carry int8, as JAX's (tests/test_torch_int8.py)
+    q = create_network("dct_resnet_50", quantized="static")
+    assert q.ConvBN_0.mode is False and q.BatchNorm_0.weight.shape == (192,)
+    assert q.BottleneckBlock_0.ConvBN_1.mode == "static"
+    assert q.block_11_in_max.shape == ()
     with pytest.raises(ValueError, match="does not fold the dct stem"):
         check_servable(net)
 

@@ -133,7 +133,8 @@ def test_cli_extract_and_eval_lfw_match_jax(tmp_path):
 def test_cli_refuses_unported_inputs(tmp_path):
     # --bundle is ported (tests/test_torch_bundle.py), and so is every
     # network since item 17b: dct_vit_small extracts through the module
-    # path; an int8 bundle still refuses, naming item 18
+    # path; since item 18 int8 bundles serve (tests/test_torch_int8.py),
+    # and a ViT's int8 bundle refuses as JAX's ViT does
     from tf_face_toolbox_tpu.serving.bundle import write_bundle
 
     shard = _shard(tmp_path / "faces.faceshard", n=2)
@@ -157,7 +158,7 @@ def test_cli_refuses_unported_inputs(tmp_path):
          str(tmp_path / "q.npy"), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "not ported" in proc.stderr and "item 18" in proc.stderr
+    assert "int8 serving is not supported for the ViT family" in proc.stderr
 
 
 def test_cli_weights_sources_are_exclusive(tmp_path):

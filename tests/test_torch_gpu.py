@@ -1051,3 +1051,53 @@ def test_dct_ops_on_the_card_equal_the_hosts(cuda):
     x = host.float().cuda()
     flipped = dct.flip_coefficients(dct.block_dct(x))
     assert (flipped - dct.block_dct(x.flip(2))).abs().max().item() <= 1e-3
+
+
+# ---- int8 serving: torch._int_mm on the card's int8 tensor cores ----------
+
+
+@pytest.mark.parametrize("n,h,c,o,k,stride,groups", [
+    (8, 14, 64, 64, 1, 1, 1), (8, 14, 64, 256, 1, 2, 1),
+    (8, 14, 64, 64, 3, 1, 1), (8, 14, 64, 64, 3, 2, 1),
+    (1, 3, 12, 12, 3, 1, 1),          # M = 9: rows padded past 16
+    (4, 7, 128, 128, 3, 2, 32)])      # ResNeXt's width-4 groups
+def test_int8_conv_on_the_card_equals_plain(cuda, n, h, c, o, k, stride,
+                                            groups):
+    from tf_face_toolbox_tpu_torch.models import layers
+
+    xq = torch.randint(-127, 128, (n, h, h, c), generator=cuda,
+                       device="cuda", dtype=torch.int8)
+    kq = torch.randint(-127, 128, (o, c // groups, k, k), generator=cuda,
+                       device="cuda", dtype=torch.int8)
+    before = layers.int8_conv2d_nhwc.launches
+    got = layers.int8_conv2d_nhwc(xq, kq, stride, groups)
+    assert layers.int8_conv2d_nhwc.launches == before + 1
+    assert torch.equal(got, layers.int8_conv2d_plain(xq, kq, stride, groups))
+    bf = layers.int8_conv2d_nhwc(xq, kq, stride, groups,
+                                 out_dtype=torch.bfloat16)
+    assert torch.equal(bf, got.float().to(torch.bfloat16))
+    with pytest.raises(TypeError, match="int8 operands"):
+        layers.int8_conv2d_nhwc(xq.float(), kq, stride, groups)
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_int8_module_path_on_the_card_tracks_the_host(cuda, mode):
+    """A resnet_tiny in an int8 mode on the card (``_int_mm``) against the
+    same net on the host (the plain route), bf16: per-face cosine >=
+    0.9999 (the fp stem's and BatchNorms' last bits may flip a quantum)."""
+    from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+    from tf_face_toolbox_tpu_torch.models import (
+        calibrate_quant_stats, create_network, random_variables)
+
+    kw = dict(embedding_dim=32, dtype=torch.bfloat16, input_size=32)
+    flat = random_variables(create_network("resnet_tiny", **kw), 0)
+    x = torch.randn((4, 32, 32, 3), generator=cuda, device="cuda")
+    if mode == "static":
+        flat = calibrate_quant_stats("resnet_tiny", flat, [x], **kw)
+    host = load_jax_variables(create_network("resnet_tiny", quantized=mode,
+                                             **kw), flat)
+    card = copy.deepcopy(host).to("cuda")
+    with torch.inference_mode():
+        got, want = card(x).cpu(), host(x.cpu())
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double())
+    assert cos.min().item() >= 0.9999

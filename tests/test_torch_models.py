@@ -123,13 +123,15 @@ def test_l2_normalize_is_not_f_normalize():
 def test_unported_networks_and_options_raise():
     """Every JAX registry name is ported (the dct stem and the ViTs since
     item 17b, held against JAX in tests/test_torch_dct.py and
-    tests/test_torch_vit.py); int8 serving still raises naming item
-    18."""
+    tests/test_torch_vit.py); int8 serving raised naming item 18 until it
+    was ported (held against JAX in tests/test_torch_int8.py): True is
+    JAX's alias of "dynamic"."""
     from tf_face_toolbox_tpu.models import list_networks as jax_list
 
     assert list_networks() == jax_list()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        create_network("resnet_tiny", quantized=True)
+    net = create_network("resnet_tiny", quantized=True)
+    assert net.BottleneckBlock_0.ConvBN_0.mode == "dynamic"
+    assert not hasattr(net.BottleneckBlock_0.ConvBN_0, "act_max")
     assert create_network("resnet_tiny", stem="dct").stem == "dct"
 
 

@@ -711,15 +711,21 @@ def test_cli_serve_hot_reloads_a_port_train_dir(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--quant_mode", "static", "--calibrate_data", "x"], "item 18"),
-    (["--quant_mode", "dynamic"], "item 18"),
+    # int8 (item 18) is ported: what refuses now is what JAX's CLI
+    # refuses (static without a calibration shard, int8 on the folded
+    # engine); the daemon's int8 runs are in tests/test_torch_int8.py
+    pytest.param(["--quant_mode", "static"], "needs --calibrate_data",
+                 id="argv0-item 18"),
+    pytest.param(["--quant_mode", "dynamic", "--engine", "folded"],
+                 "--engine folded serves fp", id="argv1-item 18"),
     # --gallery_shards is ported: more shards than devices refuses as
     # JAX's create_mesh does (tests/test_torch_distributed_gallery.py)
     pytest.param(["--gallery_shards", "2", "--gallery", "g.npz"],
                  r"mesh \(2x1\) needs 2 devices", id="argv2-item 14"),
     # the DCT nets (item 17b) are ported: a dct_vit_small bundle refuses
-    # now only for its int8 mode (item 18)
-    pytest.param(["--bundle", "UNPORTED"], "item 18", id="argv3-item 17"),
+    # only for its int8 mode, as JAX's ViT does
+    pytest.param(["--bundle", "UNPORTED"], "not supported for the ViT",
+                 id="argv3-item 17"),
     (["--bundle", "b.npz", "--variables_npz", "w.npz"], "self-contained"),
     (["--gallery", "g.npz", "--transport", "grpc"], "HTTP-only")])
 def test_cli_serve_refusals(tmp_path, argv, match):

@@ -99,8 +99,9 @@ def _set(name, default):
 # --drop_path (item 17b) raised naming it until it was ported: it now
 # refuses only a net with no transformer blocks, as JAX's trainer does
 _REFUSED = [(["--drop_path=0.25"], "ViT-family knob")]
-_REFUSED += [(_set(name, d), f"item {item}")
-             for name, (d, item) in cli_train._NOT_PORTED.items()]
+# --qat (item 18) raised naming it until it was ported: it now trains
+# (its steps are held against JAX in tests/test_torch_qat.py)
+_REFUSED += [(["--qat"], None)]
 # item 9's flags (the loss heads) raised naming it until it was ported:
 # each now trains (why None), and a malformed --balanced_pk refuses
 _ITEM_9 = {"magface_la": 10.0, "magface_ua": 110.0, "magface_lm": 0.45,
@@ -454,6 +455,48 @@ def test_native_iterator_follows_the_same_order(shard):
         np.testing.assert_array_equal(a["label"], b["label"])
         np.testing.assert_array_equal(a["image"], b["image"])
     nat.close()
+
+
+def test_native_reader_decodes_under_load(shard):
+    """More decoding threads than cores, the switch interval shortened:
+    every batch equals the serial decode. (The library's own pool
+    signalled a batch's end on the caller's stack; under load a worker
+    locked it after the caller had returned: a glibc abort, or a later
+    batch read before its decode ended.)"""
+    from tf_face_toolbox_tpu_torch.data.native import NativeShardReader
+
+    ref = NativeShardReader(shard, num_threads=1)
+    ids = [np.random.default_rng(i).permutation(24)[:8] for i in range(16)]
+    want = [ref.decode_batch(i, 16, 16) for i in ids]
+    bad, done = [], []
+
+    def worker(k):
+        reader = NativeShardReader(shard, num_threads=4)
+        try:
+            end = time.monotonic() + 2.0
+            while time.monotonic() < end:
+                for i, w in zip(ids, want):
+                    if not np.array_equal(reader.decode_batch(i, 16, 16), w):
+                        bad.append(k)
+        finally:
+            reader.close()
+        done.append(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        n = max(16, 2 * len(os.sched_getaffinity(0)))    # > the cores
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+        ref.close()
+    assert not any(t.is_alive() for t in threads)
+    assert len(done) == len(threads) and not bad
 
 
 def test_host_and_device_prefetch():

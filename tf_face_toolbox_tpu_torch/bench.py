@@ -18,7 +18,9 @@ stride-1 block run outside a squeeze-excite stage. The folded engine
 does not serve ResNeXt or DenseNet: folded and fused exit naming why.
 ``--e2e``: the input is raw uint8 120x120 faces and the fused
 preprocess kernel (resize to 112 + standardize) is inside the
-measurement.
+measurement. ``--quant_mode dynamic|static`` serves W8A8 int8 convs
+through the module (``--impl module``); static first calibrates its
+scales on one seeded batch of 64 standardized faces.
 
 Times come from CUDA events around ``--iters`` back-to-back batches
 after ``--warmup`` batches, repeated ``--repeats`` times. Weights are
@@ -54,11 +56,15 @@ def gpu_info() -> str:
 
 def build_forward(*, impl: str = "fused", e2e: bool = False,
                   network: str = "resnet_v1_50", stem: str = "imagenet",
-                  seed: int = 0, device: str = "cuda") -> Callable:
+                  seed: int = 0, device: str = "cuda",
+                  quantized: bool | str = False) -> Callable:
     """``forward(images) -> (N, 512) f32 embeddings`` for one bench mode.
 
     ``images``: (N, 112, 112, 3) standardized pixels, or with ``e2e``
-    (N, 120, 120, 3) uint8 faces.
+    (N, 120, 120, 3) uint8 faces; an e2e forward's ``plain`` attribute
+    is the standardized-pixel forward of the same weights.
+    ``quantized``: an int8 mode of the module path ("dynamic", or
+    "static" calibrated on a seeded batch).
     """
     from tf_face_toolbox_tpu_torch.extract import make_extract_fn
     from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
@@ -69,8 +75,18 @@ def build_forward(*, impl: str = "fused", e2e: bool = False,
 
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    net = create_network(network, dtype=torch.bfloat16, stem=stem)
+    if quantized and impl != "module":
+        raise ValueError("int8 serves through the module path "
+                         "(impl='module')")
+    net = create_network(network, dtype=torch.bfloat16, stem=stem,
+                         quantized=quantized)
     flat = random_variables(net, seed)
+    if quantized == "static":
+        from tf_face_toolbox_tpu_torch.models import calibrate_quant_stats
+
+        flat = calibrate_quant_stats(
+            network, flat, [make_inputs(64, False, device, seed=seed + 2)],
+            dtype=torch.bfloat16, stem=stem, device=device)
     if impl == "module":
         apply_fn = load_jax_variables(net, flat).to(device)
     else:
@@ -85,6 +101,7 @@ def build_forward(*, impl: str = "fused", e2e: bool = False,
                                   out_dtype=torch.bfloat16)
         return extract(x)
 
+    forward.plain = extract     # the same weights, standardized pixels in
     return forward
 
 
@@ -113,30 +130,39 @@ def time_ms(fn: Callable, *args, iters: int = 10, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run(*, impl: str = "fused", e2e: bool = False, batch: int = 128,
-        network: str = "resnet_v1_50", stem: str = "imagenet",
-        iters: int = 10, warmup: int = 3, repeats: int = 3) -> dict:
-    """Measure one mode; returns the JSON-ready result."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the bench measures a GPU; torch sees none")
-    forward = build_forward(impl=impl, e2e=e2e, network=network, stem=stem)
-    images = make_inputs(batch, e2e)
-    emb = forward(images)
-    if not bool(torch.isfinite(emb).all()):
+def measure(forward: Callable, images: torch.Tensor, *, iters: int = 10,
+            warmup: int = 3, repeats: int = 3) -> dict:
+    """faces/s of ``forward(images)``: the median (and min, max) over
+    ``repeats`` CUDA-event readings of ``iters`` calls after ``warmup``;
+    the embeddings must be finite."""
+    if not bool(torch.isfinite(forward(images)).all()):
         raise RuntimeError("non-finite embeddings")
+    batch = images.shape[0]
     ms = [time_ms(forward, images, iters=iters, warmup=warmup)
           for _ in range(repeats)]
     rates = sorted(batch * 1000.0 / t for t in ms)
+    return {"value": statistics.median(rates), "unit": "faces/sec/GPU",
+            "min": rates[0], "max": rates[-1],
+            "ms_per_batch": statistics.median(ms)}
+
+
+def run(*, impl: str = "fused", e2e: bool = False, batch: int = 128,
+        network: str = "resnet_v1_50", stem: str = "imagenet",
+        iters: int = 10, warmup: int = 3, repeats: int = 3,
+        quantized: bool | str = False) -> dict:
+    """Measure one mode; returns the JSON-ready result."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the bench measures a GPU; torch sees none")
+    forward = build_forward(impl=impl, e2e=e2e, network=network, stem=stem,
+                            quantized=quantized)
     metric = ("resnet50" if network == "resnet_v1_50" else network) + \
         "_extraction_faces_per_sec_per_gpu"
     return {
         "metric": metric,
-        "value": statistics.median(rates),
-        "unit": "faces/sec/GPU",
-        "min": rates[0],
-        "max": rates[-1],
-        "ms_per_batch": statistics.median(ms),
+        **measure(forward, make_inputs(batch, e2e), iters=iters,
+                  warmup=warmup, repeats=repeats),
         "impl": impl,
+        "quant_mode": quantized or "none",
         "e2e": e2e,
         "batch": batch,
         "stem": stem,
@@ -157,7 +183,13 @@ def main(argv=None) -> None:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--quant_mode", default="none",
+                   choices=["none", "dynamic", "static"],
+                   help="int8 convs on the module path (--impl module)")
     args = p.parse_args(argv)
+    quant = False if args.quant_mode == "none" else args.quant_mode
+    if quant and args.impl != "module":
+        sys.exit("bench: --quant_mode serves through --impl module")
     if args.impl != "module":
         from tf_face_toolbox_tpu_torch.models import create_network
         from tf_face_toolbox_tpu_torch.serving.engine import check_servable
@@ -170,7 +202,7 @@ def main(argv=None) -> None:
     print(json.dumps(run(impl=args.impl, e2e=args.e2e, batch=args.batch,
                          network=args.network, stem=args.stem,
                          iters=args.iters, warmup=args.warmup,
-                         repeats=args.repeats)))
+                         repeats=args.repeats, quantized=quant)))
 
 
 if __name__ == "__main__":

@@ -396,6 +396,12 @@ def main(argv=None) -> None:
                    help="a distillation teacher: a train dir or a .npz")
     p.add_argument("--distill_alpha", type=float, default=1.0,
                    help="the distill weight; < 1 mixes in the margin loss")
+    p.add_argument("--start_after", default="",
+                   help="once up (CUDA and the process group), write "
+                        "<path>.ready, then wait for <path> to exist "
+                        "before building the state and timing: a harness "
+                        "starts the run beside other work and lets it "
+                        "time once the card is free")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: torch sees no CUDA device")
@@ -418,6 +424,13 @@ def main(argv=None) -> None:
                                       pfc_sample_rate=args.pfc_sample_rate)
         if args.optimizer is not None:
             cfg = dataclasses.replace(cfg, optimizer=args.optimizer)
+        if args.start_after:
+            torch.zeros(1, device=mesh.device if mesh is not None
+                        else "cuda")
+            with open(args.start_after + ".ready", "w"):
+                pass
+            while not os.path.exists(args.start_after):
+                time.sleep(0.05)
         teacher = None
         if args.distill_from:
             from tf_face_toolbox_tpu_torch.cli.train import build_teacher

@@ -13,9 +13,16 @@ configuration (``serving/bundle.py``):
     python -m tf_face_toolbox_tpu_torch.cli.extract --bundle=... --data=... --output=...
 
 The bundle is the JAX package's format, so either package boots a
-bundle the other wrote. Static-int8 calibration (``--quant_mode``,
-``--calibrate_data``) needs int8 serving, not yet ported (ROADMAP.md §1
-item 18). Runs on the host: nothing here touches a device.
+bundle the other wrote. ``--quant_mode`` bakes an int8 serving mode
+into the bundle; ``static`` calibrates its frozen scales here, once, on
+``--calibrate_data`` (in f32, on ``--device``), so serving hosts need no
+calibration shard:
+
+    python -m tf_face_toolbox_tpu_torch.cli.export --checkpoint_dir=/models/run \
+        --quant_mode=static --calibrate_data=/data/faces.faceshard \
+        --output=/models/resnet50.int8.bundle.npz
+
+Without static calibration nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -58,10 +65,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "0/1 = no averaging")
     p.add_argument("--quant_mode", default="none",
                    choices=["none", "dynamic", "static"],
-                   help="int8 serving mode (not yet ported: item 18)")
+                   help="int8 serving mode baked into the bundle; static "
+                        "runs calibration here (needs --calibrate_data)")
     p.add_argument("--calibrate_data", default="",
-                   help="FaceShard sampled for static-int8 scales (not yet "
-                        "ported: item 18)")
+                   help="FaceShard sampled for static-int8 scales")
+    p.add_argument("--calibrate_batches", type=int, default=4,
+                   help="calibration batches")
+    p.add_argument("--calibrate_batch_size", type=int, default=128,
+                   help="calibration batch")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the static calibration pass")
     return p.parse_args(argv)
 
 
@@ -101,9 +114,8 @@ def main(argv=None) -> None:
     if bool(args.checkpoint_dir) == bool(args.variables_npz):
         raise SystemExit(
             "pass exactly one of --checkpoint_dir / --variables_npz")
-    if args.quant_mode != "none" or args.calibrate_data:
-        raise SystemExit("--quant_mode/--calibrate_data: int8 serving is "
-                         "not ported yet (ROADMAP.md §1 item 18)")
+    if args.quant_mode == "static" and not args.calibrate_data:
+        raise SystemExit("--quant_mode=static needs --calibrate_data")
     if args.variables_npz and (args.step or args.average_last > 1):
         raise SystemExit("--step/--average_last select train-dir "
                          "checkpoints; they don't apply to "
@@ -142,6 +154,25 @@ def main(argv=None) -> None:
         if args.average_last > 1:
             flat, averaged = _averaged_params(args, net_args, flat, step,
                                               mgr.all_steps())
+
+    if args.quant_mode == "static":
+        from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+        from tf_face_toolbox_tpu_torch.extract import calibrate_on_shard
+
+        if args.device.startswith("cuda") and not torch.cuda.is_available():
+            raise SystemExit("--device cuda, but torch sees no CUDA device; "
+                             "pass --device cpu to calibrate on the host")
+        logging.info("calibrating static-int8 scales on %d batches of %s",
+                     args.calibrate_batches, args.calibrate_data)
+        flat = calibrate_on_shard(
+            args.network, flat, FaceShardSource(args.calibrate_data),
+            image_size=args.image_size, crop_from=args.crop_from,
+            batch=args.calibrate_batch_size,
+            num_batches=args.calibrate_batches, norm=args.input_norm,
+            device=args.device, embedding_dim=args.embedding_dim,
+            dtype=torch.float32, stem=getattr(net, "stem", args.stem),
+            head_variant=getattr(net, "head_variant", args.head),
+            input_size=args.image_size)
 
     meta = {
         "network": args.network,

@@ -11,6 +11,10 @@ resumable ``.npy`` in chunks (a crashed run re-run with the same flags
 recomputes at most one chunk); ``--output_quality`` also writes each
 face's feature-norm quality; ``--data_parallel`` splits each batch over
 torchrun's ranks (through the module), and rank 0 writes.
+``--quant_mode dynamic|static`` (``--quantized``: dynamic) serves W8A8
+int8 convs through the module (``models/layers.py``; static calibrates
+on the first ``--calibrate_batches`` batches of ``--data``); an int8
+bundle serves the mode it bakes in.
 
     python -m tf_face_toolbox_tpu_torch.cli.extract \\
         --variables_npz=/tmp/r50.npz --data=/data/lfw.faceshard \\
@@ -73,10 +77,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "crop (0 = image_size + 8, the training scale)")
     p.add_argument("--batch", type=int, default=256,
                    help="extraction batch size (faces)")
+    p.add_argument("--quantized", dest="quantized", action="store_true",
+                   default=False,
+                   help="serve with dynamic W8A8 int8 convs (alias for "
+                        "--quant_mode=dynamic)")
+    p.add_argument("--noquantized", dest="quantized", action="store_false")
+    p.add_argument("--quant_mode", default="none",
+                   choices=["none", "dynamic", "static"],
+                   help="int8 serving: dynamic = per-sample scales; static "
+                        "= frozen scales calibrated on the first "
+                        "--calibrate_batches batches (the int8 residual "
+                        "carry)")
+    p.add_argument("--calibrate_batches", type=int, default=4,
+                   help="calibration batches for --quant_mode=static")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "module", "folded", "fused"],
                    help="auto = folded where the engine serves the "
-                        "net (ResNet, SE-ResNet), else module; module = "
+                        "net (ResNet, SE-ResNet) in fp, else module; "
+                        "module = "
                         "the nn.Module forward; folded = BN folded into "
                         "conv weights and biases; fused = folded + "
                         "stride-1 bottleneck blocks in the fused-block "
@@ -147,8 +165,24 @@ def _weights_fingerprint(flat: dict, config_tag: str) -> str:
     return f"{config_tag}/w={digest}"
 
 
+_INT8_ENGINE = ("--engine folded/fused serves fp; int8 uses --engine module "
+                "(models/layers.py)")
+
+
+def _quant(args):
+    """The int8 mode the flags ask for: False, "dynamic" or "static"."""
+    if args.quant_mode != "none":
+        return args.quant_mode
+    return "dynamic" if args.quantized else False
+
+
 def _refuse(args) -> None:
     """The flag combinations the JAX CLI refuses, with its messages."""
+    if args.bundle and _quant(args):
+        raise SystemExit("--bundle bakes the quant mode and scales in at "
+                         "export time; drop --quant_mode/--quantized")
+    if _quant(args) and args.engine in ("folded", "fused"):
+        raise SystemExit(_INT8_ENGINE)
     if args.checkpoint_dir and args.variables_npz:
         raise SystemExit("--variables_npz and --checkpoint_dir are exclusive")
     if args.data_parallel and args.engine in ("folded", "fused"):
@@ -229,9 +263,9 @@ def _read_bundle(args) -> dict:
 
     variables, meta = read_bundle(args.bundle)
     if meta["quant_mode"] != "none":
-        raise SystemExit(f"--bundle bakes in quant_mode="
-                         f"{meta['quant_mode']!r}: int8 serving is not "
-                         "ported yet (ROADMAP.md §1 item 18)")
+        if args.engine in ("folded", "fused"):
+            raise SystemExit(_INT8_ENGINE)
+        args.quant_mode = meta["quant_mode"]
     args.network = meta["network"]
     args.embedding_dim = int(meta["embedding_dim"])
     args.stem = meta.get("stem") or args.stem
@@ -259,31 +293,40 @@ def _extract(args, rows, device, mesh, bundle) -> None:
     from tf_face_toolbox_tpu_torch.serving import fused_block, make_serving_apply
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    quant = _quant(args)
+    net_kw = dict(embedding_dim=args.embedding_dim, dtype=dtype,
+                  stem=args.stem, head_variant=args.head,
+                  input_size=args.image_size)
     if bundle is not None:
-        net = create_network(args.network, embedding_dim=args.embedding_dim,
-                             dtype=dtype, stem=args.stem,
-                             head_variant=args.head,
-                             input_size=args.image_size)
+        net = create_network(args.network, quantized=quant, **net_kw)
         flat = bundle
     elif args.checkpoint_dir:
         net, flat = load_variables(
             args.checkpoint_dir, args.network, args.embedding_dim,
             args.image_size, dtype, use_ema=args.use_ema, stem=args.stem,
-            head=args.head)
+            head=args.head, quantized=quant)
     else:
-        net = create_network(args.network, embedding_dim=args.embedding_dim,
-                             dtype=dtype, stem=args.stem,
-                             head_variant=args.head,
-                             input_size=args.image_size)
+        net = create_network(args.network, quantized=quant, **net_kw)
         if args.variables_npz:
             flat = flatten_variables(load_variables_npz(args.variables_npz))
             logging.info("serving variables from %s", args.variables_npz)
         else:
             flat = random_variables(net, seed=0)
             logging.info("no --variables_npz: seeded random weights")
+    if quant == "static" and bundle is None:
+        from tf_face_toolbox_tpu_torch.extract import calibrate_on_shard
+
+        logging.info("calibrating static int8 scales on %d batches",
+                     args.calibrate_batches)
+        flat = calibrate_on_shard(
+            args.network, flat, FaceShardSource(args.data),
+            image_size=args.image_size, crop_from=args.crop_from,
+            batch=min(args.batch, 128), num_batches=args.calibrate_batches,
+            loader=args.loader, norm=args.input_norm, device=device,
+            **net_kw)
 
     apply_fn = None
-    if args.engine != "module" and mesh is None:
+    if args.engine != "module" and mesh is None and not quant:
         try:
             apply_fn = make_serving_apply(net, flat, device=device,
                                           use_kernels=args.engine == "fused")
@@ -309,7 +352,7 @@ def _extract(args, rows, device, mesh, bundle) -> None:
         fused_block.fused_bottleneck_block.launches - before)
     if args.chunk_rows:
         tag = (f"{args.network}/{args.stem}/{args.head}/"
-               f"dim={args.embedding_dim}/norm={args.input_norm}/q=False/"
+               f"dim={args.embedding_dim}/norm={args.input_norm}/q={quant}/"
                f"bf16={args.bf16}")
         emb = extract_shard_to_npy(
             net, flat, source, args.output, image_size=args.image_size,

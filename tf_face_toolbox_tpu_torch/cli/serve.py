@@ -24,8 +24,11 @@ complete, the gallery is saved, and the daemon prints its top-k kernel
 launches and ``drained; bye``. ``--gallery_shards N`` stripes the
 gallery over the first N visible devices of ``--device`` (-1: every
 one; ``serving.distributed_gallery``), refuse-only past capacity.
-Unported flags refuse naming their ROADMAP.md §1 item:
-``--quant_mode``/``--calibrate_data`` (18).
+``--quant_mode dynamic|static`` serves W8A8 int8 convs through the
+module (``models/layers.py``); static calibrates its frozen scales on
+``--calibrate_data`` at boot and again on every hot reload, as JAX's
+``prepare`` does. An int8 bundle serves the mode it bakes in.
+``--engine folded`` serves fp only and refuses int8.
 """
 
 from __future__ import annotations
@@ -81,10 +84,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "flax, the JAX CLI's name) = the nn.Module forward")
     p.add_argument("--quant_mode", default="none",
                    choices=["none", "dynamic", "static"],
-                   help="int8 serving (not yet ported: item 18)")
+                   help="int8 serving; static needs --calibrate_data")
     p.add_argument("--calibrate_data", default="",
-                   help="FaceShard for static-int8 scales (not yet ported: "
-                        "item 18)")
+                   help="FaceShard sampled for static-int8 scales at boot "
+                        "(and at every hot reload)")
+    p.add_argument("--calibrate_batches", type=int, default=4,
+                   help="calibration batches (of --max_batch, at most 128)")
     p.add_argument("--host", default="127.0.0.1", help="bind address")
     p.add_argument("--port", type=int, default=8000, help="bind port")
     p.add_argument("--unix_socket", default="",
@@ -136,24 +141,31 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse(args) -> None:
-    """The unported flags by ROADMAP item, then the flag combinations the
-    JAX CLI refuses, with its messages."""
-    if args.quant_mode != "none" or args.calibrate_data:
-        raise SystemExit("--quant_mode/--calibrate_data: int8 serving is "
-                         "not ported yet (ROADMAP.md §1 item 18)")
+    """The flag combinations the JAX CLI refuses, with its messages."""
+    quant = args.quant_mode != "none"
     if args.bundle:
         if args.checkpoint_dir or args.variables_npz:
             raise SystemExit("--bundle is self-contained; drop "
                              "--checkpoint_dir/--variables_npz")
+        if quant or args.calibrate_data:
+            raise SystemExit("--bundle bakes the quant mode and scales in "
+                             "at export time; drop --quant_mode/"
+                             "--calibrate_data")
         if args.watch_interval > 0:
             raise SystemExit("--watch_interval polls a train dir; "
                              "bundles are immutable artifacts")
     else:
+        if args.quant_mode == "static" and not args.calibrate_data:
+            raise SystemExit("--quant_mode=static needs --calibrate_data "
+                             "(a shard sampled for activation scales)")
         if bool(args.checkpoint_dir) == bool(args.variables_npz):
             raise SystemExit("pass exactly one of --checkpoint_dir / "
                              "--variables_npz / --bundle")
         if args.watch_interval > 0 and not args.checkpoint_dir:
             raise SystemExit("--watch_interval polls a --checkpoint_dir")
+    if args.engine == "folded" and quant:
+        raise SystemExit("--engine folded serves fp; int8 uses the module "
+                         "(--engine module)")
     if args.gallery and args.transport == "grpc":
         raise SystemExit("--gallery endpoints are HTTP-only")
     if args.gallery and args.gallery_shards:
@@ -198,13 +210,15 @@ def main(argv=None) -> None:
                          "pass --device cpu to run on the host")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     module_only = args.engine in ("module", "flax")
+    quant = False if args.quant_mode == "none" else args.quant_mode
 
-    def make_apply(net, flat, *, boot: bool):
+    def make_apply(net, flat, *, boot: bool, int8=quant):
         """The engine's forward for ``net`` holding ``flat``, or None for
-        the module path. ``boot`` turns an inapplicable --engine folded
-        into the process's exit; inside the watcher thread it stays an
-        ordinary exception (logged, retried next poll)."""
-        if module_only:
+        the module path (int8 serves there). ``boot`` turns an
+        inapplicable --engine folded into the process's exit; inside the
+        watcher thread it stays an ordinary exception (logged, retried
+        next poll)."""
+        if module_only or int8:
             return None
         from tf_face_toolbox_tpu_torch.serving import make_serving_apply
 
@@ -219,6 +233,26 @@ def main(argv=None) -> None:
                          "module path", e)
             return None
 
+    def prepare(flat):
+        """Post-restore serving prep, shared by boot and hot reload (so a
+        reloaded model goes through the chain the booted one did): the
+        static-int8 calibration pass, on the serving device."""
+        if quant != "static":
+            return flat
+        from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+        from tf_face_toolbox_tpu_torch.extract import calibrate_on_shard
+
+        logging.info("calibrating static-int8 scales on %d batches of %s",
+                     args.calibrate_batches, args.calibrate_data)
+        return calibrate_on_shard(
+            args.network, flat, FaceShardSource(args.calibrate_data),
+            image_size=args.image_size, crop_from=args.crop_from,
+            batch=min(args.max_batch, 128),
+            num_batches=args.calibrate_batches, norm=args.input_norm,
+            device=device, embedding_dim=args.embedding_dim, dtype=dtype,
+            stem=args.stem, head_variant=args.head,
+            input_size=args.image_size)
+
     if args.bundle:
         from tf_face_toolbox_tpu_torch.interop.port import flatten_variables
         from tf_face_toolbox_tpu_torch.serving.bundle import (
@@ -232,9 +266,13 @@ def main(argv=None) -> None:
         batchers = {}
         for name, path in specs:
             variables, meta = read_bundle(path)
+            int8 = meta["quant_mode"] != "none"
+            if args.engine == "folded" and int8:
+                raise SystemExit(f"--engine folded serves fp; bundle {path} "
+                                 f"bakes in int8 ({meta['quant_mode']})")
             try:
                 net = network_from_meta(meta, dtype=dtype)
-            except NotImplementedError as e:
+            except ValueError as e:      # a net JAX serves fp only
                 raise SystemExit(f"--bundle {path}: {e}") from e
             flat = flatten_variables(variables)
             logging.info("bundle %s: %s step=%s quant=%s norm=%s", path,
@@ -244,8 +282,8 @@ def main(argv=None) -> None:
                 net, flat, image_size=int(meta["image_size"]),
                 crop_from=int(meta.get("crop_from", 0)),
                 batch=args.max_batch,
-                apply_fn=make_apply(net, flat, boot=True), dtype=dtype,
-                norm=meta["input_norm"], step=meta.get("step"),
+                apply_fn=make_apply(net, flat, boot=True, int8=int8),
+                dtype=dtype, norm=meta["input_norm"], step=meta.get("step"),
                 device=device)
             key = name or meta["network"]
             if key in batchers:
@@ -271,7 +309,7 @@ def main(argv=None) -> None:
         net = create_network(args.network, embedding_dim=args.embedding_dim,
                              dtype=dtype, stem=args.stem,
                              head_variant=args.head,
-                             input_size=args.image_size)
+                             input_size=args.image_size, quantized=quant)
         flat = flatten_variables(load_variables_npz(args.variables_npz))
     else:
         from tf_face_toolbox_tpu_torch.pretrained import load_variables
@@ -286,7 +324,8 @@ def main(argv=None) -> None:
         net, flat = load_variables(
             args.checkpoint_dir, args.network, args.embedding_dim,
             args.image_size, dtype, use_ema=args.use_ema, stem=args.stem,
-            head=args.head)
+            head=args.head, quantized=quant)
+    flat = prepare(flat)
 
     service = EmbeddingService(
         net, flat, image_size=args.image_size, crop_from=args.crop_from,
@@ -311,7 +350,8 @@ def main(argv=None) -> None:
             _, v = load_variables(
                 args.checkpoint_dir, args.network, args.embedding_dim,
                 args.image_size, dtype, use_ema=args.use_ema,
-                stem=args.stem, head=args.head, step=step)
+                stem=args.stem, head=args.head, quantized=quant, step=step)
+            v = prepare(v)
             return v, make_apply(net, v, boot=False), step
 
         watcher = CheckpointWatcher(service, args.checkpoint_dir, rebuild,

@@ -74,12 +74,6 @@ _MARGINS = {  # (m1, m2, m3) defaults per variant
     "sphereface": (1.35, 0.0, 0.0),
 }
 
-# flags of paths not ported yet: name -> (JAX default, ROADMAP.md item)
-_NOT_PORTED = {
-    "qat": (False, "18"),
-}
-
-
 def _bool_flag(p, name: str, default: bool, help: str) -> None:
     p.add_argument(f"--{name}", dest=name, action="store_true",
                    default=default, help=help)
@@ -255,12 +249,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="a named train config (configs.py); its values "
                         "are the defaults of the flags it sets, its "
                         "per-GPU batch times the ranks the global batch")
-    for name, (default, item) in _NOT_PORTED.items():
-        if isinstance(default, bool):
-            _bool_flag(p, name, default, f"not ported yet (item {item})")
-        else:
-            p.add_argument(f"--{name}", type=type(default), default=default,
-                           help=f"not ported yet (item {item})")
+    _bool_flag(p, "qat", False,
+               "quantization-aware training: fake-quantize the convs and "
+               "the inter-block stream onto the int8 grid (straight-through "
+               "backward), so the checkpoint serves via --quant_mode=static "
+               "with little drift (ResNet family)")
     return p
 
 
@@ -357,13 +350,6 @@ def check_launch(args, gpus: int, env=None) -> None:
             "one with --device cuda:0")
 
 
-def _refuse_unported(args) -> None:
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name} is not ported yet (ROADMAP.md §1 "
-                             f"item {item})")
-
-
 def build_config(args, num_classes: int):
     import torch
 
@@ -424,7 +410,8 @@ def build_config(args, num_classes: int):
             augment=True, crop_from=args.crop_from or args.image_size + 8,
             random_erase=args.random_erase, accum_steps=args.accum_steps,
             ema_decay=args.ema_decay, pallas_input=args.pallas_input,
-            input_norm=args.input_norm, distill_alpha=args.distill_alpha)
+            input_norm=args.input_norm, distill_alpha=args.distill_alpha,
+            quantized="qat" if args.qat else False)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
 
@@ -535,10 +522,12 @@ def synthetic_batches(cfg, seed: int, rank: int = 0, world: int = 1):
 def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    _refuse_unported(args)
     if args.network.startswith("densenet") and args.stem == "space2depth":
         raise SystemExit("--stem=space2depth is a resnet-family option; "
                          "densenet supports stem=face|imagenet")
+    if args.network.startswith("densenet") and args.qat:
+        raise SystemExit("--qat is a resnet-family option; densenet "
+                         "supports fp training")
     if args.keep_best and not (args.eval_data and args.eval_pairs
                                and args.eval_every):
         raise SystemExit(

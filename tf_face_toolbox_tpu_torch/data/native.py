@@ -68,14 +68,27 @@ def native_available() -> bool:
 
 
 class NativeShardReader:
-    """Batch decoder over one FaceShard, backed by the C++ pool."""
+    """Batch decoder over one FaceShard, backed by the C++ decoder.
+
+    The library's own pool (``fs_open(path, n > 0)``) is not used: its
+    batch dispatch signals completion through a mutex and condition
+    variable on the caller's stack after the waiting caller may already
+    have returned, so under load a worker locks a dead frame (glibc
+    aborts, or a later batch's counter is overwritten and the batch is
+    read before its decode has finished). The handle is opened serial
+    and ``num_threads`` Python threads each decode a contiguous run of
+    the batch's slots through it (ctypes releases the GIL; a serial call
+    touches only the read-only mapping and its own slots).
+    """
 
     def __init__(self, path: str, *, num_threads: int = 4):
         lib = _load_library()
         self._lib = lib
-        self._h = lib.fs_open(path.encode(), num_threads)
+        self._h = lib.fs_open(path.encode(), 0)
         if not self._h:
             raise OSError(f"fs_open failed for {path}")
+        self._threads = max(1, int(num_threads))
+        self._pool = None
         self.count = int(lib.fs_count(self._h))
         self.payload = int(lib.fs_payload(self._h))
         self.labels = np.zeros(self.count, np.int32)
@@ -86,8 +99,8 @@ class NativeShardReader:
         """(len(ids), out_h, out_w, 3) uint8; raises on decode failure."""
         ids = np.ascontiguousarray(ids, np.int64)
         out = np.empty((len(ids), out_h, out_w, 3), np.uint8)
-        failures = self._lib.fs_decode_batch(
-            self._h, ids, len(ids), out, out_h, out_w)
+        failures = self._run(len(ids), lambda a, b: self._lib.fs_decode_batch(
+            self._h, ids[a:b], b - a, out[a:b], out_h, out_w))
         if failures:
             raise ValueError(f"{failures} records failed to decode")
         return out
@@ -108,14 +121,30 @@ class NativeShardReader:
         ids = np.ascontiguousarray(ids, np.int64)
         coef = np.empty((len(ids), bh, bw, 3, 64), np.int16)
         qtab = np.empty((len(ids), 3, 64), np.uint16)
-        failures = self._lib.fs_dct_batch(
-            self._h, ids, len(ids), coef, qtab, bh, bw)
+        failures = self._run(len(ids), lambda a, b: self._lib.fs_dct_batch(
+            self._h, ids[a:b], b - a, coef[a:b], qtab[a:b], bh, bw))
         if failures:
             raise ValueError(
                 f"{failures} records failed DCT extraction (corrupt, "
                 f"not 4:4:4, or not {height}x{width} — repack with "
                 "cli.pack --recode_size)")
         return coef, qtab
+
+    def _run(self, n: int, call) -> int:
+        """``call(lo, hi)`` over ``num_threads`` contiguous runs of slots
+        [0, n), on the reader's threads; the summed failure counts."""
+        runs = min(self._threads, n)
+        if runs <= 1:
+            return int(call(0, n)) if n else 0
+        if self._pool is None:
+            import concurrent.futures
+
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                self._threads, thread_name_prefix="faceshard-decode")
+        bounds = [n * i // runs for i in range(runs + 1)]
+        return sum(int(f.result()) for f in [
+            self._pool.submit(call, a, b)
+            for a, b in zip(bounds[:-1], bounds[1:])])
 
     def prefetch(self, ids: Sequence[int]) -> int:
         """Readahead hint for an upcoming batch: madvise(WILLNEED) the
@@ -124,6 +153,9 @@ class NativeShardReader:
         return int(self._lib.fs_prefetch(self._h, ids, len(ids)))
 
     def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
         if self._h:
             self._lib.fs_close(self._h)
             self._h = None

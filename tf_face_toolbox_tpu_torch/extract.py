@@ -8,7 +8,8 @@ are f32 under any compute dtype. ``with_quality`` also returns each face's
 pre-normalization feature magnitude (MagFace's quality signal);
 ``make_extract_fn(mesh=)`` splits each batch over the data ranks of a
 ``parallel.mesh.Topology``; ``extract_shard_to_npy`` writes a resumable
-``.npy`` in chunks.
+``.npy`` in chunks; ``calibrate_on_shard`` takes static-int8 scales
+from a shard's first batches.
 """
 
 from __future__ import annotations
@@ -155,6 +156,31 @@ def _dct_domain_crop(net, loader: str, image_size: int,
         raise ValueError("loader='dct_domain' requires a stem='dct' "
                          "backbone (e.g. dct_resnet_50)")
     return crop_from or image_size
+
+
+def calibrate_on_shard(network: str, variables, source, *, image_size: int,
+                       crop_from: int = 0, batch: int = 128,
+                       num_batches: int = 4, loader: str = "auto",
+                       norm: str = "per_image",
+                       device: str | torch.device = "cuda",
+                       **net_kwargs) -> dict:
+    """Static-int8 calibration over the first ``num_batches`` batches of
+    an eval shard (the serving distribution), through the eval chain
+    ``extract_shard`` uses. Returns ``variables`` with the frozen
+    ``quant_stats`` for ``quantized="static"`` serving
+    (``models.calibrate_quant_stats``; ``net_kwargs``: its network
+    fields, ``embedding_dim`` and ``dtype`` among them)."""
+    from tf_face_toolbox_tpu_torch.models import calibrate_quant_stats
+
+    if loader == "dct_domain":      # no crop in the coefficient domain
+        crop_from = crop_from or image_size
+    n = source.index.count
+    batches = _standardized_batches(
+        source, image_size=image_size, crop_from=crop_from, batch=batch,
+        loader=loader, norm=norm, rows=(0, min(n, batch * num_batches)),
+        device=device)
+    return calibrate_quant_stats(network, variables, batches, device=device,
+                                 **net_kwargs)
 
 
 def _module(net, variables, device) -> torch.nn.Module:

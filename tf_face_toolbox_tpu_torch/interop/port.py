@@ -10,6 +10,8 @@ carry the flax auto-names, so every key maps to one torch tensor:
     params/P/bias   (Dense)         -> P.bias
     params/P/scale, params/P/bias   (BatchNorm) -> P.weight, P.bias
     batch_stats/P/mean, .../var     -> P.running_mean, P.running_var
+    quant_stats/P/act_max           -> P.act_max (an int8 conv's scale)
+    quant_stats/block_<i>_in_max    -> block_<i>_in_max (the int8 carry's)
 
 A conv is a ConvBN's kernel, a grouped one ((kh, kw, cin / groups,
 cout) <-> (cout, cin / groups, kh, kw)) included, a depthwise one
@@ -19,9 +21,10 @@ bias-free plain conv that sits on its module itself (DenseNet's
 PReLU's ``alpha``, the GDConv head's (h, w, c) ``gdconv`` and the
 ViT's (1, T, W) ``pos_embedding`` (a parameter of the network itself,
 ``params/pos_embedding``) keep their names and layouts; a LayerNorm's
-``scale`` and ``bias`` map as a BatchNorm's do. Loading is total both
-ways: every key is consumed and every parameter and buffer is set, or
-it raises.
+``scale`` and ``bias`` map as a BatchNorm's do. The ``quant_stats``
+collection (static-int8 calibration) maps onto the calibrated modes'
+0-d buffers. Loading is total both ways: every key is consumed and
+every parameter and buffer is set, or it raises.
 """
 
 from __future__ import annotations
@@ -98,7 +101,14 @@ _JAX_LEAF = {"bias": ("params", "bias"),
              "gdconv": ("params", "gdconv"),
              "pos_embedding": ("params", "pos_embedding"),
              "running_mean": ("batch_stats", "mean"),
-             "running_var": ("batch_stats", "var")}
+             "running_var": ("batch_stats", "var"),
+             "act_max": ("quant_stats", "act_max")}
+
+
+def _is_carry_stat(leaf: str) -> bool:
+    """The int8 carry's ``block_<i>_in_max``, a buffer of the ResNet."""
+    return (leaf.startswith("block_") and leaf.endswith("_in_max")
+            and leaf[6:-7].isdigit())
 
 
 def jax_key(name: str, tensor: torch.Tensor) -> tuple[str, str]:
@@ -114,6 +124,8 @@ def jax_key(name: str, tensor: torch.Tensor) -> tuple[str, str]:
         kind = {4: "conv", 2: "dense"}.get(tensor.dim(), "plain")
         jleaf = "scale" if kind == "plain" else "kernel"
         return f"params/{path}{jleaf}", kind
+    if _is_carry_stat(leaf):
+        return f"quant_stats/{path}{leaf}", "plain"
     collection, jleaf = _JAX_LEAF[leaf]
     return f"{collection}/{path}{jleaf}", "plain"
 
@@ -155,7 +167,8 @@ def to_jax_layout(tensor: torch.Tensor, kind: str) -> np.ndarray:
         arr = np.transpose(arr, (2, 3, 1, 0))
     elif kind == "dense":
         arr = arr.T
-    return np.ascontiguousarray(arr)
+    # (np.ascontiguousarray makes a 0-d array 1-d)
+    return np.ascontiguousarray(arr) if arr.ndim else arr.copy()
 
 
 def from_jax_layout(arr, kind: str) -> torch.Tensor:
@@ -181,6 +194,10 @@ def load_jax_variables(net: nn.Module, flat: dict) -> nn.Module:
         flat = flatten_variables(flat)
     leaves = list(jax_leaves(net))
     expected = {key for key, _, _ in leaves}
+    if any(k.startswith("quant_stats/") for k in expected) and not any(
+            k.startswith("quant_stats/") for k in flat):
+        from tf_face_toolbox_tpu_torch.models.layers import STATIC_NEEDS_STATS
+        raise ValueError(STATIC_NEEDS_STATS)
     missing = sorted(expected - flat.keys())
     extra = sorted(flat.keys() - expected)
     if missing or extra:
@@ -202,4 +219,7 @@ def load_jax_variables(net: nn.Module, flat: dict) -> nn.Module:
     if unset:
         raise ValueError(f"{len(unset)} network tensors have no JAX key, "
                          f"e.g. {unset[:3]}")
+    for module in net.modules():
+        if getattr(module, "stat_names", ()):
+            module.stats_loaded = True
     return net

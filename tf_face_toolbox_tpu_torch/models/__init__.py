@@ -6,9 +6,15 @@ a fresh training init.
     embeddings = net(images)                       # (N, 512) float32
     init_parameters(net, seed=0)                   # before training
 
+    flat = calibrate_quant_stats("resnet_v1_50", flat, batches)
+    int8 = load_jax_variables(create_network("resnet_v1_50",
+                                             quantized="static"), flat)
+
 Every entry of the JAX registry is ported: the ResNet family (ResNet,
 SE-ResNet, ResNeXt, SE-ResNeXt, the dct-stem ResNet), DenseNet, iResNet,
-MobileFaceNet and the JPEG-block-token ViT family.
+MobileFaceNet and the JPEG-block-token ViT family. The ResNet family and
+DenseNet take JAX's int8 modes (``quantized=``, models/layers.py);
+iResNet, MobileFaceNet and the ViTs refuse them, as JAX's do.
 """
 
 from __future__ import annotations
@@ -133,6 +139,8 @@ def random_variables(net: torch.nn.Module, seed: int = 0
             if getattr(mod, "branch_end", None)}
     flat = {}
     for key, tensor, kind in port.jax_leaves(net):
+        if key.startswith("quant_stats/"):
+            continue        # calibration's, not weights
         shape = port.jax_shape(tensor, kind)
         leaf = key.rsplit("/", 1)[1]
         if kind in ("conv", "dense"):
@@ -160,6 +168,52 @@ def random_variables(net: torch.nn.Module, seed: int = 0
             v = rng.normal(0.0, 0.1, shape)
         flat[key] = v.astype(np.float32)
     return flat
+
+
+def calibrate_quant_stats(name: str, variables: dict, batches, *,
+                          embedding_dim: int = 512,
+                          dtype: torch.dtype = torch.float32,
+                          device: str | torch.device | None = None,
+                          **overrides: Any) -> dict:
+    """Static-int8 calibration: each conv's running max |input| (and, in
+    the ResNet family, each block's input's: the int8 carry's scale).
+
+    Runs ``batches`` (standardized (N, S, S, 3) images of the serving
+    distribution, tensors or arrays) through the network in
+    ``quantized="calibrate"`` eval mode on ``device`` (None: each batch's
+    own) and returns ``variables`` with the ``quant_stats`` collection
+    added, in its form (the flat JAX-key dict or a nested tree): ready
+    for ``create_network(..., quantized="static")``. Stats already in
+    ``variables`` are continued, as JAX's are. The params and batch
+    statistics are untouched: one checkpoint serves fp, dynamic and
+    static int8. An empty ``batches`` raises.
+    """
+    from tf_face_toolbox_tpu_torch.interop import port
+
+    nested = any(isinstance(v, dict) for v in variables.values())
+    flat = port.flatten_variables(variables) if nested else dict(variables)
+    overrides.pop("quantized", None)
+    net = create_network(name, embedding_dim=embedding_dim, dtype=dtype,
+                         quantized="calibrate", **overrides)
+    fresh = {key: np.full((), np.nan, np.float32)
+             for key, _, _ in port.jax_leaves(net)
+             if key.startswith("quant_stats/")}
+    port.load_jax_variables(net, {**fresh, **flat})
+    where = None
+    with torch.inference_mode():
+        for x in batches:
+            x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+            if where is None:
+                where = torch.device(device) if device else x.device
+                net.to(where)
+            net(x.to(where))
+    if where is None:
+        raise ValueError("calibrate_quant_stats: empty batch iterable")
+    out = dict(flat)
+    for key, tensor, kind in port.jax_leaves(net):
+        if key.startswith("quant_stats/"):
+            out[key] = port.to_jax_layout(tensor, kind)
+    return port.unflatten_variables(out) if nested else out
 
 
 def _truncated_normal(shape, std: float, generator: torch.Generator
@@ -202,6 +256,8 @@ def init_parameters(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     with torch.no_grad():
         for key, tensor, kind in port.jax_leaves(net):
             leaf = key.rsplit("/", 1)[1]
+            if key.startswith("quant_stats/"):
+                continue    # calibration's, not weights
             if kind == "conv":
                 o, i, kh, kw = tensor.shape
                 fan = kh * kw * (o if conv_fan == "fan_out" else i)

@@ -6,8 +6,12 @@ new channels concatenated onto the stream), 1x1 transitions that halve
 the channels followed by a 2x2/2 VALID average pool, a final BN and
 ReLU, and the embedding head. Face stem: a bias-free 3x3 conv then a
 3x3/2 SAME max pool (112 -> 56, the ResNet face stem's stage maps);
-imagenet stem: a bias-free 7x7/2 conv then the same pool. Int8 serving
-raises NotImplementedError naming its ROADMAP.md item.
+imagenet stem: a bias-free 7x7/2 conv then the same pool. ``quantized``
+(JAX's modes, models/layers.ConvBN) applies to every dense-layer and
+transition conv, on its post-activation input; the stem conv stays fp,
+and the concatenated stream stays in the compute dtype (no carry).
+DenseNet has no grouped conv, so "static_dense" is "static"; "qat"
+trains fp, as JAX's DenseNet does.
 
 Module names follow flax's auto-names in each scope (``Conv_0``,
 ``DenseLayer_<n>`` counted over the whole net, ``_BNReLUConv_<n>`` for
@@ -28,28 +32,34 @@ from tf_face_toolbox_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     EmbeddingHead,
+    QuantConv,
     TrainContext,
+    check_quant_mode,
     conv_weight,
-    conv2d_same_nhwc,
     max_pool_same_nhwc,
 )
 
 
-class _BNReLUConv(nn.Module):
+class _BNReLUConv(QuantConv):
     """Pre-activation BN -> ReLU -> bias-free SAME conv; the kernel is the
-    module's own ``weight`` (JAX key ``.../_BNReLUConv_i/kernel``)."""
+    module's own ``weight`` (JAX key ``.../_BNReLUConv_i/kernel``), in
+    ``quantized``'s mode ("qat" runs fp, as JAX's module does)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quantized: bool | str = False):
         super().__init__()
         self.dtype = dtype
         self.BatchNorm_0 = BatchNorm(in_features)
         self.weight = conv_weight(in_features, features, kernel_size)
+        self._init_quant(quantized, 1)
+        if self.mode == "qat":
+            self.mode = False
 
     def forward(self, x: torch.Tensor,
                 train: TrainContext | None = None) -> torch.Tensor:
         x = torch.relu(self.BatchNorm_0(x, self.dtype, train))
-        return conv2d_same_nhwc(x, self.weight.to(self.dtype), 1)
+        return self.quant_conv(x, 1, 1, self.dtype, train)
 
 
 class DenseLayer(nn.Module):
@@ -57,12 +67,13 @@ class DenseLayer(nn.Module):
     the k new channels after the input's."""
 
     def __init__(self, in_features: int, growth_rate: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quantized: bool | str = False):
         super().__init__()
         self.add_module("_BNReLUConv_0", _BNReLUConv(
-            in_features, 4 * growth_rate, 1, dtype))
+            in_features, 4 * growth_rate, 1, dtype, quantized))
         self.add_module("_BNReLUConv_1", _BNReLUConv(
-            4 * growth_rate, growth_rate, 3, dtype))
+            4 * growth_rate, growth_rate, 3, dtype, quantized))
 
     def forward(self, x: torch.Tensor,
                 train: TrainContext | None = None) -> torch.Tensor:
@@ -85,12 +96,11 @@ class DenseNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  quantized: bool | str = False, input_size: int = 112):
         super().__init__()
-        if quantized:
-            raise NotImplementedError("int8 serving is not ported yet "
-                                      "(ROADMAP.md §1 item 18)")
+        check_quant_mode(quantized)
         if stem not in ("face", "imagenet"):
             raise ValueError(f"unknown stem: {stem}")
         self.stage_sizes = tuple(stage_sizes)
+        self.quantized = quantized
         self.stem = stem
         self.head_variant = head_variant
         self.dtype = dtype
@@ -109,7 +119,7 @@ class DenseNet(nn.Module):
             for _ in range(num_layers):
                 name = f"DenseLayer_{layer}"
                 self.add_module(name, DenseLayer(channels, growth_rate,
-                                                 dtype))
+                                                 dtype, quantized))
                 names.append(name)
                 channels += growth_rate
                 layer += 1
@@ -118,7 +128,8 @@ class DenseNet(nn.Module):
                 transition = f"_BNReLUConv_{stage_idx}"
                 out = int(channels * compression)
                 self.add_module(transition,
-                                _BNReLUConv(channels, out, 1, dtype))
+                                _BNReLUConv(channels, out, 1, dtype,
+                                            quantized))
                 channels = out
                 size //= 2                           # avg pool 2x2/2 VALID
             self.stages.append((names, transition))

@@ -1,5 +1,5 @@
 """Shared layers: ConvBN, Conv, BatchNorm, SqueezeExcite, EmbeddingHead,
-l2_normalize.
+l2_normalize, and the W8A8 int8 convs.
 
 Counterpart of ``tf_face_toolbox_tpu/models/layers.py``. Activations
 are NHWC, as in the JAX package, and stay physically NHWC: a conv runs
@@ -12,6 +12,19 @@ auto-names (``ConvBN_0``, ``BatchNorm_0``, ``Dense_0``) so the JAX
 ``dtype`` is the compute dtype; parameters and BN statistics stay f32.
 BatchNorm runs in f32 on the (possibly bf16) conv output and rounds to
 the compute dtype after, as flax's BatchNorm does.
+
+int8 serving (``ConvBN(quantized=...)``, JAX's modes): the weight is
+quantized per output channel (``ks = max|w| / 127``, round half to
+even), the activation per sample (``dynamic``) or with a frozen
+per-tensor scale from calibration (``static``: ``act_max / 127``, a
+buffer whose JAX key is ``quant_stats/<path>/act_max``), and the int8
+product accumulates in int32 (``int8_conv2d_nhwc``: ``torch._int_mm``
+on the card's int8 tensor cores; on the host its float64 plain version).
+Every division by a scale divides by a tensor (torch turns a division
+by a host scalar into a product with its reciprocal on the card), and
+every ``max / 127`` is, as XLA folds it, a product with the f32
+reciprocal of 127. ``qat`` fake-quantizes the train forward's conv inputs and
+kernels with straight-through gradients (``fake_quant_ste``).
 
 A forward given ``train=TrainContext(...)`` runs in train mode: BatchNorm
 normalizes with the batch's statistics and puts its updated running
@@ -62,6 +75,282 @@ def conv2d_same_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
                  groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _im2col(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """(N, Ho, Wo, k * k * C) patches of SAME-padded NHWC ``x``, taps in
+    (row, column) order and channels inside a tap: the k * k shifted
+    strided views side by side (a 1x1 conv's is ``x`` itself, strided)."""
+    n, h, w, _ = x.shape
+    top, bottom, left, right = same_pad(h, w, k, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+    ho, wo = -(-h // stride), -(-w // stride)
+    taps = [x[:, dy:dy + stride * (ho - 1) + 1:stride,
+              dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(k) for dx in range(k)]
+    return taps[0] if k == 1 else torch.cat(taps, dim=-1)
+
+
+def _int_mm_weight(kq: torch.Tensor, groups: int) -> torch.Tensor:
+    """An OIHW int8 kernel as ``_int_mm``'s (K, O) operand, K and O padded
+    with zeros to multiples of 8: rows in ``_im2col``'s (tap, channel)
+    order over ALL input channels, so a grouped kernel is block-diagonal
+    (a group's output columns are zero outside its channels). Column-major
+    (the transpose of a contiguous (O, K) matrix)."""
+    o, cg, kh, kw = kq.shape
+    c = cg * groups
+    w = kq.permute(0, 2, 3, 1)                      # (O, kh, kw, cg)
+    if groups > 1:
+        full = torch.zeros((groups, o // groups, kh, kw, groups, cg),
+                           dtype=kq.dtype, device=kq.device)
+        g = torch.arange(groups, device=kq.device)
+        full[g, :, :, :, g] = w.reshape(groups, o // groups, kh, kw, cg)
+        w = full.reshape(o, kh, kw, c)
+    w = w.reshape(o, kh * kw * c)
+    w = F.pad(w, (0, -w.shape[1] % 8, 0, -o % 8))
+    return w.t()
+
+
+def int8_conv2d_int_mm(xq: torch.Tensor, kq: torch.Tensor, stride: int,
+                       groups: int = 1) -> torch.Tensor:
+    """The int8 SAME conv as one ``torch._int_mm`` (s8 x s8 -> s32): the
+    (N * Ho * Wo, K) int8 im2col of ``xq`` (a 1x1 stride-1 conv's is the
+    NHWC tensor itself, no copy) times ``_int_mm_weight``. M is padded to
+    more than 16 rows and K to a multiple of 8 with zeros (exact), as
+    ``_int_mm``'s shape rules ask. A grouped conv runs block-diagonal: the
+    zero blocks cost G x the operations and kernel bytes, not exactness,
+    and this one call outran one ``_int_mm`` a group (N 4 to 32 a group)
+    and cuDNN's f32 conv of the values (inexact on the card: not a direct
+    sum) at every resnext_50 shape (``bench_int8``). -> (N, Ho, Wo, O)
+    int32."""
+    k = kq.shape[-1]
+    cols = _im2col(xq, k, stride)
+    n, ho, wo, kk = cols.shape
+    a = cols.reshape(n * ho * wo, kk)
+    b = _int_mm_weight(kq, groups)
+    m = a.shape[0]
+    pad_m = 32 - m if m <= 16 else 0
+    if pad_m or b.shape[0] != kk:
+        a = F.pad(a, (0, b.shape[0] - kk, 0, pad_m))
+    y = torch._int_mm(a, b)
+    return y[:m, :kq.shape[0]].reshape(n, ho, wo, kq.shape[0])
+
+
+def int8_conv2d_plain(xq: torch.Tensor, kq: torch.Tensor, stride: int,
+                      groups: int = 1) -> torch.Tensor:
+    """``int8_conv2d_int_mm``'s plain version: ``F.conv2d`` in float64 on
+    the int8 values (every sum exact below 2^53) -> int32 NHWC."""
+    y = conv2d_same_nhwc(xq.to(torch.float64), kq.to(torch.float64), stride,
+                         groups=groups)
+    return y.to(torch.int32)
+
+
+def int8_conv2d_nhwc(xq: torch.Tensor, kq: torch.Tensor, stride: int,
+                     groups: int = 1,
+                     out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """W8A8 SAME conv: NHWC int8 ``xq``, OIHW int8 ``kq`` (O, C / groups,
+    kh, kw), int32 accumulation -> NHWC ``out_dtype``: int32, or a float
+    type the exact sum is rounded to as XLA's ``preferred_element_type``
+    does (through f32: int32 -> f32 -> bf16, two roundings past 2^24).
+
+    On a CUDA tensor it runs ``int8_conv2d_int_mm`` (the card's int8
+    tensor cores) and counts the call in ``int8_conv2d_nhwc.launches``;
+    there is no other route there. On the host it runs the plain
+    version."""
+    if xq.dtype != torch.int8 or kq.dtype != torch.int8:
+        raise TypeError(f"int8 conv wants int8 operands, got {xq.dtype} "
+                        f"and {kq.dtype}")
+    if xq.is_cuda:
+        y = int8_conv2d_int_mm(xq, kq, stride, groups)
+        int8_conv2d_nhwc.launches += 1
+    else:
+        y = int8_conv2d_plain(xq, kq, stride, groups)
+    if out_dtype == torch.int32:
+        return y
+    return y.to(torch.float32).to(out_dtype)
+
+
+int8_conv2d_nhwc.launches = 0
+
+
+# the f32 reciprocal of 127: XLA folds a division by the constant 127
+# into a product with it (JAX's scales are max / 127.0), so the port
+# multiplies by it too
+INV127 = 1.0 / 127.0     # rounded to f32 where it is used
+
+
+def _over_127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127.0`` as XLA computes it: ``t * f32(1 / 127)``, a tensor
+    product (a host-scalar operand would not round the same everywhere)."""
+    return t * torch.full((), INV127, dtype=torch.float32, device=t.device)
+
+
+def quantize_weight(weight: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of an OIHW kernel: (kq int8,
+    ks (O,) f32), ``ks = max(max|w| / 127, 1e-12)``, ``kq = round(w /
+    ks)`` (half to even, as ``jnp.round``)."""
+    w = weight.detach().to(torch.float32)
+    amax = w.abs().amax(dim=(1, 2, 3))
+    ks = torch.clamp_min(_over_127(amax), 1e-12)
+    return torch.round(w / ks[:, None, None, None]).to(torch.int8), ks
+
+
+def quantize_activation(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / xs), -127, 127)`` as int8; ``xs`` broadcasts."""
+    return torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int,
+              groups: int = 1,
+              act_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """JAX ``layers.int8_conv``: W8A8 conv of NHWC ``x`` -> f32 NHWC.
+
+    ``act_scale`` None: a dynamic per-sample scale, ``max(max|x| over (H,
+    W, C) / 127, 1e-12)``; the int32 product, as f32, times ``(xs *
+    ks)`` (computed first, in f32). Else the frozen per-tensor scale
+    (``max(act_scale, 1e-12)``) and ``int8_conv_prequant``'s bf16 path.
+    """
+    kq, ks = quantize_weight(weight)
+    x = x.to(torch.float32)
+    if act_scale is None:
+        amax = x.abs().amax(dim=(1, 2, 3), keepdim=True)
+        xs = torch.clamp_min(_over_127(amax), 1e-12)
+        y = int8_conv2d_nhwc(quantize_activation(x, xs), kq, stride, groups)
+        return y.to(torch.float32) * (xs * ks.view(1, 1, 1, -1))
+    xs = torch.clamp_min(act_scale, 1e-12)
+    return int8_conv_prequant(quantize_activation(x, xs), xs, weight, stride,
+                              groups, _ks=(kq, ks))
+
+
+def int8_conv_prequant(xq: torch.Tensor, xs: torch.Tensor,
+                       weight: torch.Tensor, stride: int, groups: int = 1,
+                       _ks=None) -> torch.Tensor:
+    """JAX ``layers.int8_conv_prequant``: the int8 conv of an already
+    quantized activation (scale ``xs``, a 0-d f32 tensor), its exact sum
+    rounded to bf16, times ``(xs * ks)`` rounded to bf16, in bf16 -> f32.
+    The static-int8 residual carry's consumers read ``xq`` this way."""
+    kq, ks = quantize_weight(weight) if _ks is None else _ks
+    y = int8_conv2d_nhwc(xq, kq, stride, groups, out_dtype=torch.bfloat16)
+    scale = (xs * ks.view(1, 1, 1, -1)).to(torch.bfloat16)
+    return (y * scale).to(torch.float32)
+
+
+def fake_quant_ste(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 fake quantization with a straight-through gradient:
+    forward ``x + (round(clip(x / scale)) * scale - x)``, the value grid
+    of the int8 serving path (as JAX computes it: not exactly ``q``);
+    backward the identity."""
+    q = torch.clamp(torch.round(x / scale), -127, 127) * scale
+    return x + (q - x).detach()
+
+
+def fake_quant_scale(x: torch.Tensor, dims=None) -> torch.Tensor:
+    """QAT's scale: ``max(max|x| / 127, 1e-12)`` over ``dims`` (all: a
+    per-tensor scale) of the detached value, keeping dims."""
+    a = x.detach().abs()
+    amax = a.amax() if dims is None else a.amax(dim=dims, keepdim=True)
+    return torch.clamp_min(_over_127(amax), 1e-12)
+
+
+QUANT_MODES = (False, True, "dynamic", "calibrate", "static",
+               "static_dense", "qat")
+# modes that record or read each conv's act_max (calibration records it
+# for every conv, grouped ones too; static_dense serves those in fp)
+CALIBRATED = ("calibrate", "static", "static_dense")
+
+
+def check_quant_mode(quantized) -> None:
+    if quantized not in QUANT_MODES:
+        raise ValueError(f"unknown quantized mode {quantized!r}; have "
+                         "False, True/'dynamic', 'calibrate', 'static', "
+                         "'static_dense', 'qat'")
+
+
+STATIC_NEEDS_STATS = ("quantized='static' needs calibrated quant_stats; "
+                      "run models.calibrate_quant_stats(...) first")
+
+
+def check_calibrated(module: nn.Module, stat: torch.Tensor) -> None:
+    """Raise JAX's error for a static scale never calibrated nor loaded:
+    ``module.stats_loaded``, a host flag that ``load_jax_variables`` and
+    ``load_state_dict`` set, is False (no sync on the card), or, on a
+    host tensor, the scale is still NaN."""
+    if not module.stats_loaded or (not stat.is_cuda and torch.isnan(stat)):
+        raise ValueError(STATIC_NEEDS_STATS)
+
+
+class FrozenStats(nn.Module):
+    """A module with calibrated scale buffers (``stat_names``): its
+    ``stats_loaded`` flag starts False and turns True when a
+    ``load_state_dict`` carries every one of them
+    (``interop.port.load_jax_variables`` sets it itself)."""
+
+    stat_names: tuple = ()
+    stats_loaded = False
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if self.stat_names and all(prefix + name in state_dict
+                                   for name in self.stat_names):
+            self.stats_loaded = True
+
+
+class QuantConv(FrozenStats):
+    """What ConvBN and DenseNet's pre-activation conv share: the conv of
+    one f32 ``weight`` (OIHW) in every ``quantized`` mode, so one
+    checkpoint loads into all of them, and an ``act_max`` buffer (JAX
+    key ``quant_stats/<path>/act_max``) in the calibrated modes.
+
+    ``act_max`` starts as NaN: a static forward before calibration or a
+    load raises, as JAX's does without the variable. A calibrate forward
+    (eval) folds ``max|x|`` of its input into it.
+    """
+
+    def _init_quant(self, quantized, groups: int) -> None:
+        check_quant_mode(quantized)
+        self.quantized = quantized
+        mode = "dynamic" if quantized is True else quantized
+        if mode == "static_dense":
+            # grouped convs (ResNeXt's width-4 groups) stay fp; calibration
+            # still records their act_max
+            mode = "static" if groups == 1 else False
+        self.mode = mode
+        if quantized in CALIBRATED:
+            self.register_buffer("act_max",
+                                 torch.full((), float("nan")))
+            self.stat_names = ("act_max",)
+
+    def quant_conv(self, x: torch.Tensor, stride: int, groups: int,
+                   dtype: torch.dtype, train, prequant=None) -> torch.Tensor:
+        """The conv of ``x`` (or of the int8 carry ``prequant = (xq,
+        xs)``) in this module's mode, in ``dtype`` (before BatchNorm)."""
+        mode = self.mode
+        weight = self.weight
+        if mode == "qat" and train is not None:
+            # fake-quantized in f32, cast to the compute dtype for the conv
+            xf = x.to(torch.float32)
+            x = fake_quant_ste(xf, fake_quant_scale(xf))
+            weight = fake_quant_ste(weight,
+                                    fake_quant_scale(weight, (1, 2, 3)))
+        if mode == "calibrate" and train is None:
+            with torch.no_grad():
+                self.act_max.copy_(torch.fmax(
+                    self.act_max, x.detach().to(torch.float32).abs().amax()))
+        if mode == "static" and train is None:
+            if prequant is not None:
+                y = int8_conv_prequant(prequant[0], prequant[1], weight,
+                                       stride, groups)
+            else:
+                check_calibrated(self, self.act_max)
+                y = int8_conv(x, weight, stride, groups,
+                              act_scale=_over_127(self.act_max))
+            return y.to(dtype)
+        if mode == "dynamic" and train is None:
+            return int8_conv(x, weight, stride, groups).to(dtype)
+        return conv2d_same_nhwc(x.to(dtype), weight.to(dtype), stride,
+                                groups=groups)
 
 
 def max_pool_same_nhwc(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -176,14 +465,23 @@ class Conv(nn.Module):
                                 self.strides)
 
 
-class ConvBN(nn.Module):
+class ConvBN(QuantConv):
     """Conv (no bias; ``groups`` splits the channels as
-    ``feature_group_count`` does) -> eval BatchNorm -> optional ReLU,
-    NHWC."""
+    ``feature_group_count`` does) -> BatchNorm -> optional ReLU, NHWC.
+
+    ``quantized`` (JAX's ``ConvBN`` modes; the int8 ones serve in eval
+    only, a train forward runs the fp conv): False; True / "dynamic"
+    (W8A8, per-sample scales); "calibrate" (fp, records ``act_max``);
+    "static" (W8A8 with the frozen scale, or the int8 carry given as
+    ``prequant``); "static_dense" (static for dense convs, fp for
+    grouped ones); "qat" (a train forward fake-quantizes the input per
+    tensor and the kernel per output channel; eval is fp).
+    """
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  strides: int = 1, relu: bool = True,
-                 dtype: torch.dtype = torch.float32, groups: int = 1):
+                 dtype: torch.dtype = torch.float32, groups: int = 1,
+                 quantized: bool | str = False):
         super().__init__()
         self.strides = strides
         self.relu = relu
@@ -191,11 +489,13 @@ class ConvBN(nn.Module):
         self.groups = groups
         self.weight = conv_weight(in_features, features, kernel_size, groups)
         self.BatchNorm_0 = BatchNorm(features)
+        self._init_quant(quantized, groups)
 
-    def forward(self, x: torch.Tensor,
-                train: TrainContext | None = None) -> torch.Tensor:
-        y = conv2d_same_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
-                             self.strides, groups=self.groups)
+    def forward(self, x: torch.Tensor, train: TrainContext | None = None,
+                prequant: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        y = self.quant_conv(x, self.strides, self.groups, self.dtype, train,
+                            prequant)
         y = self.BatchNorm_0(y, self.dtype, train)
         return torch.relu(y) if self.relu else y
 

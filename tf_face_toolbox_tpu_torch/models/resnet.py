@@ -7,10 +7,18 @@ space2depth and dct stems. The dct stem takes standardized pixels,
 which it turns into 8x8 block coefficients (``ops/dct.block_dct``), or
 coefficients (N, H/8, W/8, 192) from ``ops/dct.prepare_coefficients``;
 a frequency BatchNorm, a 1x1 ConvBN to 4 * ``dct_stem_features`` and a
-depth-to-space take them to (H/4, W/4, ``dct_stem_features``). int8
-serving raises NotImplementedError naming the ROADMAP.md item that
-ports it. Eval by default; ``net(images, train=TrainContext(...))``
-runs train mode (models/layers.py).
+depth-to-space take them to (H/4, W/4, ``dct_stem_features``). Eval by
+default; ``net(images, train=TrainContext(...))`` runs train mode
+(models/layers.py).
+
+``quantized`` (JAX's modes, models/layers.ConvBN) applies to every
+bottleneck conv; the stems stay fp. In "static" and "static_dense" the
+stream between blocks is the static-int8 residual carry: quantized once
+at each block's input with the frozen scale ``block_<i>_in_max / 127``
+(a buffer of the net, JAX key ``quant_stats/block_<i>_in_max``), and
+the block's first conv, its projection and its dequantized skip all
+read that one int8 tensor. "calibrate" records those maxima with the
+convs'; "qat" fake-quantizes the stream in a train forward.
 
 ``remat`` (the JAX module's argument) recomputes each bottleneck block
 in backward instead of keeping its activations: ``True`` keeps only the
@@ -28,12 +36,20 @@ from torch import nn
 from torch.utils import checkpoint
 
 from tf_face_toolbox_tpu_torch.models.layers import (
+    CALIBRATED,
     BatchNorm,
     ConvBN,
     EmbeddingHead,
+    FrozenStats,
     SqueezeExcite,
     TrainContext,
+    _over_127,
+    check_calibrated,
+    check_quant_mode,
+    fake_quant_scale,
+    fake_quant_ste,
     max_pool_same_nhwc,
+    quantize_activation,
 )
 from tf_face_toolbox_tpu_torch.ops.dct import block_dct
 
@@ -44,35 +60,40 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, strides: int,
                  expansion: int = 4, dtype: torch.dtype = torch.float32,
-                 groups: int = 1, se_reduction: int = 0):
+                 groups: int = 1, se_reduction: int = 0,
+                 quantized: bool | str = False):
         super().__init__()
         out_features = features * expansion
         self.strides = strides
-        self.ConvBN_0 = ConvBN(in_features, features, 1, dtype=dtype)
-        self.ConvBN_1 = ConvBN(features, features, 3, strides, dtype=dtype,
-                               groups=groups)
-        self.ConvBN_2 = ConvBN(features, out_features, 1, relu=False,
-                               dtype=dtype)
+        self.dtype = dtype
+        q = dict(dtype=dtype, quantized=quantized)
+        self.ConvBN_0 = ConvBN(in_features, features, 1, **q)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides, groups=groups,
+                               **q)
+        self.ConvBN_2 = ConvBN(features, out_features, 1, relu=False, **q)
         if se_reduction > 0:
             self.SqueezeExcite_0 = SqueezeExcite(out_features, se_reduction)
         if in_features != out_features or strides != 1:
             self.ConvBN_3 = ConvBN(in_features, out_features, 1, strides,
-                                   relu=False, dtype=dtype)
+                                   relu=False, **q)
 
-    def forward(self, x: torch.Tensor,
-                train: TrainContext | None = None) -> torch.Tensor:
-        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x, train), train),
-                          train)
+    def forward(self, x: torch.Tensor | None,
+                train: TrainContext | None = None,
+                prequant: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """``prequant = (xq int8, xs)``: the static-int8 carry in place of
+        ``x`` (None); the first conv, the projection and the skip (dequantized,
+        ``xq * xs`` in the compute dtype) read it."""
+        if prequant is not None:
+            xq, xs = prequant
+            x = xq.to(self.dtype) * xs.to(self.dtype)
+        y = self.ConvBN_0(x, train, prequant)
+        y = self.ConvBN_2(self.ConvBN_1(y, train), train)
         if hasattr(self, "SqueezeExcite_0"):
             y = self.SqueezeExcite_0(y)
-        residual = (self.ConvBN_3(x, train) if hasattr(self, "ConvBN_3")
-                    else x)
+        residual = (self.ConvBN_3(x, train, prequant)
+                    if hasattr(self, "ConvBN_3") else x)
         return torch.relu(residual + y)
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
-                              f"item {item})")
 
 
 def block_strides(stage_idx: int, block_idx: int, stem: str) -> int:
@@ -83,7 +104,7 @@ def block_strides(stage_idx: int, block_idx: int, stem: str) -> int:
     return 2 if first and (stage_idx > 0 or stem == "face") else 1
 
 
-class ResNet(nn.Module):
+class ResNet(FrozenStats):
     """ResNet producing a face embedding: (N, H, W, 3) -> (N, D) f32.
 
     ``input_size`` sizes the flatten head's Dense (flax infers it at
@@ -101,8 +122,7 @@ class ResNet(nn.Module):
                  quantized: bool | str = False, remat: bool | str = False,
                  input_size: int = 112, dct_stem_features: int = 256):
         super().__init__()
-        if quantized:
-            _unsupported("int8 serving", "18")
+        check_quant_mode(quantized)
         if remat not in (False, True, "save_convs"):
             raise ValueError(f"unknown remat {remat!r}; have False, True, "
                              "'save_convs'")
@@ -114,6 +134,7 @@ class ResNet(nn.Module):
         self.stem = stem
         self.head_variant = head_variant
         self.dtype = dtype
+        self.quantized = quantized
 
         size = input_size
         channels = 64
@@ -145,7 +166,12 @@ class ResNet(nn.Module):
                     f"BottleneckBlock_{counter}",
                     BottleneckBlock(channels, features, strides, expansion,
                                     dtype=dtype, groups=groups,
-                                    se_reduction=se_reduction))
+                                    se_reduction=se_reduction,
+                                    quantized=quantized))
+                if quantized in CALIBRATED:
+                    self.register_buffer(f"block_{counter}_in_max",
+                                         torch.full((), float("nan")))
+                    self.stat_names += (f"block_{counter}_in_max",)
                 channels = features * expansion
                 counter += 1
         self.num_blocks = counter
@@ -181,7 +207,24 @@ class ResNet(nn.Module):
             x = self.ConvBN_0(x, train)
         if self.stem == "imagenet":
             x = max_pool_same_nhwc(x, 3, 2)
-        for block in self.blocks():
+        q = self.quantized
+        for i, block in enumerate(self.blocks()):
+            if q == "calibrate" and train is None:
+                stat = getattr(self, f"block_{i}_in_max")
+                stat.copy_(torch.fmax(
+                    stat, x.detach().to(torch.float32).abs().amax()))
+            elif q == "qat" and train is not None:
+                # the stream fake-quantized as the static carry will
+                # serve it, per tensor over this rank's batch
+                xf = x.to(torch.float32)
+                x = fake_quant_ste(xf, fake_quant_scale(xf)).to(self.dtype)
+            elif q in ("static", "static_dense") and train is None:
+                stat = getattr(self, f"block_{i}_in_max")
+                check_calibrated(self, stat)
+                xs = _over_127(torch.clamp_min(stat, 1e-12))
+                xq = quantize_activation(x.to(torch.float32), xs)
+                x = block(None, train, (xq, xs))
+                continue
             if self.remat and train is not None and torch.is_grad_enabled():
                 x = _recomputed(block, x, train, self.remat)
             else:

@@ -12,8 +12,10 @@ space and layouts (``interop.port.flatten_variables``, the ``.npz``
 hand-off) plus one ``__bundle_meta__`` key holding the JSON config
 (network, embedding dim, stem/head, input geometry, input norm, quant
 mode, training step). So a bundle written by either package boots in
-the other. ``format_version`` gates forward compatibility: readers
-refuse versions they do not know.
+the other, an int8 one too: a "static" bundle carries its frozen
+``quant_stats``, so serving hosts need no calibration shard.
+``format_version`` gates forward compatibility: readers refuse versions
+they do not know.
 """
 
 from __future__ import annotations
@@ -93,20 +95,19 @@ def network_from_meta(meta: dict[str, Any], *, dtype: torch.dtype):
 
     stem/head_variant are the resolved module attributes recorded at
     export. ``dtype`` is the serving-side compute choice (the bundle's
-    params are f32). An int8 bundle (``quant_mode`` other than "none")
-    needs int8 serving, not yet ported (ROADMAP.md §1 item 18).
+    params are f32). An int8 bundle (``quant_mode`` "dynamic" or "static",
+    the latter with its calibrated ``quant_stats``) builds the net in that
+    mode.
     """
     from tf_face_toolbox_tpu_torch.models import create_network
 
-    quant = meta.get("quant_mode", "none")
-    if quant and quant != "none":
-        raise NotImplementedError(
-            f"bundle quant_mode={quant!r}: int8 serving is not ported yet "
-            "(ROADMAP.md §1 item 18)")
     kwargs = {}
     for key in ("stem", "head_variant"):
         if meta.get(key) is not None:
             kwargs[key] = meta[key]
+    quant = meta.get("quant_mode", "none")
+    if quant and quant != "none":
+        kwargs["quantized"] = quant
     return create_network(meta["network"],
                           embedding_dim=int(meta["embedding_dim"]),
                           dtype=dtype, input_size=int(meta["image_size"]),

@@ -7,8 +7,9 @@ Counterpart of ``tf_face_toolbox_tpu/serving/reload.py``:
 onto the newest step via :meth:`EmbeddingService.reload`; requests keep
 flowing through the old weights until the swap, which is atomic.
 
-The expensive half of a reload (checkpoint restore, BN re-fold and the
-warm-up of the rebuilt forward) runs on the watcher thread, never on
+The expensive half of a reload (checkpoint restore, a static-int8
+daemon's calibration pass, BN re-fold and the warm-up of the rebuilt
+forward) runs on the watcher thread, never on
 the request path. A reload that fails for any reason (a checkpoint
 still being written, a build error) is logged and retried next poll;
 the daemon keeps serving the previous weights.
@@ -27,7 +28,8 @@ class CheckpointWatcher:
     """Poll ``checkpoint_dir`` and hot-reload the service on new steps.
 
     ``rebuild()`` is the boot-time model-build chain packaged as a
-    closure (cli.serve owns it: restore -> optional fold). It returns
+    closure (cli.serve owns it: restore -> static-int8 calibration where
+    asked -> optional fold). It returns
     ``(variables, apply_fn_or_None, step)``; ``apply_fn=None`` means
     the module path's bare variable swap.
     """

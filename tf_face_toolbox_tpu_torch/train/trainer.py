@@ -48,8 +48,13 @@ stream) on ranks above 0 (JAX folds the device's position into its
 step key), not JAX's threefry stream; the sampled head's keys from
 (state.rng, step, 0x9FC, model index), the same on every data rank.
 
-Quantization-aware training (item 18) is not ported yet: its field
-raises naming the item.
+``quantized="qat"``: quantization-aware training. The train forward
+fake-quantizes every bottleneck conv's input (per tensor) and kernel
+(per output channel) and the stream between blocks onto the int8 grid,
+with straight-through gradients (``models/layers.py``), so the
+checkpoint serves through calibrate -> static int8 with little drift.
+Each scale is the max over the rank's own rows, as JAX's inside
+``shard_map``: no all-reduce.
 """
 
 from __future__ import annotations
@@ -100,11 +105,6 @@ _AUGMENT, _ERASE, _DROPOUT, _PFC = 0, 0xE5A5E, 0x0D12, 0x9FC
 _MODES = ("fixed", "magface", "adaface", "curricular")
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 "
-                              f"item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """All training hyperparameters: the JAX ``TrainConfig``'s fields and
@@ -153,7 +153,7 @@ class TrainConfig:
     input_norm: str = "per_image"     # or "fixed": (x - 127.5) / 127.5
     ema_decay: float = 0.0            # 0 = off
     pallas_input: bool = False        # augment through the fused kernel
-    quantized: Any = False            # "qat": item 18
+    quantized: Any = False            # "qat": quantization-aware training
     distill_alpha: float = 1.0        # the distill weight, with a teacher
 
     def __post_init__(self):
@@ -163,8 +163,6 @@ class TrainConfig:
         if self.margin_mode not in _MODES:
             raise ValueError(f"unknown margin_mode '{self.margin_mode}'; "
                              "have fixed|magface|adaface|curricular")
-        if self.quantized:
-            _not_ported("quantization-aware training", "18")
         if self.drop_path_rate > 0 and not self.network.startswith("dct_vit"):
             raise ValueError(
                 "drop_path_rate is a ViT-family knob (stochastic depth over "
@@ -252,9 +250,12 @@ def _generator(device, *parts: int) -> torch.Generator:
 
 def build_network(cfg: TrainConfig, **overrides) -> torch.nn.Module:
     """The backbone ``cfg`` names (``overrides``: other ResNet fields, such
-    as ``remat``); a ViT's drop path rate where it is set."""
+    as ``remat``); a ViT's drop path rate and the QAT mode where they are
+    set."""
     if cfg.drop_path_rate > 0:
         overrides["drop_path_rate"] = cfg.drop_path_rate
+    if cfg.quantized:
+        overrides["quantized"] = cfg.quantized
     return create_network(cfg.network, embedding_dim=cfg.embedding_dim,
                           dtype=cfg.dtype, stem=cfg.stem,
                           head_variant=cfg.head_variant,
