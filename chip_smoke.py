@@ -286,6 +286,20 @@ Phases:
     chains run beside
     phase 22's host work; phase 22 joins them, and waits for (c)'s
     daemons to be serving, before it times anything
+26. alignment, the iResNet interop and the acceptance runner at full
+    width: (a) ops/align.warp_similarity_torch on the card over 256
+    seeded 250x250 faces with random similarity landmarks -> 112x112,
+    within 1 LSB of the float64 numpy warp with >= 98% of the values
+    equal, timed with CUDA events; (b) phase 23's seeded iresnet_100
+    .npz through cli.export_torch -> InsightFace .pth ->
+    cli.import_torch -> .npz (bit-equal), then cli.extract --engine auto
+    --input_norm fixed of it over phase 23's 1,024 faces (per-face cosine
+    >= 0.999 against phase 23's embeddings); (c) python -m
+    tf_face_toolbox_tpu_torch.acceptance at resnet_v1_50 (bf16, 512-d)
+    over a synthetic LFW-layout directory at LFW's 6,000 pairs, the
+    golden rows this process's f32 module path gives
+    (--reference_embeddings): exit 0, every gate PASS. (b)'s and (c)'s
+    CLI runs go beside phase 22's host work; phase 22 joins them
 
 Exits non-zero on any failure, or when torch sees no CUDA device:
 there is no CPU path. Imports nothing of JAX. Scratch files go under
@@ -4301,6 +4315,10 @@ def phase_sharded_gallery(g, work: str, data20: dict, daemon21: dict,
         finish_int8_clis(zoo["int8"])
         secs["phase 25's CLIs and daemons' boot (their wait)"] = (
             zoo["int8"]["t_done"] - t)
+    if "item19" in zoo:
+        t = time.time()
+        finish_item19_clis(zoo["item19"])
+        secs["phase 26's CLIs (their wait)"] = zoo["item19"]["t_done"] - t
 
     # (e) times with CUDA events: the sharded search (4 launches, the
     # merge, one read back) against the one store's
@@ -5378,6 +5396,274 @@ def phase_int8(g, int8: dict, work: str, daemon21: dict,
             "daemon_launches": {"topk": n_q, "topk_q": n_q},
             "seconds": total}
 
+LFW26_IDS, LFW26_PER = 108, 8               # phase 26 (c): 864 faces
+LFW26_PAIRS = 300           # LFW's view 2: 10 folds of 300 same + 300 different
+WARP_FACES, WARP_SRC = 256, 250             # phase 26 (a): LFW's source size
+
+
+def _lfw_layout(root: str, rng) -> tuple[str, np.ndarray]:
+    """Phase 26 (c)'s synthetic LFW: LFW26_IDS identities of LFW26_PER
+    120x120 JPEGs (a ``_smooth_faces`` face each, its images that face
+    plus +-2 of noise), in ``Name/Name_0001.jpg`` layout; → (an official-format pairs file at
+    LFW's counts: 10 folds, each LFW26_PAIRS same pairs, every pair of a
+    person's images, then LFW26_PAIRS different ones; the faces before
+    JPEG, (N, 120, 120, 3) u8, in the runner's list order)."""
+    names = [f"Id_{i:04d}" for i in range(LFW26_IDS)]
+    bases = _smooth_faces(torch.Generator("cuda").manual_seed(26),
+                          LFW26_IDS, 120)
+    faces, paths = [], []
+    for name, base in zip(names, bases):
+        os.makedirs(os.path.join(root, name))
+        for k in range(1, LFW26_PER + 1):
+            faces.append(np.clip(base + rng.normal(0, 2, base.shape), 0,
+                                 255).round().astype(np.uint8))
+            paths.append(os.path.join(root, name, f"{name}_{k:04d}.jpg"))
+    for path, blob in zip(paths, _encode(faces)):
+        with open(path, "wb") as fh:
+            fh.write(blob)
+    combos = [(u, v) for u in range(1, LFW26_PER + 1)
+              for v in range(u + 1, LFW26_PER + 1)]     # 28 a person
+    same = [(names[i // len(combos)], *combos[i % len(combos)])
+            for i in range(10 * LFW26_PAIRS)]
+    a = rng.integers(0, LFW26_IDS, 10 * LFW26_PAIRS)
+    b = (a + rng.integers(1, LFW26_IDS, a.shape)) % LFW26_IDS
+    n1, n2 = rng.integers(1, LFW26_PER + 1, (2, a.size))
+    lines = [f"10\t{LFW26_PAIRS}"]
+    for fold in range(10):
+        cut = slice(fold * LFW26_PAIRS, (fold + 1) * LFW26_PAIRS)
+        lines += ["\t".join(map(str, p)) for p in same[cut]]
+        lines += [f"{names[x]}\t{u}\t{names[y]}\t{v}"
+                  for x, u, y, v in zip(a[cut], n1[cut], b[cut], n2[cut])]
+    pairs = os.path.join(os.path.dirname(root), "pairs.txt")
+    with open(pairs, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return pairs, np.stack(faces)
+
+
+def start_item19_clis(work: str, zoo_shard: str) -> dict:
+    """Phase 26's untimed runs, started beside phase 22's host work, each
+    chain in a thread (``_beside``): (b) phase 23's seeded iresnet_100
+    .npz -> cli.export_torch -> cli.import_torch -> cli.extract --engine
+    auto --input_norm fixed over phase 23's faces (``zoo_shard``); (c)
+    the synthetic LFW directory, its golden rows from this process's f32
+    module path (resnet_v1_50, seed 0, the head BN's bias shifted by 3/4
+    of the mean raw output over the faces), then python -m
+    tf_face_toolbox_tpu_torch.acceptance on the card."""
+    import shutil
+
+    from tf_face_toolbox_tpu_torch.interop.port import save_variables_npz
+    from tf_face_toolbox_tpu_torch.models import create_network, random_variables
+
+    d = os.path.join(work, "item19_26")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+
+    def iresnet() -> dict:
+        t = time.time()
+        npz = os.path.join(d, "iresnet_100.npz")
+        save_variables_npz(npz, random_variables(create_network("iresnet_100"),
+                                                 0))
+        secs = {"npz": time.time() - t}
+        pt, back = os.path.join(d, "iresnet_100.pth"), os.path.join(
+            d, "iresnet_100_imported.npz")
+        emb = os.path.join(d, "iresnet_100.npy")
+        out = {}
+        for name, *args in (
+                ("export_torch", "--variables_npz", npz, "--output", pt,
+                 "--network", "iresnet_100", "--input_norm", "fixed"),
+                ("import_torch", "--pt", pt, "--output", back, "--network",
+                 "iresnet_100"),
+                ("extract", "--variables_npz", back, "--network",
+                 "iresnet_100", "--engine", "auto", "--input_norm", "fixed",
+                 "--data", zoo_shard, "--output", emb, "--image_size", "112",
+                 "--crop_from", "112", "--batch", "128", "--loader",
+                 "python", "--device", "cuda")):
+            t = time.time()
+            out[name] = _cli_done(_cli(name, *args))
+            secs[name] = time.time() - t
+        return {"npz": npz, "back": back, "emb": emb, "lines": out,
+                "secs": secs}
+
+    def runner() -> dict:
+        from tf_face_toolbox_tpu_torch.acceptance import build_list
+        from tf_face_toolbox_tpu_torch.data.format import pack_image_list
+        from tf_face_toolbox_tpu_torch.data.pipeline import FaceShardSource
+        from tf_face_toolbox_tpu_torch.extract import extract_shard
+        from tf_face_toolbox_tpu_torch.interop.port import load_jax_variables
+        from tf_face_toolbox_tpu_torch.ops.preprocess import standardize
+
+        t = time.time()
+        lfw = os.path.join(d, "lfw")
+        pairs, faces = _lfw_layout(lfw, np.random.default_rng(26))
+        net = create_network("resnet_v1_50")
+        flat = random_variables(net, 0)
+        # random weights give every face one large shared component: every
+        # pair's cosine then falls in one step of eval_lfw's 0.0025
+        # threshold grid. The head BN's bias takes 3/4 of the mean raw
+        # output over an eighth of these faces and their mirror images off
+        load_jax_variables(net, flat).to("cuda")
+        x = standardize(torch.from_numpy(faces[::8, 4:116, 4:116]).to(
+            "cuda").float())
+        with torch.no_grad():
+            mean = torch.cat([net(x), net(x.flip(2))]).mean(0).cpu().numpy()
+        key = "params/EmbeddingHead_0/BatchNorm_0/bias"
+        flat[key] = flat[key] - np.float32(0.75) * mean
+        npz = os.path.join(d, "r50_face_seed0.npz")
+        save_variables_npz(npz, flat)
+        # the golden rows: the f32 module path over the faces in the
+        # runner's pack-list order
+        listing, shard = os.path.join(d, "list.txt"), os.path.join(
+            d, "golden.faceshard")
+        build_list(lfw, listing)
+        pack_image_list(listing, shard, root=lfw)
+        golden = os.path.join(d, "golden.npy")
+        np.save(golden, extract_shard(net, flat, FaceShardSource(shard),
+                                      image_size=112, batch=128,
+                                      loader="python", device="cuda"))
+        del net
+        secs = {"set-up": time.time() - t}
+        t = time.time()
+        workdir = os.path.join(d, "acceptance")
+        proc = collect(spawn(
+            [sys.executable, "-m", "tf_face_toolbox_tpu_torch.acceptance",
+             "--data", lfw, "--pairs", pairs, "--variables_npz", npz,
+             "--reference_embeddings", golden, "--workdir", workdir,
+             "--device", "cuda"]), 900)
+        secs["acceptance"] = time.time() - t
+        return {"proc": proc, "workdir": workdir, "golden": golden,
+                "secs": secs}
+
+    return {"dir": d, "t0": time.time(), "iresnet": _beside(iresnet),
+            "runner": _beside(runner)}
+
+
+def finish_item19_clis(item19: dict) -> None:
+    """Join phase 26's two chains: nothing of phase 26 runs on the card
+    after this but (a)."""
+    item19["iresnet"] = item19["iresnet"]()
+    item19["runner"] = item19["runner"]()
+    item19["t_done"] = time.time()
+
+
+def phase_item19(g, item19: dict, zoo: dict) -> dict:
+    """Phase 26: item 19 at full width. (a) the torch warp on the card
+    against the numpy warp, timed; (b) the iresnet_100 round trip and its
+    extraction (run beside phase 22); (c) the acceptance runner's report
+    (run beside phase 22)."""
+    import shutil
+
+    from tf_face_toolbox_tpu_torch import bench
+    from tf_face_toolbox_tpu_torch.interop.port import (
+        flatten_variables, load_variables_npz)
+    from tf_face_toolbox_tpu_torch.ops import align
+
+    t0 = time.time()
+    gpu = bench.gpu_info()
+    say(f"[26 alignment, iresnet interop, acceptance] {gpu}")
+
+    # (a) WARP_FACES seeded WARP_SRC^2 faces, each with its own landmarks:
+    # the template moved by a random similarity (scale 1.4-2.0, +-0.3
+    # rad, anywhere its 112^2 crop still overlaps the frame) plus
+    # 1.5 px of noise, aligned onto the template at 112
+    faces = torch.randint(0, 256, (WARP_FACES, WARP_SRC, WARP_SRC, 3),
+                          generator=g, device="cuda", dtype=torch.uint8)
+    host = faces.cpu().numpy()
+    rng = np.random.default_rng(260)
+    mats = []
+    for _ in range(WARP_FACES):
+        scale, theta = rng.uniform(1.4, 2.0), rng.uniform(-0.3, 0.3)
+        c, s_ = scale * np.cos(theta), scale * np.sin(theta)
+        shift = rng.uniform(-60, WARP_SRC - 100, 2)
+        lm = align.ARCFACE_TEMPLATE_112 @ np.array([[c, s_], [-s_, c]]) + shift
+        lm = lm + rng.normal(0, 1.5, lm.shape)
+        mats.append(align.umeyama(lm, align.ARCFACE_TEMPLATE_112))
+    mats = np.stack(mats)
+    got = align.warp_similarity_torch(faces, mats, 112, 112)     # warm-up
+    torch.cuda.synchronize()
+    ms = bench.time_ms(lambda: align.warp_similarity_torch(
+        faces, mats, 112, 112), iters=5, warmup=0)
+    got = got.cpu().numpy()
+    want = np.stack([align.warp_similarity(host[i], mats[i], 112, 112)
+                     for i in range(WARP_FACES)])
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    equal = float(np.mean(diff == 0))
+    outside = float(np.mean(want == 0))
+    expect(got.shape == (WARP_FACES, 112, 112, 3) and diff.max() <= 1
+           and equal >= 0.98,
+           f"warp_similarity_torch vs numpy: shape {got.shape}, max "
+           f"|diff| {diff.max()}, {equal:.2%} equal")
+    # bytes: the u8 faces read once, the crops written, the (y, x) f32
+    # coordinates copied in; no operation count binds it
+    nbytes = host.nbytes + got.nbytes + WARP_FACES * 112 * 112 * 8
+    say(f"  (a) warp_similarity_torch, {WARP_FACES} faces {WARP_SRC}x"
+        f"{WARP_SRC} u8 -> 112x112 (random similarity landmarks, Umeyama): "
+        f"max |diff| vs the float64 numpy warp {diff.max()}, {equal:.4%} "
+        f"equal ({outside:.2%} zero fill); {ms:.3f} ms a call of "
+        f"{WARP_FACES} faces (host coordinates and the gather; CUDA events, "
+        f"5 after 1), bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del faces
+
+    # (b) the iresnet_100 round trip, bit-equal; its extraction against
+    # phase 23's
+    ir = item19["iresnet"]
+    a = flatten_variables(load_variables_npz(ir["npz"]))
+    b = flatten_variables(load_variables_npz(ir["back"]))
+    same = sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+    expect(same, "iresnet_100 .npz -> export_torch -> import_torch -> .npz "
+           "is not bit-equal")
+    emb = np.load(ir["emb"])
+    ref = np.load(os.path.join(zoo["dir"], "iresnet_100.npy"))
+    cos = per_image_cos(torch.from_numpy(emb), torch.from_numpy(ref))
+    lines = ir["lines"]
+    expect(emb.shape == (ZOO_FACES, 512) and np.isfinite(emb).all()
+           and cos.min().item() >= 0.999
+           and "kernel launches: fused_block=0" in "\n".join(
+               lines["extract"]),
+           f"cli.extract of the imported iresnet_100: {emb.shape}, cosine "
+           f"vs phase 23 {cos.min().item()}")
+    n = sum(v.size for v in a.values())
+    say(f"  (b) iresnet_100 ({n:,} values, seed 0) .npz -> export_torch -> "
+        f".pth -> import_torch -> .npz: bit-equal, {len(a)} keys; "
+        f"cli.extract --engine auto --input_norm fixed of it, {ZOO_FACES} "
+        f"faces: per-face cosine vs phase 23 min {cos.min().item():.6f}, "
+        f"max |diff| {np.abs(emb - ref).max():.3g}; seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ir["secs"].items()))
+    say(f"      {lines['export_torch'][-1]}")
+    say(f"      {lines['import_torch'][-1]}")
+
+    # (c) the acceptance runner: exit 0, every gate PASS
+    run = item19["runner"]
+    proc = run["proc"]
+    report_path = os.path.join(run["workdir"], "acceptance_report.json")
+    expect(proc.returncode == 0 and os.path.exists(report_path),
+           f"acceptance runner exited {proc.returncode}:\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(report_path) as fh:
+        report = json.load(fh)
+    gates = {x["gate"]: x for x in report["gates"]}
+    expect(report["status"] == "PASS" and sorted(gates) == [
+        "lfw_accuracy_vs_reference", "per_face_cosine_vs_reference"]
+           and all(x["pass"] for x in report["gates"]),
+           f"acceptance report: status {report['status']}, gates {gates}")
+    say(f"  (c) python -m tf_face_toolbox_tpu_torch.acceptance, resnet_v1_50 "
+        f"face stem bf16 512-d (seed 0), {LFW26_IDS} x {LFW26_PER} "
+        f"synthetic LFW faces, {20 * LFW26_PAIRS} pairs, golden "
+        f"rows from the f32 module path: exit 0, {report['status']}; LFW "
+        f"accuracy {report['lfw_accuracy']:.4f}; gates "
+        + ", ".join(f"{k} {x['value']:.6g} ({'PASS' if x['pass'] else 'FAIL'})"
+                    for k, x in gates.items())
+        + "; seconds: " + ", ".join(f"{k} {v:.1f}"
+                                    for k, v in run["secs"].items()))
+    shutil.rmtree(item19["dir"], ignore_errors=True)
+    total = time.time() - t0
+    say(f"  phase 26: {total:.1f} s (its CLI chains ran beside phase 22, "
+        f"collected {item19['t_done'] - item19['t0']:.1f} s after their "
+        f"start)")
+    return {"warp_ms": ms, "warp_max_diff": int(diff.max()),
+            "warp_equal": equal, "iresnet_cos": cos.min().item(),
+            "acceptance": report["status"], "seconds": total}
+
 
 def _full_state(state) -> dict:
     """Host copies of a train state's tensors, its optimizer's included."""
@@ -5673,6 +5959,7 @@ def main() -> None:
     zoo = start_zoo_clis(g, work)
     zoo["dct"] = start_dct_clis(work, zoo["shard"])
     zoo["int8"] = int8 = start_int8_clis(work)
+    zoo["item19"] = start_item19_clis(work, zoo["shard"])
     sharded = phase_sharded_gallery(g, work, data20, daemon, zoo)
     # ---- 23. iResNet and MobileFaceNet at full width
     zoo23 = phase_zoo(g, zoo,
@@ -5683,6 +5970,8 @@ def main() -> None:
     int8_25 = phase_int8(
         g, int8, work, daemon,
         backbones["nets"]["resnet_v1_50/face"]["e2e_faces_per_sec"])
+    # ---- 26. alignment, the iResNet interop, the acceptance runner
+    phase_item19(g, zoo["item19"], zoo)
 
     t_topk = next(r for r in topk_times if r["dtype"] == "bfloat16"
                   and r["rows"] == 10_000_000 and r["batch"] == 64)

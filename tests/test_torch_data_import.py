@@ -325,15 +325,33 @@ def test_cli_prints_the_jax_line(tmp_path, name):
     _assert_same_shard(str(tmp_path / "port.faceshard"), want)
 
 
-def test_cli_pack_landmarks_refuses_naming_item_19(tmp_path):
+def test_cli_pack_landmarks_aligns_and_refuses_a_short_file(tmp_path):
+    """cli.pack --landmarks aligns while packing (JAX's shard, byte for
+    byte); a landmarks file not parallel to the list exits with JAX's
+    message."""
     listing, root = _image_tree(tmp_path, n=2)
     marks = tmp_path / "marks.txt"
-    marks.write_text("1 2 3 4 5 6 7 8 9 10\n" * 2)
+    # eyes, nose and mouth corners of a 20x20 face, in (x, y)
+    marks.write_text("6 8 14 8 10 11 7 15 13 15\n5 7 14 8 10 12 6 15 13 16\n")
+    want, got = str(tmp_path / "jax.faceshard"), str(tmp_path / "o.faceshard")
+    jax_pack(listing, want, root=root, landmarks_path=str(marks),
+             align_size=16)
     proc = _run([sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.pack",
                  "--list", listing, "--root", root, "--landmarks", str(marks),
-                 "--output", str(tmp_path / "o.faceshard")])
+                 "--align_size", "16", "--output", got])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == f"packed 2 records into {got}"
+    _assert_same_shard(got, want)
+
+    marks.write_text("6 8 14 8 10 11 7 15 13 15\n")
+    with pytest.raises(ValueError) as jax_err:
+        jax_pack(listing, str(tmp_path / "x.faceshard"), root=root,
+                 landmarks_path=str(marks))
+    proc = _run([sys.executable, "-m", "tf_face_toolbox_tpu_torch.cli.pack",
+                 "--list", listing, "--root", root, "--landmarks", str(marks),
+                 "--output", str(tmp_path / "y.faceshard")])
     assert proc.returncode != 0
-    assert "item 19" in proc.stderr and "Traceback" not in proc.stderr
+    assert str(jax_err.value) in proc.stderr and "Traceback" not in proc.stderr
 
 
 # ---- the torch dataset ---------------------------------------------------------

@@ -1101,3 +1101,23 @@ def test_int8_module_path_on_the_card_tracks_the_host(cuda, mode):
         got, want = card(x).cpu(), host(x.cpu())
     cos = torch.nn.functional.cosine_similarity(got.double(), want.double())
     assert cos.min().item() >= 0.9999
+
+
+def test_warp_on_the_card_equals_the_hosts(cuda):
+    """ops/align.warp_similarity_torch: the same f32 gather on the card
+    as on the host (bit-equal), taps outside the source included."""
+    from tf_face_toolbox_tpu_torch.ops import align
+
+    rng = np.random.default_rng(0)
+    faces = torch.randint(0, 256, (8, 250, 250, 3), generator=cuda,
+                          device="cuda", dtype=torch.uint8)
+    mats = []
+    for _ in range(8):
+        scale, theta = rng.uniform(0.5, 2.0), rng.uniform(-3, 3)
+        c, s = scale * np.cos(theta), scale * np.sin(theta)
+        mats.append([[c, -s, rng.uniform(-80, 80)],
+                     [s, c, rng.uniform(-80, 80)]])
+    got = align.warp_similarity_torch(faces, np.asarray(mats), 112, 112)
+    assert got.device.type == "cuda"
+    want = align.warp_similarity_torch(faces.cpu(), np.asarray(mats), 112, 112)
+    assert torch.equal(got.cpu(), want)

@@ -14,6 +14,12 @@
     python -m tf_face_toolbox_tpu_torch.cli.import_bin  # verification .bin
     python -m tf_face_toolbox_tpu_torch.cli.import_rec  # MXNet .rec
     python -m tf_face_toolbox_tpu_torch.cli.convert_tfrecord  # TFRecords
+    python -m tf_face_toolbox_tpu_torch.cli.import_torch  # InsightFace .pth
+    python -m tf_face_toolbox_tpu_torch.cli.export_torch  # -> InsightFace .pth
+    python -m tf_face_toolbox_tpu_torch.cli.import_tf1    # TF1 Saver checkpoint
+    python -m tf_face_toolbox_tpu_torch.cli.import_keras  # Keras model file
+
+The acceptance runner is ``python -m tf_face_toolbox_tpu_torch.acceptance``.
 """
 
 

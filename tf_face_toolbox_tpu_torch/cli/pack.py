@@ -7,9 +7,13 @@ Counterpart of ``tf_face_toolbox_tpu/cli/pack.py``:
         --output=/data/casia.faceshard
 
 ``--recode_size`` re-encodes every image to one square 4:4:4 JPEG size
-(the same half-pixel resize as the loaders). ``--landmarks`` (align
-while packing) needs ``ops/align``, not yet ported: ROADMAP.md §1 item
-19.
+(the same half-pixel resize as the loaders). ``--landmarks`` aligns
+while packing: each face is similarity-aligned to the ArcFace template
+(``ops/align``, Umeyama, the float64 host warp) at ``--align_size``
+and re-encoded 4:4:4:
+
+    python -m tf_face_toolbox_tpu_torch.cli.pack --list=list.txt \
+        --root=/data/raw --landmarks=landmarks.txt --output=aligned.faceshard
 """
 
 from __future__ import annotations
@@ -30,7 +34,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="JPEG quality when recoding")
     p.add_argument("--landmarks", default="",
                    help="align while packing: file parallel to --list with 10 "
-                        "floats per line (not yet ported: item 19)")
+                        "floats per line (x1 y1 .. x5 y5: eyes, nose, mouth "
+                        "corners); each face is similarity-aligned to the "
+                        "ArcFace template (ops/align, Umeyama) at "
+                        "--align_size and re-encoded 4:4:4")
     p.add_argument("--align_size", type=int, default=112,
                    help="aligned crop size (multiple of 8)")
     return p.parse_args(argv)
@@ -46,8 +53,8 @@ def main(argv=None) -> None:
                             recode_quality=args.recode_quality,
                             landmarks_path=args.landmarks,
                             align_size=args.align_size)
-    except NotImplementedError as e:
-        raise SystemExit(f"--landmarks: {e}") from e
+    except ValueError as e:     # a refused list, landmarks file or size
+        raise SystemExit(f"cli.pack: {e}") from e
     print(f"packed {n} records into {args.output}")
 
 

@@ -304,11 +304,21 @@ def pack_image_list(list_path: str, out_path: str, *, root: str = "",
             return buf.getvalue()
 
     if align_rows is not None:
-        # ops/align (the similarity warp) is not ported yet: ROADMAP.md
-        # §1 item 19.
-        raise NotImplementedError(
-            "packing with landmarks alignment needs ops/align, not yet "
-            "ported (ROADMAP.md §1 item 19)")
+        import io
+
+        from PIL import Image
+
+        from tf_face_toolbox_tpu_torch.ops.align import align_face
+
+        def aligned(blob: bytes, idx: int) -> bytes:
+            img = Image.open(io.BytesIO(blob)).convert("RGB")
+            arr = align_face(np.asarray(img, np.uint8),
+                             align_rows[idx], size=align_size)
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, "JPEG",
+                                      quality=recode_quality,
+                                      subsampling=0)
+            return buf.getvalue()
 
     with ShardWriter(out_path, payload=PAYLOAD_JPEG) as writer:
         with open(list_path) as f:

@@ -58,6 +58,13 @@ def _get(tree: dict, path) -> Any:
     return tree
 
 
+def _set(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree[key]
+    assert path[-1] in tree, f"no flax leaf at {'/'.join(path)}"
+    tree[path[-1]] = value
+
+
 def flatten_variables(variables: dict) -> dict[str, np.ndarray]:
     """Nested variables tree -> {"collection/a/b/leaf": array} flat dict
     (the .npz key space)."""
@@ -91,6 +98,111 @@ def save_variables_npz(path: str, variables: dict) -> None:
 def load_variables_npz(path: str) -> dict:
     with np.load(path) as data:
         return unflatten_variables({k: data[k] for k in data.files})
+
+
+# ---------------------------------------------------------------------------
+# the Keras mirror (interop/keras_mirror.py) <-> the key space
+# ---------------------------------------------------------------------------
+#
+# As ``tf_face_toolbox_tpu/interop/port.py:59-147``: the mirror names
+# every weighted Keras layer with its key-space module path, and the
+# layouts match (NHWC/HWIO, Dense (in, out)), so porting is assignment.
+# Both directions are total: every leaf is consumed or produced.
+#
+#     ConvBN path P:
+#       params/P/kernel                   <-> Conv2D(name=P).kernel
+#       params/P/BatchNorm_0/scale, bias  <-> BN(name=P+".BatchNorm_0")
+#                                             .gamma, .beta
+#       batch_stats/P/BatchNorm_0/mean, var <-> .moving_mean,
+#                                             .moving_variance
+#     Dense path P: params/P/kernel, bias <-> Dense(name=P) weights
+
+def _weighted_layers(model):
+    from tensorflow import keras
+
+    for layer in model.layers:
+        if isinstance(layer, keras.layers.Conv2D):
+            yield "conv", layer
+        elif isinstance(layer, keras.layers.BatchNormalization):
+            yield "bn", layer
+        elif isinstance(layer, keras.layers.Dense):
+            yield "dense", layer
+
+
+def _flax_paths_for(kind: str, layer_name: str):
+    """Keras layer name -> the (params_paths, stats_paths) it owns."""
+    path = layer_name.split(".")
+    if kind == "conv":
+        return [path + ["kernel"]], []
+    if kind == "bn":
+        return ([path + ["scale"], path + ["bias"]],
+                [path + ["mean"], path + ["var"]])
+    if kind == "dense":
+        return [path + ["kernel"], path + ["bias"]], []
+    raise ValueError(kind)
+
+
+def jax_to_keras(variables: dict, model) -> None:
+    """Copy a nested ``variables`` tree (params + batch_stats) into the
+    mirror ``model`` in place; asserts every leaf was consumed."""
+    params = _to_mutable(variables["params"])
+    stats = _to_mutable(variables.get("batch_stats", {}))
+    remaining = {("params",) + p for p in _leaf_paths(params)}
+    remaining |= {("stats",) + p for p in _leaf_paths(stats)}
+
+    def take(tree, tag, path):
+        value = np.asarray(_get(tree, path), np.float32)
+        key = (tag, *path)
+        assert key in remaining, f"flax leaf reused/missing: {key}"
+        remaining.discard(key)
+        return value
+
+    for kind, layer in _weighted_layers(model):
+        p_paths, s_paths = _flax_paths_for(kind, layer.name)
+        weights = [take(params, "params", p) for p in p_paths]
+        weights += [take(stats, "stats", p) for p in s_paths]
+        assert len(weights) == len(layer.get_weights()), layer.name
+        layer.set_weights(weights)
+
+    assert not remaining, (
+        f"{len(remaining)} flax leaves not ported, e.g. "
+        f"{sorted(remaining)[:5]}")
+
+
+def keras_to_jax(model, variables_template: dict) -> dict:
+    """Read the mirror ``model``'s weights into a fresh nested variables
+    tree shaped like the nested ``variables_template`` (e.g.
+    :func:`jax_variables` of the port's network); asserts every leaf is
+    written."""
+    params = _to_mutable(variables_template["params"])
+    stats = _to_mutable(variables_template.get("batch_stats", {}))
+    pending = {("params",) + p for p in _leaf_paths(params)}
+    pending |= {("stats",) + p for p in _leaf_paths(stats)}
+
+    def put(tree, tag, path, value):
+        old = _get(tree, path)
+        assert tuple(value.shape) == tuple(np.shape(old)), (
+            f"{'/'.join(path)}: keras {value.shape} vs flax "
+            f"{np.shape(old)}")
+        _set(tree, path, value.astype(np.asarray(old).dtype))
+        pending.discard((tag, *path))
+
+    for kind, layer in _weighted_layers(model):
+        p_paths, s_paths = _flax_paths_for(kind, layer.name)
+        weights = [np.asarray(w) for w in layer.get_weights()]
+        assert len(weights) == len(p_paths) + len(s_paths), layer.name
+        for path, w in zip(p_paths, weights[:len(p_paths)]):
+            put(params, "params", path, w)
+        for path, w in zip(s_paths, weights[len(p_paths):]):
+            put(stats, "stats", path, w)
+
+    assert not pending, (
+        f"{len(pending)} flax leaves not filled, e.g. "
+        f"{sorted(pending)[:5]}")
+    out: dict[str, Any] = {"params": params}
+    if "batch_stats" in variables_template:
+        out["batch_stats"] = stats
+    return out
 
 
 # state_dict leaf name -> (collection, JAX leaf) for the rank-free ones
@@ -174,6 +286,14 @@ def to_jax_layout(tensor: torch.Tensor, kind: str) -> np.ndarray:
 def from_jax_layout(arr, kind: str) -> torch.Tensor:
     """A JAX-layout array as a torch-layout f32 tensor (a copy)."""
     return torch.tensor(_to_torch_layout(np.asarray(arr, np.float32), kind))
+
+
+def jax_variables(net: nn.Module) -> dict:
+    """``net``'s parameters and buffers as a nested variables tree of host
+    f32 copies in the key space and JAX layouts: the template the
+    importers fill (``cli.import_tf1``, ``cli.import_keras``)."""
+    return unflatten_variables({key: to_jax_layout(t, kind)
+                                for key, t, kind in jax_leaves(net)})
 
 
 def named_to_flat(named: dict) -> dict[str, np.ndarray]:
